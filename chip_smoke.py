@@ -1,0 +1,382 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero before the result line):
+  1. the card's name and power limit (nvidia-smi), and the parallel nvcc
+     build of every kernel the main path runs;
+  2. each kernel against its plain PyTorch version at the shapes of the
+     PageRank graph: triplet (sum to dst, sum to src, min), apply (sum,
+     min), segment_sum — with kernel, plain and library-call times and the
+     least time the card's memory rate allows;
+  3. PageRank (tol 0, 10 supersteps) on rmat(22, 16, seed=0), P=4: fused
+     plans, bit-equal to the unfused plan, within 1e-4 of a float64 oracle;
+  4. connected components on symmetrize(rmat(21, 16, seed=1)), P=4: labels
+     bit-equal to scipy's min-id labels and to the unfused plan.
+It then prints the kernel table as one JSON line and, last, the device line
+{"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
+F32_FLOPS = 67e12              # H100 SXM f32 rate outside the tensor cores
+F32_U = 2.0 ** -24             # f32 unit roundoff
+P = 4
+PR_SCALE, CC_SCALE, PR_ITERS = 22, 21, 10
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def cuda_ms(fn, n: int = 5) -> float:
+    """Mean milliseconds of `fn` on the card over n runs after a warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
+
+
+def ir_flops(ir) -> int:
+    return sum(op.kind in ("add", "sub", "mul", "div", "min", "max", "cmp",
+                           "where", "neg", "abs") for op in ir.ops)
+
+
+def sum_tol(agg, msgs, n_slots: int):
+    """Per-slot limit [n_slots, D] (float64) on |kernel - plain| for two f32
+    sums of the same messages in different orders.  A sum of n terms in any
+    order is within gamma_(n-1) * sum|m| of the exact sum, gamma_k =
+    k u / (1 - k u) (Higham, Accuracy and Stability, 4.2), so two such sums
+    differ by at most twice that.  A slot of one message gets 0; a dropped
+    or doubled message of an ordinary slot exceeds the limit."""
+    import torch
+    absum = torch.zeros((n_slots, msgs.shape[1]), dtype=torch.float64,
+                        device=msgs.device)
+    absum.index_add_(0, agg, msgs.abs().double())
+    k = (torch.bincount(agg, minlength=n_slots).double() - 1).clamp(min=0)
+    gamma = k * F32_U / (1 - k * F32_U)
+    return 2 * gamma[:, None] * absum
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import mrtriplets as mt
+    from repro_torch.core.graph import Graph, _degree_msg
+    from repro_torch.data import rmat, symmetrize
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import segment_sum as seg_mod
+    from repro_torch.kernels import superstep as app_mod
+    from repro_torch.kernels import triplet as tri_mod
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(0)
+
+    # ---------------------------------------------------------- phase 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"card: {card}")
+    tiny = rmat(6, 4, seed=0)
+    gt = Graph.from_edges(tiny.src, tiny.dst, num_partitions=P, device=dev)
+    # the main path's vertex data layouts, built through the plain versions
+    g_pr_t = alg.attach_out_degree(gt, kernel_mode="ref").mapV(alg._pr_init)
+    g_cc_t = gt.mapV(alg._cc_init)
+    pr_vprog = alg.pagerank_vprog(0.15)
+    zero_msg = {"m": torch.tensor(0.0)}
+    imax_msg = {"m": torch.tensor(alg.IMAX, dtype=torch.int32)}
+    k_pr = mt.fused_plan(g_pr_t, alg.pagerank_send, "sum").kernel
+    k_deg = mt.fused_plan(gt, _degree_msg, "sum").kernel
+    k_cc = mt.fused_plan(g_cc_t, alg.cc_send, "min").kernel
+    a_pr = mt._plan_apply(g_pr_t, pr_vprog, alg.pagerank_send, "sum", None,
+                          zero_msg, None).kernel
+    a_cc = mt._plan_apply(g_cc_t, alg.cc_vprog, alg.cc_send, "min", None,
+                          imax_msg, None).kernel
+    sources = [("triplet", tri_mod.source(k_pr, "sum", "dst")),
+               ("triplet", tri_mod.source(k_deg, "sum", "src")),
+               ("triplet", tri_mod.source(k_cc, "min", "dst")),
+               ("apply", app_mod.source(a_pr, "sum")),
+               ("apply", app_mod.source(a_cc, "min")),
+               ("segment_sum", seg_mod.source())]
+    t0 = time.perf_counter()
+    build.prebuild(sources)
+    log(f"kernel build: {len(sources)} sources in "
+        f"{time.perf_counter() - t0:.1f} s (parallel nvcc)")
+
+    # ---------------------------------------------------------- phase 2
+    t0 = time.perf_counter()
+    gd = rmat(PR_SCALE, 16, seed=0)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g = Graph.from_edges(gd.src, gd.dst, num_partitions=P, device=dev)
+    torch.cuda.synchronize()
+    log(f"pagerank graph rmat({PR_SCALE},16): {g.s.num_vertices} "
+        f"vertices, {g.s.num_edges} edges; generate {t_gen:.1f} s, "
+        f"build {time.perf_counter() - t0:.1f} s")
+    s = g.s
+    nl, e_blk, v_mir, v_blk = s.p, s.e_blk, s.v_mir, s.v_blk
+    S = nl * v_mir
+    live = g.emask.contiguous()
+    n_live = int(live.sum())
+    ev_w = g.edata["w"].reshape(-1, 1).contiguous()
+    x_pr = torch.cat([torch.rand((S, 1), generator=gen) * 50 + 1,
+                      torch.rand((S, 1), generator=gen)], 1).to(dev)
+    x_cc = torch.randint(0, s.max_vid + 1, (S, 1), generator=gen,
+                         dtype=torch.int32).float().to(dev)
+    live_half = live & (torch.rand(live.shape, generator=gen) < 0.5).to(dev)
+    x0 = torch.zeros((S, 0), device=dev)
+    ev0 = torch.zeros((nl * e_blk, 0), device=dev)
+    i32 = 4
+
+    results = {}
+
+    def compare(name, got, want, limit=None):
+        """max |got - want|, and the tolerance it was held to: exact unless
+        `limit` gives a per-slot bound (rows of `got`)."""
+        diff = (got.double() - want.double()).abs()
+        err = float(diff.max()) if diff.numel() else 0.0
+        if limit is None:
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} differs from its plain version "
+                                     f"(max |err| {err})")
+            return err, "0 (exact)"
+        limit = limit.reshape(diff.shape)
+        over = diff > limit
+        if bool(over.any()):
+            raise AssertionError(f"{name}: {int(over.sum())} slots beyond "
+                                 f"their limit (max |err| {err})")
+        worst = float(torch.where(limit > 0, diff / limit, 0.0).max())
+        return err, f"per slot 2*gamma(n-1)*sum|m|; worst err/limit {worst:.3g}"
+
+    def record(kernel, variant, err, tol, ms, plain_ms, nbytes, flops,
+               library_ms=None):
+        b_ms, b_by = bound(nbytes, flops)
+        row = {"variant": variant, "max_abs_err": err, "tol": tol, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": library_ms}
+        log(f"  {kernel}[{variant}]: err {err:.3g} (tol {tol}) "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} "
+            f"ms ({b_by}), library "
+            f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}")
+        results.setdefault(kernel, []).append(row)
+
+    def check_triplet(variant, spec, x, ev, lv, to, reduce, exact):
+        """exact: every message is an integer-valued f32 and every sum stays
+        below 2^24, so a sum in any order is exact."""
+        perm = s.src_perm if to == "src" else None
+        ptr = s.agg_ptr[to]
+        call = lambda fn: fn(x, ev, s.src_slot, s.dst_slot, lv, ptr, perm,  # noqa: E731
+                             spec, to=to, reduce=reduce)
+        out_k, cnt_k = call(tri_mod.fused_triplet)
+        out_p, cnt_p = call(ref.fused_triplet)
+        torch.cuda.synchronize()
+        compare(f"triplet[{variant}] counts", cnt_k, cnt_p)
+        limit = None
+        if reduce == "sum" and not exact:
+            agg, msgs = ref.triplet_messages(x, ev, s.src_slot, s.dst_slot, lv,
+                                             ptr, perm, spec, to=to)
+            limit = sum_tol(agg, msgs, S)
+            del agg, msgs
+        err, tol = compare(f"triplet[{variant}]", out_k, out_p, limit)
+        nlv = int(lv.sum())
+        used = spec.uses("xs") + spec.uses("xd")
+        nbytes = (ptr.numel() * i32 + lv.numel()
+                  + nlv * i32 * (used + ev.shape[1] + (to == "src"))
+                  + x.numel() * 4 + out_k.numel() * 4 + cnt_k.numel() * 4)
+        record("triplet", variant, err, tol, cuda_ms(lambda: call(
+            tri_mod.fused_triplet)), cuda_ms(lambda: call(ref.fused_triplet)),
+            nbytes, nlv * (ir_flops(spec.ir) + 1))
+
+    log("phase 2: kernels vs plain versions")
+    check_triplet("sum,to=dst (pagerank send)", k_pr, x_pr, ev_w, live,
+                  "dst", "sum", exact=False)
+    check_triplet("sum,to=src (degree)", k_deg, x0, ev0, live, "src", "sum",
+                  exact=True)
+    check_triplet("min,to=dst (cc send)", k_cc, x_cc, ev0, live_half,
+                  "dst", "min", exact=True)
+
+    send_idx = s.routes["dst"][0]
+    k = send_idx.shape[2]
+    rlive = ((send_idx >= 0) & (torch.rand(send_idx.shape, generator=gen)
+                                < 0.9).to(dev)).reshape(-1).contiguous()
+    vid = s.home_vid.reshape(-1)
+    vmask = g.vmask.reshape(-1).contiguous()
+    inv = s.apply_inv["dst"]
+
+    def check_apply(variant, spec, pay, x, reduce):
+        """Kernel and plain version combine in the same ascending source
+        partition order and run the same vprog ops: exact, sums included."""
+        call = lambda fn: fn(pay, rlive, inv, x, vid, vmask, spec,  # noqa: E731
+                             reduce=reduce)
+        new_k, chg_k = call(app_mod.fused_apply)
+        new_p, chg_p = call(ref.fused_apply)
+        torch.cuda.synchronize()
+        err, tol = compare(f"apply[{variant}]", new_k, new_p)
+        compare(f"apply[{variant}] changed bits", chg_k, chg_p)
+        # the function's own inputs: one home slot index (4 B) and one live
+        # byte per route entry (the kernel's inverse table when smaller),
+        # the live payload rows, the state, and vid only if the vprog reads it
+        n_route, n_rows = rlive.numel(), int(rlive.sum())
+        reads_vid = any(op.kind == "in" and op.args[0] == "vid"
+                        for op in spec.vprog.ops)
+        nbytes = (min(n_route, inv.numel()) * i32 + n_route
+                  + n_rows * spec.dm * 4 + x.numel() * 4
+                  + reads_vid * vid.numel() * i32 + vmask.numel()
+                  + new_k.numel() * 4 + chg_k.numel() * 4)
+        record("apply", variant, err, tol,
+               cuda_ms(lambda: call(app_mod.fused_apply)),
+               cuda_ms(lambda: call(ref.fused_apply)), nbytes,
+               n_rows * spec.dm + x.shape[0] * (ir_flops(spec.vprog) + spec.dv))
+
+    pay_pr = (torch.rand((nl * nl * k, 1), generator=gen) * 3).to(dev)
+    xh_pr = (torch.rand((nl * v_blk, a_pr.dv), generator=gen) * 50 + 1).to(dev)
+    check_apply("sum (pagerank vprog)", a_pr, pay_pr, xh_pr, "sum")
+    pay_cc = torch.randint(0, s.max_vid + 1, (nl * nl * k, 1), generator=gen,
+                           dtype=torch.int32).float().to(dev)
+    xh_cc = vid.float().reshape(-1, 1).clone()
+    check_apply("min (cc vprog)", a_cc, pay_cc, xh_cc, "min")
+
+    # the unfused PageRank aggregate: messages in dst CSR order
+    msgs = torch.rand((nl, e_blk, 1), generator=gen).to(dev)
+    ptr = s.agg_ptr["dst"]
+    out_k = seg_mod.segment_sum(msgs, live, ptr).reshape(S, 1)
+    out_p = ref.segment_sum(msgs, live, ptr).reshape(S, 1)
+    torch.cuda.synchronize()
+    seg_ids = ref.csr_segments(live, ptr).reshape(-1)
+    keep = seg_ids < S
+    err, tol = compare("segment_sum", out_k, out_p, sum_tol(
+        seg_ids[keep], msgs.reshape(-1, 1)[keep], S))
+    flat = msgs.reshape(-1, 1)
+    lib_out = torch.zeros((S + 1, 1), device=dev)
+    record("segment_sum", "sum (unfused pagerank aggregate)", err, tol,
+           cuda_ms(lambda: seg_mod.segment_sum(msgs, live, ptr)),
+           cuda_ms(lambda: ref.segment_sum(msgs, live, ptr)),
+           ptr.numel() * i32 + live.numel() + n_live * 4 + out_k.numel() * 4,
+           n_live,
+           library_ms=cuda_ms(lambda: lib_out.index_add_(0, seg_ids, flat)))
+    del x_pr, x_cc, msgs, flat, out_k, out_p, pay_pr, pay_cc, seg_ids, keep
+
+    # ---------------------------------------------------------- phase 3
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"phase 3: pagerank, {PR_ITERS} supersteps")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r_f = alg.pagerank(g, num_iters=PR_ITERS, track_metrics=True)
+    torch.cuda.synchronize()
+    t_f = time.perf_counter() - t0
+    after_fused = ops.launch_counts()
+    m0 = r_f.metrics[0]
+    if (m0["plan"], m0["apply_plan"]) != ("fused", "fused_apply"):
+        raise AssertionError(f"pagerank plans {m0['plan']}, {m0['apply_plan']}")
+    if after_fused["triplet"] < PR_ITERS or after_fused["apply"] < PR_ITERS:
+        raise AssertionError(f"fused pagerank launches {after_fused}")
+    t0 = time.perf_counter()
+    r_u = alg.pagerank(g, num_iters=PR_ITERS, kernel_mode="unfused")
+    torch.cuda.synchronize()
+    t_u = time.perf_counter() - t0
+    if not torch.equal(r_f.graph.vdata["pr"], r_u.graph.vdata["pr"]):
+        raise AssertionError("pagerank: fused != unfused")
+    ids_np, vals = r_f.graph.vertices_to_numpy()
+    want = alg.pagerank_reference(gd.src, gd.dst, gd.num_vertices,
+                                  PR_ITERS)[ids_np]
+    rel = float(np.max(np.abs(vals["pr"] - want)) / np.max(np.abs(want)))
+    if not rel <= 1e-4:
+        raise AssertionError(f"pagerank vs float64 oracle: {rel}")
+    log(f"  pagerank fused {t_f:.3f} s ({t_f / r_f.supersteps * 1e3:.2f} ms "
+        f"per superstep incl. degree), unfused {t_u:.3f} s "
+        f"({t_u / r_u.supersteps * 1e3:.2f} ms per superstep); "
+        f"fused == unfused bit for bit; max|pr-ref|/max|ref| = {rel:.3g}; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del r_f, r_u, g, gd
+
+    # ---------------------------------------------------------- phase 4
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components as sp_cc
+    log("phase 4: connected components")
+    sgd = symmetrize(rmat(CC_SCALE, 16, seed=1))
+    sg = Graph.from_edges(sgd.src, sgd.dst, num_partitions=P, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c_f = alg.connected_components(sg, track_metrics=True)
+    torch.cuda.synchronize()
+    t_f = time.perf_counter() - t0
+    m0 = c_f.metrics[0]
+    if (m0["plan"], m0["apply_plan"]) != ("fused", "fused_apply"):
+        raise AssertionError(f"cc plans {m0['plan']}, {m0['apply_plan']}")
+    c_u = alg.connected_components(sg, kernel_mode="unfused")
+    if not torch.equal(c_f.graph.vdata["cc"], c_u.graph.vdata["cc"]) \
+            or c_f.supersteps != c_u.supersteps:
+        raise AssertionError("cc: fused != unfused")
+    ids_np, vals = c_f.graph.vertices_to_numpy()
+    n = sgd.num_vertices
+    adj = csr_matrix((np.ones(sgd.num_edges, np.int8), (sgd.src, sgd.dst)),
+                     shape=(n, n))
+    _, lab = sp_cc(adj, directed=False)
+    minid = np.full(lab.max() + 1, n, np.int64)
+    np.minimum.at(minid, lab[ids_np], ids_np)
+    if not np.array_equal(vals["cc"], minid[lab[ids_np]]):
+        raise AssertionError("cc labels differ from scipy's components")
+    log(f"  cc on symmetrize(rmat({CC_SCALE},16)): {sg.s.num_vertices} "
+        f"vertices, {sg.s.num_edges} edges, {c_f.supersteps} supersteps, "
+        f"{len(np.unique(vals['cc']))} components, fused {t_f:.3f} s; labels "
+        f"== scipy, fused == unfused")
+
+    launches = ops.launch_counts()
+    for name, n_launch in launches.items():
+        if n_launch <= 0:
+            raise AssertionError(f"kernel {name} never launched on the main path")
+    replaces = {"triplet": "src/repro/kernels/triplet.py:447",
+                "apply": "src/repro/kernels/superstep.py:179",
+                "segment_sum": "src/repro/kernels/segment_sum.py:101"}
+    table = []
+    for name, src in (("triplet", "src/repro_torch/csrc/triplet.cu"),
+                      ("apply", "src/repro_torch/csrc/apply.cu"),
+                      ("segment_sum", "src/repro_torch/csrc/segment_sum.cu")):
+        head = results[name][0]
+        table.append({"name": name, "route": "cuda", "source": src,
+                      "replaces": replaces[name], "launches": launches[name],
+                      "max_abs_err": max(r["max_abs_err"] for r in results[name]),
+                      "ms": head["ms"], "plain_ms": head["plain_ms"],
+                      "bound_ms": head["bound_ms"],
+                      "bound_by": head["bound_by"],
+                      "library_ms": head["library_ms"],
+                      "variants": results[name]})
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": table}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,637 @@
+"""mrTriplets execution: the physical join + aggregation plan (paper §4.4–4.6).
+
+Logical plan: triplets = edges ⋈ vertices(src) ⋈ vertices(dst); messages =
+map(triplets); result = reduceByKey(messages).  Physical plan, as in
+`repro.core.mrtriplets`:
+
+  1. join elimination (§4.5.2): the UDF trace picks the routing table
+     ("src" / "dst" / "both" / none) and the vertex leaves it reads;
+  2. vertex shipping through the graph-resident view (§4.5.1): only dirty
+     leaves and missing directions move, over the dense transport;
+  3. the edge map + local aggregation, either fused — one CUDA kernel
+     gathers both endpoints, runs the UDF and reduces into mirror slots
+     (kernels/triplet.py) — or unfused: gather, vmapped UDF, segment
+     reduce (kernels/segment_sum.py for float sums);
+  4. the aggregate return over the same routes, combined at the homes in
+     ascending source-partition order, or handed raw to the fused Pregel
+     apply (kernels/superstep.py).
+
+Scope of this slice: the f32 wire, dense transport, scalar leaves in the
+fused plans, no pushed-down subgraph predicate.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from . import analysis
+from . import transport as transport_mod
+from .tree import (ElemSpec, bmask, elem_spec, gather_rows, nbytes_of,
+                   scatter_rows, tree_flatten, tree_leaves, tree_map,
+                   tree_unflatten, tree_zeros_like_elem, vmap2)
+from ..kernels import ops as kops
+from ..kernels import udf
+from ..kernels.superstep import ApplyUdf
+from ..kernels.triplet import TripletUdf
+
+# min/max fusion width cap, kept from the reference so plan decisions agree
+FUSED_MINMAX_MAX_WIDTH = 64
+# f32 mantissa: integers round-trip the kernels' f32 staging below this
+_INT_STAGE_BOUND = 1 << 24
+
+
+def reduce_identity(reduce: str, dtype: torch.dtype):
+    """The engine's identity of `reduce` in `dtype` (finite extremes)."""
+    if reduce == "sum":
+        return 0
+    info = torch.finfo(dtype) if dtype.is_floating_point else torch.iinfo(dtype)
+    return info.max if reduce == "min" else info.min
+
+
+@dataclasses.dataclass(frozen=True)
+class ViewCache:
+    """One ship's materialised view slice (the record ship_to_mirrors
+    consumes and produces; `core.view.GraphView` drives it)."""
+
+    mirror: Any              # pytree [nl, V_mir, ...]
+    filled: torch.Tensor     # [nl, V_mir] bool — slot has ever been shipped
+    active: torch.Tensor     # [nl, V_mir] bool — slot changed in this ship
+
+
+@dataclasses.dataclass(frozen=True)
+class ShipMetrics:
+    """Byte accounting of route ships (the reference's dense-wire fields)."""
+
+    wire_bytes: int                  # static bytes a dense collective moves
+    effective_bytes: torch.Tensor    # data actually needed
+    n_shipped: torch.Tensor          # route entries that carried a value
+    bytes_accounted: int             # codec accounting (== wire_bytes on f32)
+    bytes_shipped: int               # what the transport really moved
+    route_width: int                 # K of the route
+    bytes_link_modeled: float        # ring-lowered link bytes
+
+    @classmethod
+    def zero(cls, device=None) -> "ShipMetrics":
+        zi = torch.zeros((), dtype=torch.int64, device=device)
+        return cls(0, zi, zi, 0, 0, 0, 0.0)
+
+    def merge(self, other: "ShipMetrics") -> "ShipMetrics":
+        """Bytes and counts add; the route width takes the max."""
+        return ShipMetrics(
+            wire_bytes=self.wire_bytes + other.wire_bytes,
+            effective_bytes=self.effective_bytes + other.effective_bytes,
+            n_shipped=self.n_shipped + other.n_shipped,
+            bytes_accounted=self.bytes_accounted + other.bytes_accounted,
+            bytes_shipped=self.bytes_shipped + other.bytes_shipped,
+            route_width=max(self.route_width, other.route_width),
+            bytes_link_modeled=(self.bytes_link_modeled
+                                + other.bytes_link_modeled))
+
+    def to_host(self) -> dict:
+        """Python numbers, for per-superstep records."""
+        return {f.name: (v.item() if isinstance(v, torch.Tensor) else v)
+                for f in dataclasses.fields(self)
+                for v in (getattr(self, f.name),)}
+
+
+def _route_ship(ex, sendbuf: Any, flags: torch.Tensor, *, elem_bytes: int,
+                recvflags: torch.Tensor | None = None):
+    """Move one routed [nl, P, K, ...] buffer + its flags and account it."""
+    recvbuf, rflags, shipped = transport_mod.ship_transport(
+        ex, sendbuf, flags, recvflags=recvflags)
+    p = flags.shape[1]
+    static = nbytes_of(sendbuf)
+    n = flags.sum()
+    metrics = ShipMetrics(
+        wire_bytes=static, effective_bytes=n * elem_bytes, n_shipped=n,
+        bytes_accounted=static, bytes_shipped=shipped,
+        route_width=flags.shape[-1],
+        # a2a on a ring: each chip's diagonal block never leaves it
+        bytes_link_modeled=shipped * (p - 1) / max(p, 1))
+    return recvbuf, rflags, metrics
+
+
+def _take_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """t [nl, N, ...], idx [nl, P, K] (clipped) -> [nl, P, K, ...]."""
+    nl, p, k = idx.shape
+    return gather_rows(t, idx.reshape(nl, p * k)).reshape(
+        (nl, p, k) + tuple(t.shape[2:]))
+
+
+def ship_to_mirrors(s, values: Any, need: str, ex, *,
+                    active: torch.Tensor | None = None,
+                    cache: ViewCache | None = None):
+    """Materialise the replicated vertex view for one need set.
+
+    values: pytree [nl, V_blk, ...]; active [nl, V_blk] ships only those
+    rows (None: every routed row).  Returns (ViewCache, ShipMetrics)."""
+    if s.has_bcast:
+        raise NotImplementedError(
+            "the broadcast lane (bcast_min_repl) is not ported yet")
+    send_idx, recv_slot = s.routes[need]
+    nl, p, k = send_idx.shape
+    valid = send_idx >= 0
+    safe_idx = send_idx.clamp(min=0)
+    elem_bytes = nbytes_of(tree_map(lambda v: v[0, 0], values))
+
+    flags = valid if active is None else valid & _take_rows(active, safe_idx)
+    sendbuf = tree_map(lambda v: _take_rows(v, safe_idx), values)
+    sendbuf = tree_map(lambda b: torch.where(bmask(flags, b), b, 0), sendbuf)
+
+    # full ship: the receiver knows the flags from the route's structure
+    structural = (recv_slot < s.v_mir) if active is None else None
+    recvbuf, recvflags, metrics = _route_ship(
+        ex, sendbuf, flags, elem_bytes=elem_bytes, recvflags=structural)
+
+    # incremental scatter: only fresh entries overwrite their mirror slot
+    idx = torch.where(recvflags, recv_slot, s.v_mir).reshape(nl, -1)
+    init = (cache.mirror if cache is not None else tree_map(
+        lambda l: l.new_zeros((nl, s.v_mir) + tuple(l.shape[3:])), recvbuf))
+    mirror = tree_map(
+        lambda b, leaf: scatter_rows(
+            b, idx, leaf.reshape((nl, p * k) + tuple(leaf.shape[3:]))),
+        init, recvbuf)
+    shipped = scatter_rows(
+        torch.zeros((nl, s.v_mir), dtype=torch.bool, device=idx.device), idx,
+        torch.ones((nl, p * k), dtype=torch.bool, device=idx.device))
+    filled = shipped if cache is None else (cache.filled | shipped)
+    return ViewCache(mirror=mirror, filled=filled, active=shipped), metrics
+
+
+def ship_aggregates_home(s, partial: Any, had_msg: torch.Tensor, need: str,
+                         reduce: str, ex, *, combine: bool = True):
+    """Return partial aggregates [nl, V_mir, ...] to the vertex homes and
+    combine them.  Float sums combine in ascending source partition — one
+    partition's route entries hit distinct home rows, so each step is a
+    collision-free add and the order is fixed (the fused apply reproduces
+    it).  combine=False returns the raw routed buffer (recv [nl, P, K, ...],
+    rflags [nl, P, K]) for the fused apply."""
+    send_idx, recv_slot = s.routes[need]
+    nl, p, k = send_idx.shape
+    backbuf = tree_map(lambda leaf: _take_rows(leaf, recv_slot), partial)
+    backflags = _take_rows(had_msg, recv_slot) & (recv_slot < s.v_mir)
+    recv, rflags, metrics = _route_ship(
+        ex, backbuf, backflags,
+        elem_bytes=nbytes_of(tree_map(lambda v: v[0, 0], partial)))
+    if not combine:
+        return recv, rflags, metrics
+
+    v_blk = s.home_mask.shape[1]
+    # home slot of each routed entry in a padded [nl, v_blk + 1] space whose
+    # last column swallows the entries without a value
+    rows = torch.arange(nl, device=send_idx.device)[:, None, None] * (v_blk + 1)
+    slot = torch.where(rflags, send_idx, v_blk) + rows
+
+    def combine_leaf(leaf):
+        if leaf.dtype.is_floating_point:
+            leaf = leaf.float()
+        tail = tuple(leaf.shape[3:])
+        ident = reduce_identity(reduce, leaf.dtype)
+        out = torch.full((nl * (v_blk + 1),) + tail, ident, dtype=leaf.dtype,
+                         device=leaf.device)
+        if reduce == "sum" and leaf.dtype.is_floating_point:
+            for pe in range(p):
+                x = torch.where(bmask(rflags[:, pe], leaf[:, pe]),
+                                leaf[:, pe], 0)
+                out.index_add_(0, slot[:, pe].reshape(-1),
+                               x.reshape((nl * k,) + tail))
+        else:
+            flat = torch.where(bmask(rflags, leaf), leaf, ident).reshape(
+                (nl * p * k,) + tail)
+            op = {"sum": "sum", "min": "amin", "max": "amax"}[reduce]
+            out.scatter_reduce_(0, bmask(slot.reshape(-1), flat).expand_as(flat),
+                                flat, op, include_self=True)
+        return out.reshape((nl, v_blk + 1) + tail)[:, :v_blk].contiguous()
+
+    out = tree_map(combine_leaf, recv)
+    hit = torch.zeros(nl * (v_blk + 1), dtype=torch.int32,
+                      device=send_idx.device)
+    hit.index_add_(0, slot.reshape(-1), rflags.reshape(-1).int())
+    exists = hit.reshape(nl, v_blk + 1)[:, :v_blk] > 0
+    return out, exists, metrics
+
+
+def _segment_aggregate(msgs: Any, ids: torch.Tensor, valid: torch.Tensor,
+                       ptr: torch.Tensor, reduce: str, kernel_mode: str):
+    """Per-partition segment reduction of edge messages [nl, E, ...], in
+    the aggregation side's CSR order (row pointers `ptr`), into mirror
+    slots; float sums go through the segment_sum kernel."""
+    nl, e = ids.shape
+    v_mir = ptr.shape[1] - 1
+    num_seg = nl * v_mir
+    off = torch.arange(nl, dtype=torch.int32, device=ids.device)[:, None] * v_mir
+    flat_ids = torch.where(valid, ids + off, num_seg).reshape(-1)
+
+    def agg_leaf(leaf):
+        if reduce == "sum" and leaf.dtype.is_floating_point:
+            return kops.segment_sum(leaf, valid.contiguous(), ptr,
+                                    mode=kernel_mode)
+        tail = tuple(leaf.shape[2:])
+        ident = reduce_identity(reduce, leaf.dtype)
+        fill = torch.where(bmask(valid, leaf), leaf, ident).reshape(
+            (nl * e,) + tail)
+        out = torch.full((num_seg + 1,) + tail, ident, dtype=leaf.dtype,
+                         device=leaf.device)
+        op = {"sum": "sum", "min": "amin", "max": "amax"}[reduce]
+        idx = bmask(flat_ids.long(), fill).expand_as(fill)
+        out = out.scatter_reduce_(0, idx, fill, op, include_self=True)
+        return out[:num_seg].reshape((nl, v_mir) + tail)
+
+    partial = tree_map(agg_leaf, msgs)
+    counts = torch.bincount(flat_ids.long(), minlength=num_seg + 1)[:num_seg]
+    return partial, counts.reshape(nl, v_mir) > 0
+
+
+# ---------------------------------------------------------------------------
+# Fused triplet plan (kernels/triplet.py)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class _FusedPlan:
+    """Static packing layout of the fused triplet kernel."""
+
+    v_used: tuple[bool, ...]      # vdata leaves packed into the x matrix
+    src_used: tuple[bool, ...]
+    dst_used: tuple[bool, ...]
+    e_used: bool                  # whether the edge payload packs at all
+    dm: int                       # packed message width
+    msg_dtypes: tuple             # per message leaf
+    msg_treedef: Any
+    kernel: TripletUdf            # the UDF as the kernel runs it
+
+
+def _fused_int_ok(dtype: torch.dtype, bound: int) -> bool:
+    """Do integer values of `dtype` ride the kernels' f32 staging exactly?
+    Narrow ints always; signed 32-bit ints under a |value| bound < 2^24
+    (the graph's max vertex id by default: the id-valued convention)."""
+    info = torch.iinfo(dtype)
+    if info.bits <= 16:
+        return True
+    return info.bits <= 32 and info.min < 0 and bound < _INT_STAGE_BOUND
+
+
+def _fused_leaf_ok(spec: ElemSpec, bound: int, reduce: str,
+                   message: bool = False) -> bool:
+    """Scalar f32 leaves, or exactly-staged ints (int messages only under a
+    value-preserving min/max)."""
+    if spec.shape != ():
+        return False
+    if spec.dtype.is_floating_point:
+        return spec.dtype == torch.float32
+    if spec.dtype == torch.bool or spec.dtype.is_complex:
+        return False
+    if message and reduce == "sum":
+        return False
+    return _fused_int_ok(spec.dtype, bound)
+
+
+def _derive_need(deps, force_need: str | None) -> str | None:
+    """Which vertex side(s) the physical join must ship."""
+    if force_need is not None:
+        return force_need
+    return ("both" if (deps.uses_src and deps.uses_dst)
+            else "src" if deps.uses_src
+            else "dst" if deps.uses_dst else None)
+
+
+def _plan_fused(g, map_fn, deps, need, reduce, force_need, vex, eex,
+                payload_bound: int | None = None) -> _FusedPlan | None:
+    """The fused plan of this mrTriplets, or None for the unfused path:
+    sum/min/max over scalar f32 or exactly-staged int leaves, with a UDF
+    the IR covers."""
+    if reduce not in ("sum", "min", "max") or deps.msg_spec is None:
+        return None
+    bound = payload_bound if payload_bound is not None else g.s.max_vid
+    msg_leaves, msg_treedef = tree_flatten(deps.msg_spec)
+    if not msg_leaves or not all(
+            _fused_leaf_ok(m, bound, reduce, message=True) for m in msg_leaves):
+        return None
+    vleaves = tree_leaves(vex)
+    n = len(vleaves)
+    if need is None:
+        src_used = dst_used = (False,) * n
+    elif (force_need is None and deps.src_leaves is not None
+          and len(deps.src_leaves) == n):
+        src_used, dst_used = deps.src_leaves, deps.dst_leaves
+    else:
+        src_used = (need in ("src", "both"),) * n
+        dst_used = (need in ("dst", "both"),) * n
+    v_used = tuple(su or du for su, du in zip(src_used, dst_used))
+    if not all(_fused_leaf_ok(l, bound, reduce)
+               for l, u in zip(vleaves, v_used) if u):
+        return None
+    eleaves = tree_leaves(eex)
+    e_used = bool(eleaves) and (deps.uses_edge or force_need is not None)
+    if e_used and not all(_fused_leaf_ok(l, bound, reduce) for l in eleaves):
+        return None
+    dm = len(msg_leaves)
+    if reduce != "sum" and dm > FUSED_MINMAX_MAX_WIDTH:
+        return None
+    # kernel inputs: column offsets advance over the PACKED (union) leaves
+    col = np.cumsum((0,) + v_used)[:-1]
+    inputs = ([("xs", int(c)) if su else None for c, su in zip(col, src_used)]
+              + [("ev", j) if e_used else None for j in range(len(eleaves))]
+              + [("xd", int(c)) if du else None for c, du in zip(col, dst_used)])
+    ir = udf.lower(analysis.trace_udf(map_fn, vex, eex, vex), inputs)
+    if ir is None:
+        return None
+    return _FusedPlan(v_used=v_used, src_used=src_used, dst_used=dst_used,
+                      e_used=e_used, dm=dm,
+                      msg_dtypes=tuple(m.dtype for m in msg_leaves),
+                      msg_treedef=msg_treedef, kernel=TripletUdf(ir, dm))
+
+
+def _pack_cols(tree, used, nl: int, n: int, device) -> torch.Tensor:
+    """Column-pack the used leaves of a [nl, N] pytree into f32 [nl, N, D]."""
+    leaves = tree_leaves(tree) if tree is not None else []
+    cols = [l.reshape(nl, n, -1).float() for l, u in zip(leaves, used) if u]
+    if not cols:
+        return torch.zeros((nl, n, 0), dtype=torch.float32, device=device)
+    return torch.cat(cols, dim=-1)
+
+
+def _fused_aggregate(g, mirror_tree, live, to, reduce, kernel_mode,
+                     plan: _FusedPlan):
+    """Gather both endpoint views, run the map UDF and segment-reduce into
+    mirror slots in one kernel sweep; (partial [nl, V_mir] tree, had_msg)."""
+    s = g.s
+    nl = live.shape[0]
+    dev = live.device
+    x = _pack_cols(mirror_tree, plan.v_used, nl, s.v_mir, dev)
+    x = x.reshape(nl * s.v_mir, x.shape[-1])
+    n_e = len(tree_leaves(g.edata))
+    ev = _pack_cols(g.edata, (plan.e_used,) * n_e, nl, s.e_blk, dev)
+    ev = ev.reshape(nl * s.e_blk, ev.shape[-1])
+    out, cnt = kops.triplet(
+        x, ev, s.src_slot, s.dst_slot, live.contiguous(), s.agg_ptr[to],
+        s.src_perm if to == "src" else None, plan.kernel, to=to,
+        reduce=reduce, mode=kernel_mode)
+    out = out.reshape(nl, s.v_mir, plan.dm)
+    had_msg = cnt.reshape(nl, s.v_mir) > 0
+    leaves = []
+    for c, dtype in enumerate(plan.msg_dtypes):
+        # empty slots hold the f32 identity: park 0, cast, then re-assert
+        # the engine identity in the leaf's own dtype
+        leaf = torch.where(had_msg, out[..., c], 0.0).to(dtype)
+        if reduce != "sum":
+            leaf = torch.where(had_msg, leaf, reduce_identity(reduce, dtype))
+        leaves.append(leaf)
+    return tree_unflatten(leaves, plan.msg_treedef), had_msg
+
+
+def mr_triplets(g, map_fn: Callable, reduce: str = "sum", *, to: str = "dst",
+                skip_stale: str | None = None, kernel_mode: str = "auto",
+                force_need: str | None = None,
+                payload_bound: int | None = None, transport: Any = None,
+                return_routed: bool = False):
+    """Execute one mrTriplets.  Returns (values, exists, view, metrics).
+
+    values [P, V_blk, ...] aggregated at the homes, exists [P, V_blk] bool,
+    view the refreshed graph-resident GraphView.  return_routed=True stops
+    after the aggregate return: values/exists are then the routed buffer
+    and its flags, for the fused apply.
+
+    kernel_mode: "auto" (fused when eligible: the CUDA kernel on CUDA
+    tensors, its plain version on CPU tensors), "ref" (fused when eligible,
+    plain version), or "unfused" (gather -> vmapped UDF -> segment reduce,
+    with the segment_sum kernel for float sums on the card)."""
+    from . import view as view_mod      # view.py builds on this module
+    s, ex = g.s, g.ex
+    nl = g.vmask.shape[0]
+    transport_mod.resolve_transport(transport)
+
+    vex, eex = elem_spec(g.vdata), elem_spec(g.edata)
+    deps = analysis.analyze_message_fn(map_fn, vex, eex, vex)
+    need = _derive_need(deps, force_need)
+    if force_need is not None:
+        uses_src = uses_dst = True
+        arity = 1 + (need in ("src", "both")) + (need in ("dst", "both"))
+    else:
+        uses_src, uses_dst = deps.uses_src, deps.uses_dst
+        arity = deps.n_way
+    metrics: dict[str, Any] = {"join_arity": arity, "need": need or "none"}
+
+    # property-level join elimination: ship only the leaves the UDF reads
+    flat_vals = tree_leaves(g.vdata)
+    leaf_mask = (None if force_need is not None
+                 else deps.read_leaf_mask(len(flat_vals)))
+    if leaf_mask is not None and (all(leaf_mask) or not any(leaf_mask)):
+        leaf_mask = None
+    metrics["shipped_leaves"] = (0 if need is None else
+                                 sum(leaf_mask) if leaf_mask
+                                 else len(flat_vals))
+    metrics["transport"] = "dense"
+
+    graph_view = g.view
+    if not view_mod.compatible(graph_view, g.vdata, nl, s.v_mir):
+        graph_view = None
+    ships_fwd = 0
+    if need is not None:
+        view, mirror_tree, m_fwd, ships_fwd = view_mod.refresh_view(
+            g, need, leaf_mask=leaf_mask)
+        metrics["fwd"] = m_fwd
+    else:
+        mirror_tree = None
+        # no vertex data read: no delta information, every slot is fresh
+        view = (graph_view if graph_view is not None
+                else view_mod.empty_view(s, g.vdata, nl))
+        view = view.replace(active=torch.ones((nl, s.v_mir), dtype=torch.bool,
+                                              device=g.vmask.device))
+        metrics["fwd"] = ShipMetrics.zero(g.vmask.device)
+
+    # skipStale (§3.2/§4.6): drop edges whose relevant endpoint is stale
+    live = g.emask
+    if skip_stale is not None:
+        src_fresh = gather_rows(view.active, s.src_slot)
+        dst_fresh = gather_rows(view.active, s.dst_slot)
+        fresh = {"out": src_fresh, "in": dst_fresh,
+                 "both": src_fresh | dst_fresh}[skip_stale]
+        live = live & fresh
+    metrics["live_edges"] = live.sum()
+
+    plan = None
+    if kernel_mode != "unfused":
+        plan = _plan_fused(g, map_fn, deps, need, reduce, force_need,
+                           vex, eex, payload_bound)
+    metrics["plan"] = "fused" if plan is not None else "unfused"
+
+    if plan is not None:
+        partial, had_msg = _fused_aggregate(g, mirror_tree, live, to, reduce,
+                                            kernel_mode, plan)
+    else:
+        zeros_elem = tree_zeros_like_elem(g.vdata, (nl, s.e_blk))
+        svals = gather_rows(mirror_tree, s.src_slot) if uses_src else zeros_elem
+        dvals = gather_rows(mirror_tree, s.dst_slot) if uses_dst else zeros_elem
+        msgs = vmap2(map_fn)(svals, g.edata, dvals)
+        sub_mode = "auto" if kernel_mode == "unfused" else kernel_mode
+        if to == "dst":
+            ids, agg_msgs, agg_valid = s.dst_slot, msgs, live
+        else:        # the stable src sort keeps segment ids ascending
+            perm = s.src_perm.long()
+            agg_msgs = tree_map(lambda m: gather_rows(m, perm), msgs)
+            ids = gather_rows(s.src_slot, perm)
+            agg_valid = gather_rows(live, perm)
+        partial, had_msg = _segment_aggregate(agg_msgs, ids, agg_valid,
+                                              s.agg_ptr[to], reduce, sub_mode)
+
+    values, exists, m_back = ship_aggregates_home(
+        s, partial, had_msg, to, reduce, ex, combine=not return_routed)
+    metrics["back"] = m_back
+    metrics["ships_fwd"] = ships_fwd
+    metrics["ships"] = ships_fwd + 1
+    metrics["bytes_on_wire"] = (metrics["fwd"].bytes_accounted
+                                + m_back.bytes_accounted)
+    metrics["bytes_shipped"] = (metrics["fwd"].bytes_shipped
+                                + m_back.bytes_shipped)
+    metrics["bytes_link_modeled"] = (metrics["fwd"].bytes_link_modeled
+                                     + m_back.bytes_link_modeled)
+    metrics["mirror_hbm_bytes"] = nbytes_of(view.mirror)
+    return values, exists, view, metrics
+
+
+# ---------------------------------------------------------------------------
+# Fused superstep apply plan (kernels/superstep.py)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class _ApplyPlan:
+    """Static packing layout of the fused apply kernel."""
+
+    dm: int
+    dv: int
+    msg_specs: tuple              # per message leaf, combine dtype
+    msg_treedef: Any
+    v_specs: tuple                # per vdata leaf
+    v_treedef: Any
+    kernel: ApplyUdf
+
+
+def _static_scalar(d):
+    """Python value of a static scalar default, or None."""
+    if isinstance(d, (bool, int, float)):
+        return d
+    if isinstance(d, torch.Tensor) and d.dim() == 0:
+        return d.item()
+    if isinstance(d, np.ndarray) and d.ndim == 0 or isinstance(d, np.generic):
+        return np.asarray(d).item()
+    return None
+
+
+def _plan_apply(g, vprog: Callable, send_msg: Callable, reduce: str,
+                changed_fn: Callable | None, default_msg: Any,
+                payload_bound: int | None) -> _ApplyPlan | None:
+    """The fused apply plan of a superstep, or None for the unfused apply:
+    scalar f32 / exactly-staged int state and messages, static scalar
+    defaults, a vprog whose output specs equal the state's, and a vprog
+    (and changed_fn) the IR covers."""
+    s = g.s
+    if reduce not in ("sum", "min", "max"):
+        return None
+    vex, eex = elem_spec(g.vdata), elem_spec(g.edata)
+    deps = analysis.analyze_message_fn(send_msg, vex, eex, vex)
+    if deps.msg_spec is None:
+        return None
+    bound = payload_bound if payload_bound is not None else s.max_vid
+    msg_leaves, msg_treedef = tree_flatten(deps.msg_spec)
+    if not msg_leaves or not all(
+            _fused_leaf_ok(m, bound, reduce, message=True) for m in msg_leaves):
+        return None
+    vleaves, vdef = tree_flatten(vex)
+    if not vleaves or not all(_fused_leaf_ok(l, bound, reduce) for l in vleaves):
+        return None
+    mspecs = tuple(ElemSpec((), torch.float32 if m.dtype.is_floating_point
+                            else m.dtype) for m in msg_leaves)
+    dleaves, _ = tree_flatten(default_msg)
+    defaults = tuple(_static_scalar(d) for d in dleaves)
+    if len(defaults) != len(msg_leaves) or any(d is None for d in defaults):
+        return None
+    vid_spec = ElemSpec((), s.home_vid.dtype)
+    tr = analysis.trace_udf(vprog, vid_spec, vex,
+                            tree_unflatten(list(mspecs), msg_treedef))
+    if tr is None or tr.out_spec != vdef or tr.out_leaves != tuple(vleaves):
+        return None
+    n_v = len(vleaves)
+    vp_ir = udf.lower(tr, [("vid", 0)] + [("x", i) for i in range(n_v)]
+                      + [("m", l) for l in range(len(mspecs))])
+    if vp_ir is None:
+        return None
+    ch_ir = None
+    if changed_fn is not None:
+        tc = analysis.trace_udf(changed_fn, vex, vex)
+        if tc is None or tc.out_leaves != (ElemSpec((), torch.bool),):
+            return None
+        ch_ir = udf.lower(tc, [("x", i) for i in range(n_v)]
+                          + [("new", i) for i in range(n_v)])
+        if ch_ir is None:
+            return None
+    dm = len(msg_leaves)
+    if reduce != "sum" and dm > FUSED_MINMAX_MAX_WIDTH:
+        return None
+    kernel = ApplyUdf(vprog=vp_ir, changed=ch_ir,
+                      msg_dtypes=tuple(udf._DTYPES[m.dtype] for m in mspecs),
+                      defaults=defaults, dm=dm, dv=n_v)
+    return _ApplyPlan(dm=dm, dv=n_v, msg_specs=mspecs,
+                      msg_treedef=msg_treedef, v_specs=tuple(vleaves),
+                      v_treedef=vdef, kernel=kernel)
+
+
+def fused_apply_home(g, recv: Any, rflags: torch.Tensor, to: str,
+                     reduce: str, plan: _ApplyPlan, kernel_mode: str):
+    """Home half of the fused superstep: pack the routed aggregate rows and
+    the home state, then combine + vprog + changed in one kernel sweep.
+    Returns (new vdata pytree [nl, V_blk], changed [nl, V_blk] bool)."""
+    s = g.s
+    send_idx = s.routes[to][0]
+    nl, p, k = send_idx.shape
+    v_blk = s.v_blk
+    pay = torch.cat([l.reshape(nl, p * k, -1).float()
+                     for l in tree_leaves(recv)], dim=-1)
+    pay = pay.reshape(nl * p * k, plan.dm).contiguous()
+    live = (rflags & (send_idx >= 0)).reshape(-1).contiguous()
+    x = _pack_cols(g.vdata, (True,) * plan.dv, nl, v_blk, send_idx.device)
+    x = x.reshape(nl * v_blk, plan.dv).contiguous()
+    new_mat, changed = kops.superstep_apply(
+        pay, live, s.apply_inv[to], x, s.home_vid.reshape(-1),
+        g.vmask.reshape(-1).contiguous(), plan.kernel, reduce=reduce,
+        mode=kernel_mode)
+    # invisible rows keep their own values: an int outside the f32 staging
+    # range (INT_PAD padding ids) must not round-trip through the cast
+    out = [torch.where(g.vmask, new_mat[:, c].reshape(nl, v_blk).to(old.dtype),
+                       old)
+           for c, old in enumerate(tree_leaves(g.vdata))]
+    return (tree_unflatten(out, plan.v_treedef),
+            changed.reshape(nl, v_blk) > 0)
+
+
+def apply_plan_of(g, vprog: Callable, send_msg: Callable, reduce: str = "sum",
+                  *, changed_fn: Callable | None = None,
+                  default_msg: Any = None, kernel_mode: str = "auto",
+                  payload_bound: int | None = None) -> str:
+    """"fused_apply" | "unfused": the apply-half plan decision."""
+    if kernel_mode == "unfused":
+        return "unfused"
+    plan = _plan_apply(g, vprog, send_msg, reduce, changed_fn, default_msg,
+                       payload_bound)
+    return "fused_apply" if plan is not None else "unfused"
+
+
+def fused_plan(g, map_fn: Callable, reduce: str = "sum", *,
+               force_need: str | None = None,
+               payload_bound: int | None = None) -> _FusedPlan | None:
+    """The fused triplet plan of an mrTriplets on `g`, or None."""
+    vex, eex = elem_spec(g.vdata), elem_spec(g.edata)
+    deps = analysis.analyze_message_fn(map_fn, vex, eex, vex)
+    return _plan_fused(g, map_fn, deps, _derive_need(deps, force_need),
+                       reduce, force_need, vex, eex, payload_bound)
+
+
+def plan_of(g, map_fn: Callable, reduce: str = "sum", *,
+            kernel_mode: str = "auto", force_need: str | None = None,
+            payload_bound: int | None = None) -> str:
+    """"fused" | "unfused": the physical-plan decision of an mrTriplets."""
+    if kernel_mode == "unfused":
+        return "unfused"
+    plan = fused_plan(g, map_fn, reduce, force_need=force_need,
+                      payload_bound=payload_bound)
+    return "fused" if plan is not None else "unfused"

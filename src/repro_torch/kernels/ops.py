@@ -1,0 +1,58 @@
+"""Kernel dispatch for the engine.
+
+kernel_mode, one switch for the whole engine:
+  "auto" — the kernel wrapper, which decides by the tensors' device: the
+           plain version for CPU tensors, the CUDA kernel for CUDA tensors
+           (launched, or an error — never a silent fallback);
+  "ref"  — the plain PyTorch version on any device (tests, comparisons).
+("unfused" is decided by the engine before it reaches this module.)
+"""
+from __future__ import annotations
+
+from . import ref
+from . import segment_sum as _segsum
+from . import superstep as _superstep
+from . import triplet as _triplet
+
+MODES = ("auto", "ref")
+
+
+def _plain(mode: str) -> bool:
+    """Does this kernel_mode ask for the plain version?"""
+    if mode not in MODES:
+        raise ValueError(f"kernel_mode {mode!r}; one of {MODES} or 'unfused'")
+    return mode == "ref"
+
+
+def segment_sum(msgs, live, ptr, *, mode: str = "auto"):
+    """CSR segment sum of live messages [nl, E, ...]; [nl, V, ...]."""
+    fn = ref.segment_sum if _plain(mode) else _segsum.segment_sum
+    return fn(msgs, live, ptr)
+
+
+def triplet(x, ev, src_slot, dst_slot, live, ptr, perm, spec, *,
+            to: str = "dst", reduce: str = "sum", mode: str = "auto"):
+    """Fused gather + map + segment-reduce; (out [S, dm] f32, cnt [S])."""
+    fn = ref.fused_triplet if _plain(mode) else _triplet.fused_triplet
+    return fn(x, ev, src_slot, dst_slot, live, ptr, perm, spec, to=to,
+              reduce=reduce)
+
+
+def superstep_apply(pay, live, inv, x, vid, vmask, spec, *,
+                    reduce: str = "sum", mode: str = "auto"):
+    """Fused combine + vprog + changed; (new state [S, dv], changed [S])."""
+    fn = ref.fused_apply if _plain(mode) else _superstep.fused_apply
+    return fn(pay, live, inv, x, vid, vmask, spec, reduce=reduce)
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of each CUDA kernel since the last reset."""
+    return {"triplet": _triplet.fused_triplet.launches,
+            "apply": _superstep.fused_apply.launches,
+            "segment_sum": _segsum.segment_sum.launches}
+
+
+def reset_launch_counts() -> None:
+    _triplet.fused_triplet.launches = 0
+    _superstep.fused_apply.launches = 0
+    _segsum.segment_sum.launches = 0

@@ -1,0 +1,175 @@
+"""Plain PyTorch versions of the port's three kernels.
+
+Same arguments and same results as the CUDA kernels in csrc/.  The CPU path
+and the tests run these; on the card `chip_smoke.py` holds each kernel
+against them.  They run on any device.  On the CPU `index_add_` adds in
+index order, so the sums here follow the kernels' sequential edge order and
+the fused and unfused plans agree bit for bit; on the card `index_add_` uses
+atomics, so there they agree with the kernels only within f32 rounding.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import udf
+
+# Finite reduce identities (f32 extremes, not ±inf), as in the reference.
+REDUCE_IDENTITY = {
+    "sum": 0.0,
+    "min": float(np.finfo(np.float32).max),
+    "max": float(np.finfo(np.float32).min),
+}
+_SCATTER = {"min": "amin", "max": "amax"}
+
+
+def csr_segments(live: torch.Tensor, ptr: torch.Tensor) -> torch.Tensor:
+    """Flat segment id (q * V + v) of every entry of a [nl, E] slab whose
+    partition-q row pointers ptr [nl, V+1] place it in segment v; entries
+    that are dead or past ptr[q, V] get nl * V."""
+    nl, e_blk = live.shape
+    v = ptr.shape[1] - 1
+    pos = torch.arange(e_blk, dtype=ptr.dtype, device=ptr.device)
+    seg = torch.searchsorted(ptr.contiguous(), pos.expand(nl, e_blk)
+                             .contiguous(), right=True).long() - 1
+    seg = seg + torch.arange(nl, device=ptr.device)[:, None] * v
+    keep = live & (pos[None, :] < ptr[:, -1:])
+    return torch.where(keep, seg, nl * v)
+
+
+def segment_sum(msgs: torch.Tensor, live: torch.Tensor,
+                ptr: torch.Tensor) -> torch.Tensor:
+    """Sum the live entries of messages [nl, E, ...], which lie in the
+    aggregation side's CSR order, into segments [nl, V, ...] delimited by
+    the row pointers ptr [nl, V+1].  f32 accumulation, result in the
+    message dtype."""
+    nl, e_blk = live.shape
+    v = ptr.shape[1] - 1
+    ids = csr_segments(live, ptr).reshape(-1)
+    keep = ids < nl * v
+    m = msgs.reshape(nl * e_blk, -1)[keep].float()
+    out = torch.zeros((nl * v, m.shape[1]), dtype=torch.float32,
+                      device=msgs.device)
+    out.index_add_(0, ids[keep], m)
+    return out.reshape((nl, v) + tuple(msgs.shape[2:])).to(msgs.dtype)
+
+
+def _csr_edges(ptr, perm, e_blk: int) -> torch.Tensor:
+    """Flat edge indices of every partition's live edges in CSR order."""
+    nl = ptr.shape[0]
+    order = (torch.arange(e_blk, device=ptr.device).expand(nl, e_blk)
+             if perm is None else perm.long())
+    keep = torch.arange(e_blk, device=ptr.device)[None, :] < ptr[:, -1:].long()
+    base = torch.arange(nl, device=ptr.device)[:, None] * e_blk
+    return (order + base)[keep]
+
+
+def triplet_messages(x, ev, src_slot, dst_slot, live, ptr, perm, spec, *,
+                     to: str = "dst"):
+    """The messages `fused_triplet` reduces: (agg [n] flat slot of each live
+    edge in CSR order, msgs [n, dm] f32).  Arguments as `fused_triplet`."""
+    nl, e_blk = src_slot.shape
+    s = x.shape[0]
+    v_mir = s // max(nl, 1)
+    e = _csr_edges(ptr, perm, e_blk)
+    e = e[live.reshape(-1)[e]]
+    off = (e // e_blk) * v_mir
+    rows = {"xs": src_slot.reshape(-1)[e].long() + off,
+            "xd": dst_slot.reshape(-1)[e].long() + off}
+
+    def load(arr, col, dt):
+        col_t = ev[e, col] if arr == "ev" else x[rows[arr], col]
+        return col_t.to(dt)
+
+    msgs = torch.stack([m.to(torch.float32).expand(e.shape[0])
+                        for m in udf.evaluate(spec.ir, load, x.device)], 1)
+    agg = (src_slot if to == "src" else dst_slot).reshape(-1)[e].long() + off
+    return agg, msgs
+
+
+def fused_triplet(x, ev, src_slot, dst_slot, live, ptr, perm, spec, *,
+                  to: str = "dst", reduce: str = "sum"):
+    """out[v] = reduce over live edges e with slot_to(e) = v of
+    UDF(x[src e], ev[e], x[dst e]); returns (out [S, dm] f32 with the
+    reduce identity at empty slots, cnt [S] f32 live message counts).
+
+    x [S, Dx] f32 packed mirror rows (S = nl * v_mir), ev [nl*E_blk, De]
+    f32 packed edge payload, src_slot/dst_slot/live [nl, E_blk], ptr
+    [nl, v_mir+1] CSR row pointers of the aggregation side, perm
+    [nl, E_blk] its edge order (to="src"; None for "dst"), spec a
+    kernels.triplet.TripletUdf."""
+    s = x.shape[0]
+    agg, msgs = triplet_messages(x, ev, src_slot, dst_slot, live, ptr, perm,
+                                 spec, to=to)
+    cnt = torch.zeros(s, dtype=torch.float32, device=x.device)
+    cnt.index_add_(0, agg, torch.ones_like(agg, dtype=torch.float32))
+    if reduce == "sum":
+        out = torch.zeros((s, spec.dm), dtype=torch.float32, device=x.device)
+        out.index_add_(0, agg, msgs)
+    else:
+        out = torch.full((s, spec.dm), REDUCE_IDENTITY[reduce],
+                         dtype=torch.float32, device=x.device)
+        out.scatter_reduce_(0, agg[:, None].expand_as(msgs), msgs,
+                            _SCATTER[reduce], include_self=True)
+    return out, cnt
+
+
+def fused_apply(pay, live, inv, x, vid, vmask, spec, *, reduce: str = "sum"):
+    """Combine + vprog + changed mask at the vertex homes.
+
+    pay [nl*P*K, dm] f32 routed aggregate rows, live [nl*P*K] bool, inv
+    [nl, V_blk, P] int32 (kernels.superstep docstring), x [S, dv] f32
+    packed home state (S = nl*V_blk), vid [S] int32, vmask [S] bool, spec a
+    kernels.superstep.ApplyUdf.  Sums combine in ascending source partition
+    order.  Returns (new packed state [S, dv] f32, changed [S] f32 0/1)."""
+    nl, v_blk, p = inv.shape
+    s = nl * v_blk
+    k = pay.shape[0] // max(nl * p, 1)
+    dev = x.device
+    ident = REDUCE_IDENTITY[reduce]
+    acc = torch.full((s, spec.dm), ident, dtype=torch.float32, device=dev)
+    cnt = torch.zeros(s, dtype=torch.int32, device=dev)
+    q = torch.arange(nl, device=dev).repeat_interleave(v_blk)
+    inv2 = inv.reshape(s, p).long()
+    for pe in range(p):
+        j = inv2[:, pe]
+        r = (q * p + pe) * k + j.clamp(min=0)
+        ok = (j >= 0) & live[r]
+        row = pay[r]
+        if reduce == "sum":
+            acc = acc + torch.where(ok[:, None], row, 0.0)
+        else:
+            red = torch.minimum if reduce == "min" else torch.maximum
+            acc = torch.where(ok[:, None], red(acc, row), acc)
+        cnt += ok
+    exists = cnt > 0
+    return apply_home(spec, acc, exists, x, vid, vmask)
+
+
+def apply_home(spec, acc, exists, x, vid, vmask):
+    """The apply half shared by the plain combine: default substitution in
+    each message leaf's dtype, vprog, visibility select, changed bit."""
+    msgs = []
+    for l, (dt, dflt) in enumerate(zip(spec.msg_dtypes, spec.defaults)):
+        tdt = udf.TORCH_DTYPE[dt]
+        m = torch.where(exists, acc[:, l], 0.0).to(tdt)
+        msgs.append(torch.where(exists, m, torch.tensor(dflt, dtype=tdt,
+                                                       device=x.device)))
+
+    def load_vp(arr, col, dt):
+        return {"vid": lambda: vid, "x": lambda: x[:, col],
+                "m": lambda: msgs[col]}[arr]().to(dt)
+
+    n = x.shape[0]
+    new = torch.stack([o.to(torch.float32).expand(n)
+                       for o in udf.evaluate(spec.vprog, load_vp, x.device)], 1)
+    vm = vmask.bool()
+    new = torch.where(vm[:, None], new, x)
+    if spec.changed is None:
+        chg = (new != x).any(dim=1)
+    else:
+        def load_ch(arr, col, dt):
+            return (x if arr == "x" else new)[:, col].to(dt)
+        (chg,) = udf.evaluate(spec.changed, load_ch, x.device)
+        chg = chg.expand(n)
+    return new, (chg & vm).to(torch.float32)

@@ -1,0 +1,104 @@
+"""The fused mrTriplets sweep on the GPU: wrapper of csrc/triplet.cu.
+
+Replaces `src/repro/kernels/triplet.py:fused_triplet` (pallas_call at :447).
+One thread per (aggregation slot, message column) walks the slot's CSR
+range of live edges in ascending order, evaluates the map UDF (generated C
+from `kernels/udf.py`) on the gathered endpoint rows and reduces
+sequentially.  What bounds it on the card is memory: per live edge the CSR
+entry, its slots, live byte, edge payload and the used endpoint rows
+(random gathers).  See the source for the design notes.
+
+On a CPU tensor the wrapper runs the plain version (`kernels/ref.py`); on a
+CUDA tensor it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import torch
+
+from . import build, ref, udf
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p]
+
+plain = ref.fused_triplet
+
+
+@dataclasses.dataclass(frozen=True)
+class TripletUdf:
+    """The map UDF as the kernel runs it: an IR whose inputs load columns
+    of the packed staging rows ("xs" source mirror row, "ev" edge row, "xd"
+    destination mirror row) and whose outputs are the dm message columns."""
+
+    ir: udf.IR
+    dm: int
+
+    def uses(self, array: str) -> bool:
+        return any(op.kind == "in" and op.args[0] == array
+                   for op in self.ir.ops)
+
+
+@functools.lru_cache(maxsize=256)
+def source(spec: TripletUdf, reduce: str, to: str) -> str:
+    """CUDA source of the kernel specialised to this UDF and reduce."""
+    def load(arr, col, dt):
+        return f"({udf.C_TYPE[dt]})({arr}[{col}])"
+
+    lines, outs = udf.emit(spec.ir, load, "t")
+    gen = [f"#define DM {spec.dm}",
+           f"#define IDENT {udf.c_const(ref.REDUCE_IDENTITY[reduce], 'f32')}",
+           f"#define REDUCE(a, b) {udf.REDUCE_C[reduce]}",
+           f"#define TO_SRC {int(to == 'src')}",
+           f"#define USE_SRC {int(spec.uses('xs'))}",
+           f"#define USE_DST {int(spec.uses('xd'))}",
+           udf.PRELUDE,
+           "__device__ __forceinline__ void udf_msg(const float* xs, "
+           "const float* ev, const float* xd, float* msg) {",
+           *[f"  {l}" for l in lines],
+           *[f"  msg[{i}] = (float)({o});" for i, o in enumerate(outs)],
+           "}"]
+    return build.template("triplet").replace("//@GENERATED@", "\n".join(gen))
+
+
+
+
+def fused_triplet(x, ev, src_slot, dst_slot, live, ptr, perm,
+                  spec: TripletUdf, *, to: str = "dst", reduce: str = "sum"):
+    """Arguments and results as `kernels.ref.fused_triplet`."""
+    if x.device.type != "cuda":
+        return plain(x, ev, src_slot, dst_slot, live, ptr, perm, spec,
+                     to=to, reduce=reduce)
+    nl, e_blk = src_slot.shape
+    v_mir = ptr.shape[1] - 1
+    s = nl * v_mir
+    check = functools.partial(build.check_arg, "triplet")
+    check(x, torch.float32, (s, x.shape[1]), "x")
+    check(ev, torch.float32, (nl * e_blk, ev.shape[1]), "ev")
+    check(src_slot, torch.int32, (nl, e_blk), "src_slot")
+    check(dst_slot, torch.int32, (nl, e_blk), "dst_slot")
+    check(live, torch.bool, (nl, e_blk), "live")
+    check(ptr, torch.int32, (nl, v_mir + 1), "ptr")
+    if to == "src":
+        check(perm, torch.int32, (nl, e_blk), "perm")
+    out = torch.empty((s, spec.dm), dtype=torch.float32, device=x.device)
+    cnt = torch.empty((s,), dtype=torch.float32, device=x.device)
+    lib = build.load("triplet", source(spec, reduce, to), _ARGTYPES)
+    nullp = ctypes.c_void_p(None)
+    err = lib.launch(build.ptr(x), x.shape[1], build.ptr(ev), ev.shape[1],
+                     build.ptr(src_slot), build.ptr(dst_slot),
+                     build.ptr(live), build.ptr(ptr),
+                     build.ptr(perm) if to == "src" else nullp,
+                     nl, v_mir, e_blk, build.ptr(out), build.ptr(cnt),
+                     build.stream())
+    build.check(err, "triplet")
+    fused_triplet.launches += 1
+    return out, cnt
+
+
+fused_triplet.launches = 0

@@ -1,0 +1,362 @@
+"""The port's kernels (plain versions here) against the JAX reference.
+
+Each plain version runs on the same numpy-seeded inputs as the reference's
+jnp oracle and its Pallas kernel in interpret mode: min/max and counts must
+match exactly, f32 sums within rtol 1e-6 (the three sum in different
+orders).  The UDF IR is evaluated in torch and held against the UDF.
+On the CPU the kernel wrappers take the plain versions and launch nothing.
+"""
+import functools
+import struct
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+from repro.core import Graph as RefGraph  # noqa: E402
+from repro.core import mrtriplets as ref_mt  # noqa: E402
+from repro.kernels import ops as ref_ops  # noqa: E402
+from repro.kernels import ref as ref_kref  # noqa: E402
+from repro.kernels import segment_sum as ref_segsum  # noqa: E402
+from repro.kernels.triplet import flatten_tiles  # noqa: E402
+from repro_torch.core import Graph, analysis  # noqa: E402
+from repro_torch.core import algorithms as alg  # noqa: E402
+from repro_torch.core import mrtriplets as mt  # noqa: E402
+from repro_torch.core.graph import _degree_msg  # noqa: E402
+from repro_torch.core.tree import ElemSpec  # noqa: E402
+from repro_torch.data import rmat  # noqa: E402
+from repro_torch.kernels import ops, ref, udf  # noqa: E402
+from repro_torch.kernels import segment_sum as seg_mod  # noqa: E402
+from repro_torch.kernels import superstep as app_mod  # noqa: E402
+from repro_torch.kernels import triplet as tri_mod  # noqa: E402
+
+P = 4
+F32, I32 = ElemSpec((), torch.float32), ElemSpec((), torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _graphs(vdata, seed=3):
+    gd = rmat(7, 4, seed=seed)
+    g = Graph.from_edges(gd.src, gd.dst, num_partitions=P, device="cpu")
+    rg = RefGraph.from_edges(gd.src, gd.dst, num_partitions=P)
+    g = g.replace(vdata={k: torch.from_numpy(v) for k, v in vdata(g).items()})
+    rg = rg.replace(vdata={k: jnp.asarray(v) for k, v in vdata(g).items()})
+    return g, rg
+
+
+def _send_f(sv, ev, dv):
+    return {"m": torch.maximum(sv["a"], dv["b"]) * ev["w"]}
+
+
+def _send_i(sv, ev, dv):
+    return {"m": sv["c"]}
+
+
+def _tile_f(sv, ev, dv):
+    return jnp.maximum(sv[:, 0:1], dv[:, 1:2]) * ev[:, 0:1]
+
+
+def _tile_i(sv, ev, dv):
+    return sv[:, 0:1]
+
+
+def _vdata_f(g):
+    rng = np.random.default_rng(0)
+    shape = tuple(g.s.home_vid.shape)
+    return {"a": rng.normal(size=shape).astype(np.float32),
+            "b": rng.normal(size=shape).astype(np.float32)}
+
+
+def _vdata_i(g):
+    rng = np.random.default_rng(1)
+    return {"c": rng.integers(0, 5000, tuple(g.s.home_vid.shape)).astype(np.int32)}
+
+
+def _ref_triplet(host, x, ev, live, tile_fn, dm, to, reduce, mode):
+    """The reference's oracle / Pallas sweep on the port's [P, N, D] inputs."""
+    nl, v_mir, dx = x.shape
+    vb = 512
+    n_vb = -(-v_mir // vb)
+    v_pad = n_vb * vb
+    xp = np.zeros((nl, v_pad, dx), np.float32)
+    xp[:, :v_mir] = x
+    off = (np.arange(nl) * v_pad)[:, None]
+    tiles = (None if mode == "ref" else
+             flatten_tiles(host.tiles[to], e_blk=host.e_blk, n_vb=n_vb))
+    out, cnt = ref_ops.triplet(
+        jnp.asarray(xp.reshape(nl * v_pad, dx)),
+        jnp.asarray(ev.reshape(nl * host.e_blk, -1)),
+        jnp.asarray((host.src_slot + off).reshape(-1)),
+        jnp.asarray((host.dst_slot + off).reshape(-1)),
+        jnp.asarray(live.reshape(-1)), tiles, tile_fn, nl * v_pad, dm,
+        to=to, reduce=reduce, mode=mode)
+    out = np.asarray(out).reshape(nl, v_pad, dm)[:, :v_mir]
+    return out, np.asarray(cnt).reshape(nl, v_pad)[:, :v_mir]
+
+
+@pytest.mark.parametrize("mode", ["ref", "interpret"])
+@pytest.mark.parametrize("to", ["dst", "src"])
+@pytest.mark.parametrize("reduce,payload", [
+    ("sum", "f"), ("min", "f"), ("max", "f"), ("min", "i")])
+def test_triplet_plain_matches_reference(reduce, payload, to, mode):
+    vdata = _vdata_f if payload == "f" else _vdata_i
+    send = _send_f if payload == "f" else _send_i
+    g, rg = _graphs(vdata)
+    s = g.s
+    spec = mt.fused_plan(g, send, reduce).kernel
+    rng = np.random.default_rng(5)
+    cols = [np.asarray(v)[..., None] for v in vdata(g).values()]
+    home = np.concatenate(cols, -1)                     # [P, V_blk, D]
+    # mirror rows: each slot holds its vertex's home row values
+    mvid = s.mirror_vid.numpy()
+    part, row = g.host.local_row(np.maximum(mvid, 0).reshape(-1))
+    x = home[part, row].reshape(P, s.v_mir, -1).astype(np.float32)
+    ev = rng.normal(size=(P, s.e_blk, 1)).astype(np.float32)
+    live = s.edge_mask.numpy() & (rng.random((P, s.e_blk)) < 0.7)
+    out, cnt = ref.fused_triplet(
+        torch.from_numpy(x.reshape(P * s.v_mir, -1)),
+        torch.from_numpy(ev.reshape(P * s.e_blk, 1)), s.src_slot, s.dst_slot,
+        torch.from_numpy(live), s.agg_ptr[to],
+        s.src_perm if to == "src" else None, spec, to=to, reduce=reduce)
+    want, wcnt = _ref_triplet(rg.host, x, ev, live,
+                              _tile_f if payload == "f" else _tile_i, 1, to,
+                              reduce, mode)
+    np.testing.assert_array_equal(cnt.numpy().reshape(P, s.v_mir), wcnt)
+    got = out.numpy().reshape(P, s.v_mir, 1)
+    if reduce == "sum":
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+def _pr_vprog(vid, v, msg):
+    return {"a": 0.15 + 0.85 * msg["m"], "b": v["b"]}
+
+
+def _pr_vprog_j(vid, v, msg):
+    return {"a": 0.15 + 0.85 * msg["m"], "b": v["b"]}
+
+
+def _chg(old, new):
+    return torch.abs(new["a"] - old["a"]) > 0.05
+
+
+def _chg_j(old, new):
+    return jnp.abs(new["a"] - old["a"]) > 0.05
+
+
+def _mx_send(sv, ev, dv):
+    return {"m": sv["a"]}
+
+
+def _mx_vprog(vid, v, msg):
+    return {"a": torch.maximum(v["a"], msg["m"]), "b": v["b"]}
+
+
+def _mx_vprog_j(vid, v, msg):
+    return {"a": jnp.maximum(v["a"], msg["m"]), "b": v["b"]}
+
+
+def _cc_vprog_j(vid, v, msg):
+    return {"c": jnp.minimum(v["c"], msg["m"])}
+
+
+def _cc_vprog(vid, v, msg):
+    return {"c": torch.minimum(v["c"], msg["m"])}
+
+
+APPLY_CASES = {
+    # name: (vdata, send, vprog, ref vprog, reduce, changed, ref changed, default)
+    "sum": (_vdata_f, _send_f, _pr_vprog, _pr_vprog_j, "sum", None, None, 0.0),
+    "sum_changed_fn": (_vdata_f, _send_f, _pr_vprog, _pr_vprog_j, "sum",
+                       _chg, _chg_j, 0.0),
+    "max": (_vdata_f, _mx_send, _mx_vprog, _mx_vprog_j, "max", None, None,
+            -1.0),
+    "min_int": (_vdata_i, _send_i, _cc_vprog, _cc_vprog_j, "min", None, None,
+                2**31 - 1),
+}
+
+
+@pytest.mark.parametrize("mode", ["ref", "interpret"])
+@pytest.mark.parametrize("case", sorted(APPLY_CASES))
+def test_apply_plain_matches_reference(case, mode):
+    vdata, send, vprog, vprog_j, reduce, chg, chg_j, dflt = APPLY_CASES[case]
+    g, rg = _graphs(vdata)
+    is_int = case == "min_int"
+    d_t = {"m": torch.tensor(dflt, dtype=torch.int32 if is_int else torch.float32)}
+    d_j = {"m": jnp.int32(dflt) if is_int else jnp.float32(dflt)}
+    plan = mt._plan_apply(g, vprog, send, reduce, chg, d_t, None)
+    rplan = ref_mt._plan_apply(rg, vprog_j, send_j(send), reduce, chg_j, d_j,
+                               None)
+    assert plan is not None and rplan is not None
+    send_idx = g.s.routes["dst"][0].numpy()
+    rng = np.random.default_rng(11)
+    if is_int:
+        recv = rng.integers(0, 5000, send_idx.shape).astype(np.int32)
+    else:
+        recv = rng.normal(size=send_idx.shape).astype(np.float32)
+    rflags = (send_idx >= 0) & (rng.random(send_idx.shape) < 0.8)
+    new, changed = mt.fused_apply_home(
+        g, {"m": torch.from_numpy(recv)}, torch.from_numpy(rflags), "dst",
+        reduce, plan, "ref")
+    rnew, rchanged = ref_mt.fused_apply_home(
+        rg, {"m": jnp.asarray(recv)}, jnp.asarray(rflags), "dst", reduce,
+        rplan, vprog_j, chg_j, mode)
+    np.testing.assert_array_equal(changed.numpy(), np.asarray(rchanged))
+    vm = g.vmask.numpy()
+    for k in new:
+        got, want = new[k].numpy()[vm], np.asarray(rnew[k])[vm]
+        if reduce == "sum":
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(got, want)
+
+
+def send_j(send):
+    """The jnp twin of a torch send UDF used above."""
+    return {_send_f: lambda sv, ev, dv: {"m": jnp.maximum(sv["a"], dv["b"])
+                                         * ev["w"]},
+            _send_i: lambda sv, ev, dv: {"m": sv["c"]},
+            _mx_send: lambda sv, ev, dv: {"m": sv["a"]}}[send]
+
+
+def _csr_case(rng, nl, e, v):
+    """A [nl, e] slab whose partitions each hold a sorted prefix of segment
+    ids in [0, v): (ptr [nl, v+1] int32, live [nl, e], flat ids [nl*e] with
+    the dead and padding entries outside [0, nl*v))."""
+    n = rng.integers(e // 2, e, nl)
+    ptr = np.zeros((nl, v + 1), np.int32)
+    ids = np.full((nl, e), nl * v + 5, np.int64)
+    for q in range(nl):
+        seg = np.sort(rng.integers(0, v, n[q]))
+        ptr[q] = np.searchsorted(seg, np.arange(v + 1))
+        ids[q, :n[q]] = seg + q * v
+    live = (np.arange(e)[None, :] < n[:, None]) & (rng.random((nl, e)) < 0.9)
+    ids = np.where(live, ids, -1).astype(np.int32).reshape(-1)
+    return ptr, live, ids
+
+
+@pytest.mark.parametrize("d", [1, 3])
+def test_segment_sum_plain_matches_reference(d):
+    rng = np.random.default_rng(d)
+    nl, e, v = 3, 700, 90
+    ptr, live, ids = _csr_case(rng, nl, e, v)
+    msgs = rng.normal(size=(nl, e, d)).astype(np.float32)
+    got = ref.segment_sum(torch.from_numpy(msgs), torch.from_numpy(live),
+                          torch.from_numpy(ptr))
+    assert got.shape == (nl, v, d)
+    flat = jnp.asarray(msgs.reshape(nl * e, d))
+    want = ref_kref.segment_sum(flat, jnp.asarray(ids), nl * v)
+    kern = ref_segsum.segment_sum(flat, jnp.asarray(ids), nl * v,
+                                  edge_block=128, vertex_block=128,
+                                  interpret=True)
+    got = got.numpy().reshape(nl * v, d)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got, np.asarray(kern), rtol=1e-6, atol=1e-6)
+
+
+# ------------------------------------------------------------------ UDF IR
+def _kitchen(sv, ev, dv):
+    a, b, c = sv["a"], dv["a"], sv["i"]
+    x = torch.where((a > b) & ~(b >= 0.25), a - b, -b) / (torch.abs(a) + 1.5)
+    y = torch.minimum(a, b) + torch.maximum(a * 3.0, ev["w"])
+    z = (c + 7) * 2 - dv["i"]
+    k = ((c > 3) | (a <= b)) ^ (c == 2)
+    return {"x": x, "y": y, "z": z, "k": k.to(torch.float32),
+            "zf": c.to(torch.float32) * 0.5, "n": torch.neg(c),
+            "cmp": (a != 0.5) & torch.logical_not(c < 0)}
+
+
+def _more_senior(sv, ev, dv):
+    return {"n": torch.where(sv["age"] > dv["age"], 1.0, 0.0)}
+
+
+UDFS = {
+    "pagerank_send": (alg.pagerank_send, {"deg": F32, "pr": F32}),
+    "cc_send": (alg.cc_send, {"cc": I32}),
+    "degree": (_degree_msg, {"x": F32}),
+    "more_senior": (_more_senior, {"age": F32}),
+    "kitchen": (_kitchen, {"a": F32, "i": I32}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(UDFS))
+def test_udf_ir_matches_udf(name):
+    fn, vex = UDFS[name]
+    eex = {"w": F32}
+    tr = analysis.trace_udf(fn, vex, eex, vex)
+    nv = len(vex)
+    inputs = ([("s", i) for i in range(nv)] + [("e", 0)]
+              + [("d", i) for i in range(nv)])
+    ir = udf.lower(tr, inputs)
+    assert ir is not None
+    rng = np.random.default_rng(9)
+    n = 64
+
+    def make(specs):
+        return {k: (torch.from_numpy(rng.normal(size=n).astype(np.float32))
+                    if s.dtype == torch.float32 else
+                    torch.from_numpy(rng.integers(-5, 6, n).astype(np.int32)))
+                for k, s in specs.items()}
+
+    sv, ev, dv = make(vex), make(eex), make(vex)
+    arrays = {"s": list(sv.values()), "e": list(ev.values()),
+              "d": list(dv.values())}
+    got = udf.evaluate(ir, lambda arr, col, dt: arrays[arr][col].to(dt))
+    want = torch.utils._pytree.tree_leaves(torch.func.vmap(fn)(sv, ev, dv))
+    assert len(got) == len(want)
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == w_.dtype
+        assert torch.equal(g_.expand(n), w_)
+
+
+def test_udf_outside_ir_plans_unfused():
+    g, _ = _graphs(_vdata_f)
+
+    def exp_send(sv, ev, dv):
+        return {"m": torch.exp(sv["a"])}
+
+    assert mt.plan_of(g, exp_send, "sum") == "unfused"
+    assert mt.plan_of(g, _send_f, "sum") == "fused"
+
+
+def test_emitted_constants_are_exact_f32_bits():
+    bits = struct.unpack("<I", struct.pack("<f", np.float32(0.85)))[0]
+    assert udf.c_const(float(np.float32(0.85)), "f32") == f"__int_as_float(0x{bits:08x})"
+    assert udf.c_const(-(2**31), "i32") == "(-2147483647 - 1)"
+    g, _ = _graphs(_vdata_f)
+    g = g.replace(vdata={"deg": g.vdata["a"], "pr": g.vdata["b"]})
+    plan = mt._plan_apply(g, alg.pagerank_vprog(0.15), alg.pagerank_send,
+                          "sum", None, {"m": torch.tensor(0.0)}, None)
+    src = app_mod.source(plan.kernel, "sum")
+    assert f"__int_as_float(0x{bits:08x})" in src
+    gi, _ = _graphs(_vdata_i)
+    plan = mt._plan_apply(gi, _cc_vprog, _send_i, "min", None,
+                          {"m": torch.tensor(2**31 - 1, dtype=torch.int32)}, None)
+    src = app_mod.source(plan.kernel, "min")
+    # the int default substitutes as an int literal, never via a float
+    assert "const int m0 = exists ? (int)(acc[0]) : ((int)2147483647);" in src
+    assert "//@" not in src and "//@" not in tri_mod.source(
+        mt.fused_plan(gi, _send_i, "min").kernel, "min", "src")
+
+
+def test_wrappers_on_cpu_run_plain_and_launch_nothing():
+    g, _ = _graphs(_vdata_f)
+    s = g.s
+    spec = mt.fused_plan(g, _send_f, "sum").kernel
+    ops.reset_launch_counts()
+    x = torch.rand(P * s.v_mir, 2)
+    ev = torch.rand(P * s.e_blk, 1)
+    args = (x, ev, s.src_slot, s.dst_slot, s.edge_mask, s.agg_ptr["dst"], None,
+            spec)
+    a = tri_mod.fused_triplet(*args)
+    b = ref.fused_triplet(*args)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    msgs = torch.rand(P, s.e_blk, 1)
+    assert torch.equal(seg_mod.segment_sum(msgs, s.edge_mask, s.agg_ptr["dst"]),
+                       ref.segment_sum(msgs, s.edge_mask, s.agg_ptr["dst"]))
+    assert ops.launch_counts() == {"triplet": 0, "apply": 0, "segment_sum": 0}
+    with pytest.raises(ValueError):
+        ops.triplet(*args, mode="pallas")
