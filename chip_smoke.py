@@ -13,12 +13,24 @@ Phases (any failure exits non-zero before the result line):
   3. PageRank (tol 0, 10 supersteps) on rmat(22, 16, seed=0), P=4: fused
      plans, bit-equal to the unfused plan, within 1e-4 of a float64 oracle;
   4. connected components on symmetrize(rmat(21, 16, seed=1)), P=4: labels
-     bit-equal to scipy's min-id labels and to the unfused plan.
+     bit-equal to scipy's min-id labels and to the unfused plan;
+  5. the flash attention kernel against its plain version at the serve
+     step's shape (GQA 4, Lk 1664, non-causal), a causal 4096-token prefill
+     and a 512-token chunk over a 4096-token cache (kv_offset 3584), with
+     kernel, plain and scaled_dot_product_attention times and the bound;
+  6. serving llama-3.2-vision-11b at its full config (40 layers, random
+     weights from a seed): batch 4, prompt 32, 16 generated tokens, every
+     cross-attention through the flash kernel (8 layers x 47 steps = 376
+     launches), then the last step again: with the plain attention, whose
+     logits must agree in the mean, and with every flash call held in
+     place against its plain version on the same inputs (a dropped KV
+     tile must fail that check in every layer).
 It then prints the kernel table as one JSON line and, last, the device line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -30,9 +42,16 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOPS = 67e12              # H100 SXM f32 rate outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core rate
 F32_U = 2.0 ** -24             # f32 unit roundoff
 P = 4
 PR_SCALE, CC_SCALE, PR_ITERS = 22, 21, 10
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "llama-3.2-vision-11b", 4, 32, 16
+BF16_STEP = 2.0 ** -8          # bf16 unit roundoff: half its 2^-7 spacing
+# mean |kernel - plain| over a serve step's logits: between the largest
+# sound reading (0.00433) and the smallest with one KV tile dropped
+# (0.00767) over weight seeds 0-3, scripts/serve_logit_margin.py on an H100
+SERVE_LOGIT_MEAN_LIMIT = 0.006
 
 
 def log(*a):
@@ -53,9 +72,28 @@ def cuda_ms(fn, n: int = 5) -> float:
     return a.elapsed_time(b) / n
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+def bound(nbytes: float, flops: float,
+          peak: float = F32_FLOPS) -> tuple[float, str]:
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
+
+
+def flash_limit(want):
+    """Per-element limit on |kernel - plain| for a bf16 flash output: both
+    sum the same f32 terms in different orders (a few f32 roundings apart)
+    and round once to bf16, so they may part by one bf16 spacing of the
+    value, at most 2 * BF16_STEP * |value|, plus 1e-6 for values near 0.
+    Dropping one KV tile moves an output by a share of its own size."""
+    return 2 * BF16_STEP * want.float().abs() + 1e-6
+
+
+def visible_pairs(lq: int, lk: int, causal: bool, kv_offset: int) -> int:
+    """(query, key) pairs the attention computes: row i sees keys
+    j <= i + kv_offset when causal."""
+    if not causal:
+        return lq * lk
+    import numpy as np
+    return int(np.clip(np.arange(lq) + kv_offset + 1, 0, lk).sum())
 
 
 def ir_flops(ir) -> int:
@@ -92,7 +130,10 @@ def main() -> int:
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import segment_sum as seg_mod
     from repro_torch.kernels import superstep as app_mod
+    from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import triplet as tri_mod
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -124,7 +165,8 @@ def main() -> int:
                ("triplet", tri_mod.source(k_cc, "min", "dst")),
                ("apply", app_mod.source(a_pr, "sum")),
                ("apply", app_mod.source(a_cc, "min")),
-               ("segment_sum", seg_mod.source())]
+               ("segment_sum", seg_mod.source()),
+               ("flash_attention", flash_mod.source())]
     t0 = time.perf_counter()
     build.prebuild(sources)
     log(f"kernel build: {len(sources)} sources in "
@@ -350,18 +392,183 @@ def main() -> int:
         f"== scipy, fused == unfused")
 
     launches = ops.launch_counts()
-    for name, n_launch in launches.items():
-        if n_launch <= 0:
+    for name in ("triplet", "apply", "segment_sum"):
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
+    del sg, sgd, c_f, c_u, adj, lab, minid, ids_np, vals
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- phase 5
+    import torch.nn.functional as F
+    t_phase5 = time.perf_counter()
+    log("phase 5: flash attention vs plain")
+    ctx = torch.randn((SERVE_BATCH, 1664, 4096), generator=gen).to(
+        dev, torch.bfloat16)
+    w_kv = (torch.randn((4096, 8, 128), generator=gen) * 4096 ** -0.5).to(
+        dev, torch.bfloat16)
+    k_nc = torch.einsum("bld,dhk->bhlk", ctx, w_kv)   # as _cross_attention
+    v_nc = torch.einsum("bld,dhk->bhlk", ctx, w_kv * 0.5)
+    copy_ms = cuda_ms(lambda: (k_nc.contiguous(), v_nc.contiguous()))
+    log(f"  serve-shape einsum K/V contiguous: {k_nc.is_contiguous()}; "
+        f"copy to contiguous {copy_ms:.4f} ms for both")
+    flash_shapes = [
+        # name, B, Hq, Hkv, Lq, Lk, causal, kv_offset
+        ("serve step: GQA 4, Lk 1664, non-causal", SERVE_BATCH, 32, 8, 1,
+         1664, False, 0),
+        ("causal prefill L 4096", 1, 32, 8, 4096, 4096, True, 0),
+        ("chunked prefill Lq 512, Lk 4096, kv_offset 3584", 1, 32, 8, 512,
+         4096, True, 3584)]
+    for name, b, hq, hkv, lq, lk, causal, off in flash_shapes:
+        q = torch.randn((b, hq, lq, 128), generator=gen).to(dev, torch.bfloat16)
+        if lq == 1:
+            k, v = k_nc.contiguous(), v_nc.contiguous()
+        else:
+            k, v = (torch.randn((b, hkv, lk, 128), generator=gen)
+                    .to(dev, torch.bfloat16) for _ in range(2))
+        kw = dict(causal=causal, kv_offset=off)
+        got = flash_mod.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        over = diff > flash_limit(want)
+        if bool(over.any()):
+            raise AssertionError(f"flash[{name}]: {int(over.sum())} outputs "
+                                 f"beyond their limit (max |err| "
+                                 f"{float(diff.max())})")
+        err = float(diff.max())
+        if causal:
+            mask = (torch.arange(lq, device=dev)[:, None] + off
+                    >= torch.arange(lk, device=dev)[None, :])
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=mask, enable_gqa=True)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, enable_gqa=True)
+        lib_err = float((lib().float() - want.float()).abs().max())
+        nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * 2
+        flops = 4 * b * hq * 128 * visible_pairs(lq, lk, causal, off)
+        variant = (f"{name} (bf16; bound peak {BF16_FLOPS / 1e12:.0f} TFLOP/s "
+                   f"bf16, {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+        row = {"variant": variant, "max_abs_err": err,
+               "tol": "per output 2^-7*|plain| + 1e-6 (one bf16 spacing)",
+               "ms": cuda_ms(lambda: flash_mod.flash_attention(q, k, v, **kw)),
+               "plain_ms": cuda_ms(lambda: ref.flash_attention(q, k, v, **kw)),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": cuda_ms(lib), "library_max_abs_err": lib_err}
+        log(f"  flash[{name}]: err {err:.3g}, kernel {row['ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms "
+            f"(|sdpa - plain| {lib_err:.3g}), bound {b_ms:.4f} ms ({b_by})")
+        results.setdefault("flash_attention", []).append(row)
+        del q, k, v, got, want, diff, over
+    results["flash_attention"][0]["contiguous_copy_ms"] = copy_ms
+    del ctx, w_kv, k_nc, v_nc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- phase 6
+    log(f"phase 6: serve {SERVE_ARCH}, batch {SERVE_BATCH}, prompt "
+        f"{SERVE_PROMPT}, gen {SERVE_GEN}")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = serve.run(SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                    gen=SERVE_GEN, kernel_mode="auto", device="cuda")
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    launches["flash_attention"] = ops.launch_counts()["flash_attention"]
+    cfg = run.cfg
+    n_cross = cfg.n_layers // cfg.cross_attn_every
+    want_launches = n_cross * (SERVE_PROMPT + SERVE_GEN - 1)
+    if launches["flash_attention"] != want_launches:
+        raise AssertionError(f"flash launches {launches['flash_attention']}, "
+                             f"expected {want_launches}")
+    gen_toks = run.generated
+    if gen_toks.shape != (SERVE_BATCH, SERVE_GEN) or gen_toks.min() < 0 \
+            or gen_toks.max() >= cfg.vocab:
+        raise AssertionError(f"generated tokens {gen_toks.shape}")
+    if not bool(torch.isfinite(run.last_logits).all()):
+        raise AssertionError("serve logits are not finite")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = T.param_count(run.params)
+    # The last step again.  (a) Through the plain attention: its logits
+    # are held to the kernel step's.  They are bf16 products that 32 more
+    # layers of bf16 casts stir, so their mean |diff| is a coarse check
+    # (scripts/serve_logit_margin.py).  (b) Through the kernel with every
+    # flash call held in place against the plain version on the same
+    # inputs, per output within one bf16 spacing; the plain version with
+    # one of the kernel's KV tiles dropped must break that limit in every
+    # layer, for every tile.
+    def last_step(mode):
+        return T.decode_step(run.params, run.last_state, run.last_tokens,
+                             run.last_pos, cfg, cross_ctx=run.ctx,
+                             mode=mode)[0]
+
+    logits_ref = last_step("ref")
+    d_log = (run.last_logits - logits_ref).abs()
+    if float(d_log.mean()) > SERVE_LOGIT_MEAN_LIMIT:
+        raise AssertionError(f"kernel step vs plain step logits: mean |diff| "
+                             f"{float(d_log.mean())} > {SERVE_LOGIT_MEAN_LIMIT}")
+    bk = 32 * flash_mod.tiling(cfg.n_heads // cfg.n_kv_heads, 1,
+                               cfg.head_dim, 2)[2]
+    n_ctx = cfg.n_context_tokens
+    tiles = [(a, min(a + bk, n_ctx)) for a in range(0, n_ctx, bk)]
+    in_place = []
+    kernel_attention = ops.flash_attention
+
+    def held_in_place(q, k, v, **kw):
+        got = kernel_attention(q, k, v, **kw)
+        plain_kw = {**kw, "mode": "ref"}
+        want = kernel_attention(q, k, v, **plain_kw)
+        lim = flash_limit(want)
+        diff = (got.float() - want.float()).abs()
+        if bool((diff > lim).any()):
+            raise AssertionError(f"flash in place, layer {len(in_place)}: "
+                                 f"max |err| {float(diff.max())}")
+        for a, b in tiles:
+            drop = kernel_attention(
+                q, torch.cat([k[:, :, :a], k[:, :, b:]], 2),
+                torch.cat([v[:, :, :a], v[:, :, b:]], 2), **plain_kw)
+            if not bool(((drop.float() - want.float()).abs() > lim).any()):
+                raise AssertionError(f"flash in place, layer {len(in_place)}:"
+                                     f" dropping keys {a}:{b} passes the limit")
+        in_place.append(float(diff.max()))
+        return got
+
+    ops.flash_attention = held_in_place
+    try:
+        last_step("auto")
+    finally:
+        ops.flash_attention = kernel_attention
+    if len(in_place) != n_cross:
+        raise AssertionError(f"{len(in_place)} flash calls held in place, "
+                             f"expected {n_cross}")
+    log(f"  {cfg.name}: {n_params / 1e9:.3f} B params, {cfg.n_layers} layers, "
+        f"{n_cross} cross-attention layers; prefill {run.prefill_s:.3f} s "
+        f"({run.prefill_s / SERVE_PROMPT * 1e3:.2f} ms per step), decode "
+        f"{run.decode_s:.3f} s ({run.decode_s / (SERVE_GEN - 1) * 1e3:.2f} ms "
+        f"per step, {run.tokens_per_s:.1f} tok/s); whole run incl. init "
+        f"{t_serve:.1f} s; peak device memory {peak:.2f} GiB; flash launches "
+        f"{launches['flash_attention']}; sample {gen_toks[0, :8].tolist()}")
+    log(f"  last step, kernel vs plain: logits max |diff| "
+        f"{float(d_log.max()):.6g}, mean {float(d_log.mean()):.6g} (limit "
+        f"{SERVE_LOGIT_MEAN_LIMIT}); flash in place in all {n_cross} layers: "
+        f"max |err| {max(in_place):.6g} (limit one bf16 spacing), and "
+        f"dropping any of the {len(tiles)} KV tiles of {bk} keys breaks it "
+        f"in every layer")
+    del run, logits_ref
+    log(f"  phases 5-6: {time.perf_counter() - t_phase5:.1f} s")
+
     replaces = {"triplet": "src/repro/kernels/triplet.py:447",
                 "apply": "src/repro/kernels/superstep.py:179",
-                "segment_sum": "src/repro/kernels/segment_sum.py:101"}
+                "segment_sum": "src/repro/kernels/segment_sum.py:101",
+                "flash_attention": "src/repro/kernels/flash_attention.py:121"}
     table = []
-    for name, src in (("triplet", "src/repro_torch/csrc/triplet.cu"),
-                      ("apply", "src/repro_torch/csrc/apply.cu"),
-                      ("segment_sum", "src/repro_torch/csrc/segment_sum.cu")):
+    for name in replaces:
         head = results[name][0]
-        table.append({"name": name, "route": "cuda", "source": src,
+        table.append({"name": name, "route": "cuda",
+                      "source": f"src/repro_torch/csrc/{name}.cu",
                       "replaces": replaces[name], "launches": launches[name],
                       "max_abs_err": max(r["max_abs_err"] for r in results[name]),
                       "ms": head["ms"], "plain_ms": head["plain_ms"],

@@ -21,9 +21,8 @@ from typing import Any, Callable
 
 import torch
 from torch.fx.experimental.proxy_tensor import make_fx
-from torch.utils import _pytree as pytree
 
-from .tree import ElemSpec
+from .tree import ElemSpec, tree_flatten, tree_flatten_with_path, tree_unflatten
 
 TRACE_BATCH = 2           # example batch: per-element UDFs see [B] tensors
 
@@ -54,7 +53,7 @@ class Traced:
 
 
 def _freeze(tree) -> tuple:
-    leaves, spec = pytree.tree_flatten(tree)
+    leaves, spec = tree_flatten(tree)
     return spec, tuple(leaves)
 
 
@@ -81,10 +80,10 @@ def _trace(fn: Callable, frozen: tuple) -> Traced | None:
     def flat_fn(*flat):
         args, off = [], 0
         for (spec, _), n in zip(frozen, sizes):
-            args.append(pytree.tree_unflatten(list(flat[off:off + n]), spec))
+            args.append(tree_unflatten(list(flat[off:off + n]), spec))
             off += n
         out = torch.func.vmap(fn)(*args)
-        leaves, ospec = pytree.tree_flatten(out)
+        leaves, ospec = tree_flatten(out)
         holder["spec"] = ospec
         holder["leaves"] = tuple(ElemSpec(tuple(t.shape[1:]), t.dtype)
                                  for t in leaves)
@@ -155,7 +154,7 @@ def analyze_message_fn(fn: Callable, src_example: Any, edge_example: Any,
     return TripletDeps(
         uses_src=any(src_u), uses_dst=any(dst_u), uses_edge=any(edge_u),
         src_leaves=tuple(src_u), dst_leaves=tuple(dst_u),
-        msg_spec=pytree.tree_unflatten(list(tr.out_leaves), tr.out_spec))
+        msg_spec=tree_unflatten(list(tr.out_leaves), tr.out_spec))
 
 
 def analyze_rewrites(fn: Callable, args_example: tuple,
@@ -169,12 +168,12 @@ def analyze_rewrites(fn: Callable, args_example: tuple,
     if tr is None:
         return None
     off = sum(tr.arg_sizes[:v_argnum])
-    v_paths = [p for p, _ in pytree.tree_flatten_with_path(
+    v_paths = [p for p, _ in tree_flatten_with_path(
         args_example[v_argnum])[0]]
     v_node_of = {path: tr.placeholders[off + i]
                  for i, path in enumerate(v_paths)}
-    out_tree = pytree.tree_unflatten(list(tr.out_leaves), tr.out_spec)
-    out_paths = [p for p, _ in pytree.tree_flatten_with_path(out_tree)[0]]
+    out_tree = tree_unflatten(list(tr.out_leaves), tr.out_spec)
+    out_paths = [p for p, _ in tree_flatten_with_path(out_tree)[0]]
     outs = tr.out_nodes()
     if len(out_paths) != len(outs):
         return None

@@ -16,8 +16,8 @@ map(triplets); result = reduceByKey(messages).  Physical plan, as in
      ascending source-partition order, or handed raw to the fused Pregel
      apply (kernels/superstep.py).
 
-Scope of this slice: the f32 wire, dense transport, scalar leaves in the
-fused plans, no pushed-down subgraph predicate.
+Scope: the f32 wire, dense transport, no pushed-down subgraph predicate;
+the fused plans take leaves of rank <= 1, with bf16/f16 staged through f32.
 """
 from __future__ import annotations
 
@@ -257,7 +257,7 @@ class _FusedPlan:
     dst_used: tuple[bool, ...]
     e_used: bool                  # whether the edge payload packs at all
     dm: int                       # packed message width
-    msg_dtypes: tuple             # per message leaf
+    msg_specs: tuple              # per message leaf
     msg_treedef: Any
     kernel: TripletUdf            # the UDF as the kernel runs it
 
@@ -272,19 +272,45 @@ def _fused_int_ok(dtype: torch.dtype, bound: int) -> bool:
     return info.bits <= 32 and info.min < 0 and bound < _INT_STAGE_BOUND
 
 
+_STAGED_FLOATS = (torch.float32, torch.bfloat16, torch.float16)
+
+
 def _fused_leaf_ok(spec: ElemSpec, bound: int, reduce: str,
                    message: bool = False) -> bool:
-    """Scalar f32 leaves, or exactly-staged ints (int messages only under a
-    value-preserving min/max)."""
-    if spec.shape != ():
+    """Leaves of rank <= 1 (a rank-1 leaf packs one column per element)
+    that ride the kernels' f32 staging exactly: f32, bf16 and f16 floats,
+    or exactly-staged ints (int messages only under a value-preserving
+    min/max)."""
+    if len(spec.shape) > 1:
         return False
     if spec.dtype.is_floating_point:
-        return spec.dtype == torch.float32
+        return spec.dtype in _STAGED_FLOATS
     if spec.dtype == torch.bool or spec.dtype.is_complex:
         return False
     if message and reduce == "sum":
         return False
     return _fused_int_ok(spec.dtype, bound)
+
+
+def _width(spec: ElemSpec) -> int:
+    """Packed columns of one leaf."""
+    return int(np.prod(spec.shape)) if spec.shape else 1
+
+
+def _col_starts(specs, used) -> list[int]:
+    """First packed column of each leaf; columns advance over used leaves."""
+    widths = [_width(sp) if u else 0 for sp, u in zip(specs, used)]
+    return [int(c) for c in np.cumsum([0] + widths)[:-1]]
+
+
+def _split_cols(mat: torch.Tensor, specs, lead: tuple) -> list:
+    """Cut a packed [..., D] matrix back into leaves of `specs` shapes."""
+    out, col = [], 0
+    for sp in specs:
+        w = _width(sp)
+        out.append(mat[..., col:col + w].reshape(lead + tuple(sp.shape)))
+        col += w
+    return out
 
 
 def _derive_need(deps, force_need: str | None) -> str | None:
@@ -299,8 +325,8 @@ def _derive_need(deps, force_need: str | None) -> str | None:
 def _plan_fused(g, map_fn, deps, need, reduce, force_need, vex, eex,
                 payload_bound: int | None = None) -> _FusedPlan | None:
     """The fused plan of this mrTriplets, or None for the unfused path:
-    sum/min/max over scalar f32 or exactly-staged int leaves, with a UDF
-    the IR covers."""
+    sum/min/max over rank <= 1 float or exactly-staged int leaves (bf16 and
+    f16 staged through f32), with a UDF the IR covers."""
     if reduce not in ("sum", "min", "max") or deps.msg_spec is None:
         return None
     bound = payload_bound if payload_bound is not None else g.s.max_vid
@@ -326,20 +352,20 @@ def _plan_fused(g, map_fn, deps, need, reduce, force_need, vex, eex,
     e_used = bool(eleaves) and (deps.uses_edge or force_need is not None)
     if e_used and not all(_fused_leaf_ok(l, bound, reduce) for l in eleaves):
         return None
-    dm = len(msg_leaves)
+    dm = sum(_width(m) for m in msg_leaves)
     if reduce != "sum" and dm > FUSED_MINMAX_MAX_WIDTH:
         return None
     # kernel inputs: column offsets advance over the PACKED (union) leaves
-    col = np.cumsum((0,) + v_used)[:-1]
-    inputs = ([("xs", int(c)) if su else None for c, su in zip(col, src_used)]
-              + [("ev", j) if e_used else None for j in range(len(eleaves))]
-              + [("xd", int(c)) if du else None for c, du in zip(col, dst_used)])
+    col = _col_starts(vleaves, v_used)
+    ecol = _col_starts(eleaves, (True,) * len(eleaves))
+    inputs = ([("xs", c) if su else None for c, su in zip(col, src_used)]
+              + [("ev", c) if e_used else None for c in ecol]
+              + [("xd", c) if du else None for c, du in zip(col, dst_used)])
     ir = udf.lower(analysis.trace_udf(map_fn, vex, eex, vex), inputs)
     if ir is None:
         return None
     return _FusedPlan(v_used=v_used, src_used=src_used, dst_used=dst_used,
-                      e_used=e_used, dm=dm,
-                      msg_dtypes=tuple(m.dtype for m in msg_leaves),
+                      e_used=e_used, dm=dm, msg_specs=tuple(msg_leaves),
                       msg_treedef=msg_treedef, kernel=TripletUdf(ir, dm))
 
 
@@ -371,12 +397,14 @@ def _fused_aggregate(g, mirror_tree, live, to, reduce, kernel_mode,
     out = out.reshape(nl, s.v_mir, plan.dm)
     had_msg = cnt.reshape(nl, s.v_mir) > 0
     leaves = []
-    for c, dtype in enumerate(plan.msg_dtypes):
+    for leaf, spec in zip(_split_cols(out, plan.msg_specs, (nl, s.v_mir)),
+                          plan.msg_specs):
         # empty slots hold the f32 identity: park 0, cast, then re-assert
         # the engine identity in the leaf's own dtype
-        leaf = torch.where(had_msg, out[..., c], 0.0).to(dtype)
+        hm = bmask(had_msg, leaf)
+        leaf = torch.where(hm, leaf, 0.0).to(spec.dtype)
         if reduce != "sum":
-            leaf = torch.where(had_msg, leaf, reduce_identity(reduce, dtype))
+            leaf = torch.where(hm, leaf, reduce_identity(reduce, spec.dtype))
         leaves.append(leaf)
     return tree_unflatten(leaves, plan.msg_treedef), had_msg
 
@@ -522,9 +550,11 @@ def _plan_apply(g, vprog: Callable, send_msg: Callable, reduce: str,
                 changed_fn: Callable | None, default_msg: Any,
                 payload_bound: int | None) -> _ApplyPlan | None:
     """The fused apply plan of a superstep, or None for the unfused apply:
-    scalar f32 / exactly-staged int state and messages, static scalar
-    defaults, a vprog whose output specs equal the state's, and a vprog
-    (and changed_fn) the IR covers."""
+    messages as the triplet plan admits them (floats combine in f32),
+    rank <= 1 f32 or exactly-staged int state (narrower floats would see
+    other vprog arithmetic, as in the reference), static scalar defaults,
+    a vprog whose output specs equal the state's, and a vprog (and
+    changed_fn) the IR covers."""
     s = g.s
     if reduce not in ("sum", "min", "max"):
         return None
@@ -538,9 +568,11 @@ def _plan_apply(g, vprog: Callable, send_msg: Callable, reduce: str,
             _fused_leaf_ok(m, bound, reduce, message=True) for m in msg_leaves):
         return None
     vleaves, vdef = tree_flatten(vex)
-    if not vleaves or not all(_fused_leaf_ok(l, bound, reduce) for l in vleaves):
+    if not vleaves or not all(
+            _fused_leaf_ok(l, bound, reduce) and l.dtype not in
+            (torch.bfloat16, torch.float16) for l in vleaves):
         return None
-    mspecs = tuple(ElemSpec((), torch.float32 if m.dtype.is_floating_point
+    mspecs = tuple(ElemSpec(m.shape, torch.float32 if m.dtype.is_floating_point
                             else m.dtype) for m in msg_leaves)
     dleaves, _ = tree_flatten(default_msg)
     defaults = tuple(_static_scalar(d) for d in dleaves)
@@ -551,9 +583,10 @@ def _plan_apply(g, vprog: Callable, send_msg: Callable, reduce: str,
                             tree_unflatten(list(mspecs), msg_treedef))
     if tr is None or tr.out_spec != vdef or tr.out_leaves != tuple(vleaves):
         return None
-    n_v = len(vleaves)
-    vp_ir = udf.lower(tr, [("vid", 0)] + [("x", i) for i in range(n_v)]
-                      + [("m", l) for l in range(len(mspecs))])
+    xcol = _col_starts(vleaves, (True,) * len(vleaves))
+    mcol = _col_starts(mspecs, (True,) * len(mspecs))
+    vp_ir = udf.lower(tr, [("vid", 0)] + [("x", c) for c in xcol]
+                      + [("m", c) for c in mcol])
     if vp_ir is None:
         return None
     ch_ir = None
@@ -561,17 +594,22 @@ def _plan_apply(g, vprog: Callable, send_msg: Callable, reduce: str,
         tc = analysis.trace_udf(changed_fn, vex, vex)
         if tc is None or tc.out_leaves != (ElemSpec((), torch.bool),):
             return None
-        ch_ir = udf.lower(tc, [("x", i) for i in range(n_v)]
-                          + [("new", i) for i in range(n_v)])
+        ch_ir = udf.lower(tc, [("x", c) for c in xcol]
+                          + [("new", c) for c in xcol])
         if ch_ir is None:
             return None
-    dm = len(msg_leaves)
+    dm = sum(_width(m) for m in mspecs)
+    dv = sum(_width(v) for v in vleaves)
     if reduce != "sum" and dm > FUSED_MINMAX_MAX_WIDTH:
         return None
-    kernel = ApplyUdf(vprog=vp_ir, changed=ch_ir,
-                      msg_dtypes=tuple(udf._DTYPES[m.dtype] for m in mspecs),
-                      defaults=defaults, dm=dm, dv=n_v)
-    return _ApplyPlan(dm=dm, dv=n_v, msg_specs=mspecs,
+    # per packed message column: its leaf's dtype and default
+    kernel = ApplyUdf(
+        vprog=vp_ir, changed=ch_ir,
+        msg_dtypes=tuple(udf._DTYPES[m.dtype] for m in mspecs
+                         for _ in range(_width(m))),
+        defaults=tuple(d for m, d in zip(mspecs, defaults)
+                       for _ in range(_width(m))), dm=dm, dv=dv)
+    return _ApplyPlan(dm=dm, dv=dv, msg_specs=mspecs,
                       msg_treedef=msg_treedef, v_specs=tuple(vleaves),
                       v_treedef=vdef, kernel=kernel)
 
@@ -589,7 +627,8 @@ def fused_apply_home(g, recv: Any, rflags: torch.Tensor, to: str,
                      for l in tree_leaves(recv)], dim=-1)
     pay = pay.reshape(nl * p * k, plan.dm).contiguous()
     live = (rflags & (send_idx >= 0)).reshape(-1).contiguous()
-    x = _pack_cols(g.vdata, (True,) * plan.dv, nl, v_blk, send_idx.device)
+    x = _pack_cols(g.vdata, (True,) * len(plan.v_specs), nl, v_blk,
+                   send_idx.device)
     x = x.reshape(nl * v_blk, plan.dv).contiguous()
     new_mat, changed = kops.superstep_apply(
         pay, live, s.apply_inv[to], x, s.home_vid.reshape(-1),
@@ -597,9 +636,9 @@ def fused_apply_home(g, recv: Any, rflags: torch.Tensor, to: str,
         mode=kernel_mode)
     # invisible rows keep their own values: an int outside the f32 staging
     # range (INT_PAD padding ids) must not round-trip through the cast
-    out = [torch.where(g.vmask, new_mat[:, c].reshape(nl, v_blk).to(old.dtype),
-                       old)
-           for c, old in enumerate(tree_leaves(g.vdata))]
+    out = [torch.where(bmask(g.vmask, old), new.to(old.dtype), old)
+           for new, old in zip(_split_cols(new_mat, plan.v_specs, (nl, v_blk)),
+                               tree_leaves(g.vdata))]
     return (tree_unflatten(out, plan.v_treedef),
             changed.reshape(nl, v_blk) > 0)
 

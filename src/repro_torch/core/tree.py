@@ -1,4 +1,10 @@
-"""Pytree helpers shared across the engine (torch.utils._pytree)."""
+"""Pytree helpers shared across the engine (torch.utils._pytree).
+
+Dicts flatten in sorted key order, as `jax.tree` flattens them (torch's
+pytree keeps insertion order): a vprog that builds its output dict in
+another key order than the state has the same structure, the same leaf
+order and the same plan as in the reference.
+"""
 from __future__ import annotations
 
 import dataclasses
@@ -7,10 +13,32 @@ from typing import Any, Callable
 import torch
 from torch.utils import _pytree as pytree
 
-tree_map = pytree.tree_map
-tree_leaves = pytree.tree_leaves
-tree_flatten = pytree.tree_flatten
 tree_unflatten = pytree.tree_unflatten
+
+
+def canonical(tree: Any) -> Any:
+    """`tree` with the keys of every (nested) plain dict in sorted order."""
+    if type(tree) is dict:
+        return {k: canonical(tree[k]) for k in sorted(tree)}
+    if type(tree) in (list, tuple):
+        return type(tree)(canonical(x) for x in tree)
+    return tree
+
+
+def tree_flatten(tree: Any):
+    return pytree.tree_flatten(canonical(tree))
+
+
+def tree_leaves(tree: Any) -> list:
+    return pytree.tree_leaves(canonical(tree))
+
+
+def tree_flatten_with_path(tree: Any):
+    return pytree.tree_flatten_with_path(canonical(tree))
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    return pytree.tree_map(fn, canonical(tree), *map(canonical, rest))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -20,10 +20,10 @@ import dataclasses
 from typing import Any
 
 import torch
-from torch.utils import _pytree as pytree
 
 from .mrtriplets import ShipMetrics, ViewCache, ship_to_mirrors
-from .tree import tree_flatten, tree_leaves, tree_map, tree_unflatten, vmap2
+from .tree import (tree_flatten, tree_flatten_with_path, tree_leaves,
+                   tree_map, tree_unflatten, vmap2)
 
 _DIR = {"src": "s", "dst": "d", "both": "sd"}
 _NEED = {"s": "src", "d": "dst", "sd": "both"}
@@ -198,7 +198,7 @@ def keep_through(old_vdata, exclude: tuple = ()) -> dict:
         ks = tuple(getattr(e, "key", None) for e in path)
         return not any(ks[:len(pfx)] == pfx for pfx in prefixes)
 
-    return {p: kept(p) for p, _ in pytree.tree_flatten_with_path(old_vdata)[0]}
+    return {p: kept(p) for p, _ in tree_flatten_with_path(old_vdata)[0]}
 
 
 def view_after_rewrite(view: GraphView | None, old_vdata, new_vdata,
@@ -214,8 +214,8 @@ def view_after_rewrite(view: GraphView | None, old_vdata, new_vdata,
     if view is None:
         return None
     old_paths = {p: i for i, (p, _) in enumerate(
-        pytree.tree_flatten_with_path(old_vdata)[0])}
-    new_flat, new_def = pytree.tree_flatten_with_path(new_vdata)
+        tree_flatten_with_path(old_vdata)[0])}
+    new_flat, new_def = tree_flatten_with_path(new_vdata)
     old_mir = tree_leaves(view.mirror)
     old_dirty = tree_leaves(view.dirty)
     old_vals = tree_leaves(old_vdata)

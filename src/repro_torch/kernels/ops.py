@@ -9,6 +9,7 @@ kernel_mode, one switch for the whole engine:
 """
 from __future__ import annotations
 
+from . import flash_attention as _flash
 from . import ref
 from . import segment_sum as _segsum
 from . import superstep as _superstep
@@ -45,14 +46,26 @@ def superstep_apply(pay, live, inv, x, vid, vmask, spec, *,
     return fn(pay, live, inv, x, vid, vmask, spec, reduce=reduce)
 
 
+def flash_attention(q, k, v, *, causal: bool = True,
+                    scale: float | None = None, kv_offset: int = 0,
+                    mode: str = "auto"):
+    """GQA attention, q [B, Hq, Lq, Dh], k/v [B, Hkv, Lk, Dh] -> [B, Hq,
+    Lq, Dh] in q's dtype, with the Pallas kernel's semantics."""
+    fn = ref.flash_attention if _plain(mode) else _flash.flash_attention
+    return fn(q, k, v, causal=causal, scale=scale, kv_offset=kv_offset)
+
+
+_COUNTED = {"triplet": _triplet.fused_triplet,
+            "apply": _superstep.fused_apply,
+            "segment_sum": _segsum.segment_sum,
+            "flash_attention": _flash.flash_attention}
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of each CUDA kernel since the last reset."""
-    return {"triplet": _triplet.fused_triplet.launches,
-            "apply": _superstep.fused_apply.launches,
-            "segment_sum": _segsum.segment_sum.launches}
+    return {name: fn.launches for name, fn in _COUNTED.items()}
 
 
 def reset_launch_counts() -> None:
-    _triplet.fused_triplet.launches = 0
-    _superstep.fused_apply.launches = 0
-    _segsum.segment_sum.launches = 0
+    for fn in _COUNTED.values():
+        fn.launches = 0

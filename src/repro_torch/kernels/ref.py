@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's three kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 Same arguments and same results as the CUDA kernels in csrc/.  The CPU path
 and the tests run these; on the card `chip_smoke.py` holds each kernel
@@ -173,3 +173,38 @@ def apply_home(spec, acc, exists, x, vid, vmask):
         (chg,) = udf.evaluate(spec.changed, load_ch, x.device)
         chg = chg.expand(n)
     return new, (chg & vm).to(torch.float32)
+
+
+# The Pallas flash kernel's finite mask value (-0.7 * f32 max).
+NEG_BIG = -0.7 * float(np.finfo(np.float32).max)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: float | None = None,
+                    kv_offset: int = 0) -> torch.Tensor:
+    """GQA attention with the Pallas kernel's semantics
+    (`repro/kernels/flash_attention.py`): q [B, Hq, Lq, Dh], k/v
+    [B, Hkv, Lk, Dh]; query head h reads KV head h // (Hq // Hkv); query
+    position i sees keys <= i + kv_offset when causal.  The softmax is f32:
+    q is scaled before the dot product, masked logits take NEG_BIG, p is 0
+    on masked keys, and a row with every key masked returns 0 (where a
+    plain softmax gives NaN).  Output in q's dtype."""
+    b, hq, lq, dh = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"Hq {hq} is not a multiple of Hkv {hkv}")
+    g = hq // hkv
+    scale = dh ** -0.5 if scale is None else scale
+    qf = q.float().reshape(b, hkv, g, lq, dh) * scale
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float())
+    if causal:
+        rows = torch.arange(lq, device=q.device)[:, None] + kv_offset
+        mask = rows >= torch.arange(lk, device=q.device)[None, :]
+        s = torch.where(mask, s, NEG_BIG)
+        p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    else:
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    out = out / torch.where(l == 0.0, 1.0, l)
+    return out.reshape(b, hq, lq, dh).to(q.dtype)

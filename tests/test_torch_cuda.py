@@ -1,8 +1,8 @@
 """The port's CUDA kernels on the card, against their plain versions.
 
-Every test takes the `cuda` fixture, which skips when there is no CUDA
-card; the decision is made there, never while the module is imported.  On
-a machine with one card and nvcc:
+Every test carries the `cuda` marker and takes the `cuda` fixture, which
+skips when there is no CUDA card; the decision is made there, never while
+the module is imported.  On a machine with one card and nvcc:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 
@@ -25,7 +25,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import Graph, analysis  # noqa: E402
 from repro_torch.core import algorithms as alg  # noqa: E402
 from repro_torch.core import mrtriplets as mt  # noqa: E402
-from repro_torch.core.tree import ElemSpec  # noqa: E402
+from repro_torch.core.tree import ElemSpec, tree_map  # noqa: E402
 from repro_torch.data import rmat, symmetrize  # noqa: E402
 from repro_torch.kernels import ops, ref, udf  # noqa: E402
 from repro_torch.kernels import segment_sum as seg_mod  # noqa: E402
@@ -36,6 +36,7 @@ P = 4
 GD = rmat(10, 8, seed=42)
 SGD = symmetrize(GD)
 F32, I32 = ElemSpec((), torch.float32), ElemSpec((), torch.int32)
+pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture(scope="module")
@@ -289,3 +290,143 @@ def test_more_senior_on_card(cuda):
     assert torch.equal(exists, uexists) and torch.equal(vals["n"], uvals["n"])
     assert torch.equal(exists.cpu(), cexists)
     assert torch.equal(vals["n"].cpu(), cvals["n"])
+
+
+# ------------------------------------------------------- float math, scope
+def _exp_send(sv, ev, dv):
+    return {"m": torch.exp(sv["a"] * 0.5) * ev["w"]}
+
+
+def _math_max(sv, ev, dv):
+    a, b = sv["a"], dv["b"]
+    pos = torch.abs(a) + 0.5
+    return {"m": torch.log(pos) + torch.log1p(pos) + torch.expm1(b)
+            + torch.sqrt(pos) + torch.tanh(a) + torch.sigmoid(b)
+            + torch.sin(a) * torch.cos(b) + torch.floor(a * 3.0)
+            + torch.ceil(b) + torch.sign(a - b) + torch.pow(a, 2)
+            + torch.pow(pos, 1.7) + torch.clamp(b, -0.5, 0.5)
+            + torch.reciprocal(pos)}
+
+
+def _vec_data(g):
+    rng = np.random.default_rng(6)
+    return {"v": rng.normal(size=tuple(g.s.home_vid.shape) + (3,))
+            .astype(np.float32)}
+
+
+def _vec_send(sv, ev, dv):
+    return {"m": torch.exp(sv["v"]) * ev["w"] + dv["v"][0]}
+
+
+@pytest.mark.parametrize("case", ["exp_sum", "math_max", "vector_sum",
+                                  "bf16_sum"])
+def test_fused_equals_unfused_on_card(case, cuda):
+    """The triplet kernel's libm calls (expf, logf, ...) against torch's
+    CUDA ops in the unfused plan, rank-1 leaves and bf16 leaves: the two
+    plans agree bit for bit on the card."""
+    if case == "vector_sum":
+        g, send, reduce = _graph(GD, cuda, _vec_data), _vec_send, "sum"
+    elif case == "bf16_sum":
+        g = _graph(GD, cuda, _vdata_f)
+        g = g.replace(vdata={k: v.to(torch.bfloat16)
+                             for k, v in g.vdata.items()})
+        send, reduce = (lambda sv, ev, dv: {"m": torch.exp(sv["a"])
+                                            * dv["b"]}), "sum"
+    else:
+        g = _graph(GD, cuda, _vdata_f)
+        send, reduce = {"exp_sum": (_exp_send, "sum"),
+                        "math_max": (_math_max, "max")}[case]
+    assert mt.plan_of(g, send, reduce) == "fused"
+    before = tri_mod.fused_triplet.launches
+    vals, exists, _, m = g.mrTriplets(send, reduce)
+    assert m["plan"] == "fused" and tri_mod.fused_triplet.launches == before + 1
+    uvals, uexists, _, _ = g.mrTriplets(send, reduce, kernel_mode="unfused")
+    assert torch.equal(exists, uexists)
+    for k in vals:
+        assert vals[k].dtype == uvals[k].dtype
+        assert torch.equal(vals[k], uvals[k]), k
+
+
+# ------------------------------------------------------------ flash kernel
+FLASH_SHAPES = [
+    (2, 4, 2, 64, 64, 32, True, 0),
+    (1, 8, 1, 100, 100, 64, True, 0),
+    (1, 4, 4, 1, 300, 32, True, 299),
+    (2, 2, 2, 48, 96, 16, True, 48),
+    (1, 2, 1, 64, 64, 32, False, 0),
+    (1, 2, 2, 40, 72, 128, False, 0),
+    (4, 32, 8, 1, 1664, 128, False, 0),       # the serve step's shape
+    (1, 8, 2, 300, 700, 128, True, 400),      # chunked prefill, ragged
+]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
+def test_flash_kernel_matches_plain(shape, dtype, causal, cuda):
+    """Kernel against the plain version on the card, at the CPU sweep's
+    tolerances (3e-5 in f32; 3e-2 in bf16, whose output rounds)."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    b, hq, hkv, lq, lk, dh, _, off = shape
+    rng = np.random.default_rng(lq + lk)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(cuda).to(dt) for s in ((b, hq, lq, dh), (b, hkv, lk, dh),
+                                          (b, hkv, lk, dh)))
+    before = flash_mod.flash_attention.launches
+    got = flash_mod.flash_attention(q, k, v, causal=causal, kv_offset=off)
+    want = ref.flash_attention(q, k, v, causal=causal, kv_offset=off)
+    torch.cuda.synchronize()
+    assert flash_mod.flash_attention.launches == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    tol = 3e-5 if dtype == "float32" else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_kernel_dead_rows_and_layouts(cuda):
+    """Rows that see no key write 0; permuted (einsum) inputs are copied
+    to contiguous and give the same result; odd inputs raise."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda)
+               for s in ((1, 4, 8, 32), (1, 2, 8, 32), (1, 2, 8, 32)))
+    out = flash_mod.flash_attention(q, k, v, causal=True, kv_offset=-3)
+    assert torch.all(out[:, :, :3] == 0)
+    torch.testing.assert_close(out, ref.flash_attention(
+        q, k, v, causal=True, kv_offset=-3), rtol=3e-5, atol=3e-5)
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)     # non-contiguous
+    assert not qt.is_contiguous()
+    torch.testing.assert_close(flash_mod.flash_attention(qt, k, v),
+                               flash_mod.flash_attention(q, k, v),
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        flash_mod.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        flash_mod.flash_attention(q[..., :12].contiguous(),
+                                  k[..., :12].contiguous(),
+                                  v[..., :12].contiguous())
+
+
+def test_serve_smoke_on_card_goes_through_the_kernel(cuda):
+    """llama-3.2-vision SMOKE served on the card: one cross-attention layer
+    launches the flash kernel once per step, and teacher-forced decode
+    steps follow the CPU steps of the same weights within bf16 rounding."""
+    from repro_torch import configs as C
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    ops.reset_launch_counts()
+    serve.run("llama-3.2-vision-11b", smoke=True, batch=2, prompt_len=4,
+              gen=4, device="cuda")
+    assert ops.launch_counts()["flash_attention"] == 4 + 3
+    cfg = C.get("llama-3.2-vision-11b", smoke=True)
+    cpu = torch.device("cpu")
+    params, ctx, toks = serve.setup(cfg, 2, 4, cpu)
+    gparams, gctx = tree_map(lambda t: t.to(cuda), params), ctx.to(cuda)
+    cst = T.init_decode_state(cfg, 2, 4, device=cpu)
+    gst = T.init_decode_state(cfg, 2, 4, device=cuda)
+    for pos in range(4):
+        tok = toks[:, pos:pos + 1]
+        cl, cst = T.decode_step(params, cst, tok, pos, cfg, cross_ctx=ctx)
+        gl, gst = T.decode_step(gparams, gst, tok.to(cuda), pos, cfg,
+                                cross_ctx=gctx)
+        torch.testing.assert_close(gl.cpu(), cl, rtol=3e-2, atol=3e-2)

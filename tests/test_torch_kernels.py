@@ -25,7 +25,7 @@ from repro_torch.core import Graph, analysis  # noqa: E402
 from repro_torch.core import algorithms as alg  # noqa: E402
 from repro_torch.core import mrtriplets as mt  # noqa: E402
 from repro_torch.core.graph import _degree_msg  # noqa: E402
-from repro_torch.core.tree import ElemSpec  # noqa: E402
+from repro_torch.core.tree import ElemSpec, tree_leaves  # noqa: E402
 from repro_torch.data import rmat  # noqa: E402
 from repro_torch.kernels import ops, ref, udf  # noqa: E402
 from repro_torch.kernels import segment_sum as seg_mod  # noqa: E402
@@ -305,20 +305,120 @@ def test_udf_ir_matches_udf(name):
     arrays = {"s": list(sv.values()), "e": list(ev.values()),
               "d": list(dv.values())}
     got = udf.evaluate(ir, lambda arr, col, dt: arrays[arr][col].to(dt))
-    want = torch.utils._pytree.tree_leaves(torch.func.vmap(fn)(sv, ev, dv))
+    # the port flattens dicts in sorted key order, as jax.tree does
+    want = tree_leaves(torch.func.vmap(fn)(sv, ev, dv))
     assert len(got) == len(want)
     for g_, w_ in zip(got, want):
         assert g_.dtype == w_.dtype
         assert torch.equal(g_.expand(n), w_)
 
 
+def _math(sv, ev, dv):
+    a, b = sv["a"], dv["a"]
+    pos = torch.abs(a) + 0.5
+    return {"e": torch.exp(a * 0.5), "l": torch.log(pos) + torch.log1p(pos),
+            "x": torch.expm1(b) - torch.sqrt(pos) * torch.rsqrt(pos),
+            "t": torch.tanh(a) + torch.sigmoid(b) * torch.sin(a)
+            - torch.cos(b) / torch.reciprocal(pos),
+            "f": torch.floor(a * 3.0) + torch.ceil(b) + torch.sign(a - b),
+            "p": torch.pow(a, 2) + torch.pow(pos, 3.0) - torch.pow(pos, 0.5)
+            + torch.pow(pos, -1.0) + torch.pow(pos, 1.7) + torch.pow(pos, -2),
+            "c": torch.clamp(a, -0.5, 0.5) + torch.clamp(b, min=0.0)
+            + torch.clamp_max(a, 0.25) + torch.clamp(b, max=sv["a"]),
+            "ie": torch.exp(sv["i"]), "if": torch.floor(sv["i"])}
+
+
+def _vector(sv, ev, dv):
+    v, w = sv["v"], dv["v"]
+    return {"m": v * ev["w"] + w, "s": v[0] - w[-1],
+            "c": torch.cat([v[1:], torch.exp(w[:1])]),
+            "q": torch.stack([v[2], ev["w"]]), "k": sv["a"]}
+
+
+def _narrow(sv, ev, dv):
+    h, g = sv["h"], dv["h"]
+    return {"m": h * g + h / (g + 2.0), "e": torch.exp(h), "c": h.float() * 3.0,
+            "p": torch.pow(h, 2), "k": torch.maximum(h, g) - 0.5,
+            "f": sv["f16"] * dv["f16"] - 0.25}
+
+
+F16, BF16 = ElemSpec((), torch.float16), ElemSpec((), torch.bfloat16)
+V3 = ElemSpec((3,), torch.float32)
+NEW_UDFS = {"math": (_math, {"a": F32, "i": I32}),
+            "vector": (_vector, {"a": F32, "v": V3}),
+            "narrow": (_narrow, {"f16": F16, "h": BF16})}
+
+
+@pytest.mark.parametrize("name", sorted(NEW_UDFS))
+def test_udf_ir_math_vector_narrow_matches_udf(name):
+    """Math ops, rank-1 leaves (one column per element) and bf16/f16
+    arithmetic: the IR's torch evaluation equals the UDF bit for bit."""
+    fn, vex = NEW_UDFS[name]
+    eex = {"w": F32}
+    tr = analysis.trace_udf(fn, vex, eex, vex)
+    starts = np.cumsum([0] + [int(np.prod(s.shape)) for s in vex.values()])
+    inputs = ([("s", int(c)) for c in starts[:-1]] + [("e", 0)]
+              + [("d", int(c)) for c in starts[:-1]])
+    ir = udf.lower(tr, inputs)
+    assert ir is not None
+    rng = np.random.default_rng(10)
+    n = 64
+
+    def make(specs):
+        out = {}
+        for k, sp in specs.items():
+            if sp.dtype == torch.int32:
+                out[k] = torch.from_numpy(rng.integers(-5, 6, n).astype(np.int32))
+            else:
+                out[k] = torch.from_numpy(rng.normal(size=(n,) + sp.shape)
+                                          .astype(np.float32)).to(sp.dtype)
+        return out
+
+    sv, ev, dv = make(vex), make(eex), make(vex)
+    cols = {a: [c for leaf in tree_leaves(t)
+                for c in leaf.reshape(n, -1).unbind(1)]
+            for a, t in (("s", sv), ("e", ev), ("d", dv))}
+    got = udf.evaluate(ir, lambda arr, col, dt: cols[arr][col].to(dt))
+    want = [c for leaf in tree_leaves(torch.func.vmap(fn)(sv, ev, dv))
+            for c in leaf.reshape(n, -1).unbind(1)]
+    assert len(got) == len(want)
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == w_.dtype
+        torch.testing.assert_close(g_.expand(n), w_, rtol=0, atol=0,
+                                   equal_nan=True)
+    if name == "narrow":        # per-op rounding to the narrow dtype in C
+        lines, _ = udf.emit(ir, lambda a, c, d: f"{a}[{c}]", "t")
+        assert any("udf_bf16(" in l for l in lines)
+        assert any("udf_f16(" in l for l in lines)
+    if name == "math":          # accurate libm, never the fast intrinsics
+        text = "\n".join(udf.emit(ir, lambda a, c, d: f"{a}[{c}]", "t")[0])
+        assert "expf(" in text and "__expf" not in text
+
+
+def test_narrow_constant_outside_dtype_plans_unfused():
+    """torch keeps a python scalar in f32 inside a bf16 op; the IR would
+    round it to bf16, so such a UDF plans unfused."""
+    vex = {"h": BF16}
+    inputs = [("s", 0), ("e", 0), ("d", 0)]
+    ok = analysis.trace_udf(lambda sv, ev, dv: {"m": sv["h"] * 0.5},
+                            vex, {"w": F32}, vex)
+    bad = analysis.trace_udf(lambda sv, ev, dv: {"m": sv["h"] * 0.1},
+                             vex, {"w": F32}, vex)
+    assert udf.lower(ok, inputs) is not None
+    assert udf.lower(bad, inputs) is None
+
+
 def test_udf_outside_ir_plans_unfused():
     g, _ = _graphs(_vdata_f)
+
+    def atan_send(sv, ev, dv):
+        return {"m": torch.atan(sv["a"])}
 
     def exp_send(sv, ev, dv):
         return {"m": torch.exp(sv["a"])}
 
-    assert mt.plan_of(g, exp_send, "sum") == "unfused"
+    assert mt.plan_of(g, atan_send, "sum") == "unfused"
+    assert mt.plan_of(g, exp_send, "sum") == "fused"
     assert mt.plan_of(g, _send_f, "sum") == "fused"
 
 
@@ -357,6 +457,7 @@ def test_wrappers_on_cpu_run_plain_and_launch_nothing():
     msgs = torch.rand(P, s.e_blk, 1)
     assert torch.equal(seg_mod.segment_sum(msgs, s.edge_mask, s.agg_ptr["dst"]),
                        ref.segment_sum(msgs, s.edge_mask, s.agg_ptr["dst"]))
-    assert ops.launch_counts() == {"triplet": 0, "apply": 0, "segment_sum": 0}
+    assert ops.launch_counts() == {"triplet": 0, "apply": 0, "segment_sum": 0,
+                                   "flash_attention": 0}
     with pytest.raises(ValueError):
         ops.triplet(*args, mode="pallas")

@@ -129,14 +129,18 @@ def test_reference_fused_and_port_fused_plans_agree(graphs):
     G, RG = graphs
     for fn, fn_j, reduce in CASES.values():
         assert mt.plan_of(G, fn, reduce) == "fused"
-    # outside the UDF IR: the port plans unfused (the reference fuses it)
+    # a float math op: both plan fused, and the port's fused plan equals
+    # its unfused plan bit for bit
     def exp_age(sv, ev, dv):
         return {"e": torch.exp(sv["age"] * 0.01)}
-    assert mt.plan_of(G, exp_age, "sum") == "unfused"
+    assert mt.plan_of(G, exp_age, "sum") == "fused"
     vals, _, _, m = G.mrTriplets(exp_age, "sum")
+    uvals, _, _, um = G.mrTriplets(exp_age, "sum", kernel_mode="unfused")
     rvals, _, _, rm = RG.mrTriplets(
         lambda sv, ev, dv: {"e": jnp.exp(sv["age"] * 0.01)}, "sum")
-    assert m["plan"] == "unfused" and rm["plan"] == "fused"
+    assert m["plan"] == "fused" and rm["plan"] == "fused"
+    assert um["plan"] == "unfused"
+    assert torch.equal(vals["e"], uvals["e"])
     vm = _np(G.vmask)
     np.testing.assert_allclose(_np(vals["e"])[vm], _np(rvals["e"])[vm],
                                rtol=1e-5)

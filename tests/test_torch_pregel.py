@@ -17,10 +17,12 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 from repro.core import Graph as RefGraph  # noqa: E402
 from repro.core import algorithms as ref_alg  # noqa: E402
+from repro.core import mrtriplets as ref_mt  # noqa: E402
 from repro.core.pregel import pregel as ref_pregel  # noqa: E402
 from repro.data import rmat, symmetrize  # noqa: E402
 from repro_torch.core import Graph  # noqa: E402
 from repro_torch.core import algorithms as alg  # noqa: E402
+from repro_torch.core import mrtriplets as mt  # noqa: E402
 from repro_torch.core.pregel import pregel  # noqa: E402
 
 GD = rmat(10, 8, seed=42)
@@ -151,3 +153,156 @@ def test_connected_components_carried_mid_run_is_exact(graphs):
     mask = np.asarray(full.graph.vmask)
     np.testing.assert_array_equal(r.graph.vdata["cc"].numpy()[mask],
                                   np.asarray(full.graph.vdata["cc"])[mask])
+
+
+# --------------------------------------------- plan parity of the fused scope
+def _pair_with(gd, values):
+    """Port and reference graphs of `gd` carrying the same f32 vertex
+    values (numpy, keyed by vertex id)."""
+    vids = np.arange(gd.num_vertices, dtype=np.int64)
+    kw = dict(vertex_keys=vids, vertex_values=values,
+              default_vertex={k: np.float32(0) for k in values},
+              num_partitions=4)
+    return (Graph.from_edges(gd.src, gd.dst, device="cpu", **kw),
+            RefGraph.from_edges(gd.src, gd.dst, **kw))
+
+
+def _vec_init(vid, v):
+    return {"deg": v["deg"], "v": torch.stack(
+        [torch.ones_like(v["deg"]), v["deg"], (vid % 7).to(torch.float32)])}
+
+
+def _vec_init_j(vid, v):
+    return {"deg": v["deg"], "v": jnp.stack(
+        [jnp.ones_like(v["deg"]), v["deg"], (vid % 7).astype(jnp.float32)])}
+
+
+def _vec_send(sv, ev, dv):
+    return {"m": sv["v"] / sv["deg"] * ev["w"]}
+
+
+def _vec_vprog(vid, v, msg):
+    return {"deg": v["deg"], "v": 0.15 + 0.85 * msg["m"]}
+
+
+def test_rank1_leaves_fuse_as_in_reference(graphs):
+    """A vector-valued PageRank (3 columns per vertex): rank-1 state and
+    messages plan fused in both, values agree, fused == unfused."""
+    G, RG, _, _ = graphs
+    g = alg.attach_out_degree(G).mapV(_vec_init)
+    rg = ref_alg.attach_out_degree(RG).mapV(_vec_init_j)
+    kw = dict(max_supersteps=6, skip_stale=None, track_metrics=True)
+    r = pregel(g, _vec_vprog, _vec_send, "sum",
+               default_msg={"m": torch.tensor(0.0)}, **kw)
+    rr = ref_pregel(rg, _vec_vprog, _vec_send, "sum",
+                    default_msg={"m": jnp.float32(0.0)}, **kw)
+    assert (r.metrics[0]["plan"], r.metrics[0]["apply_plan"]) == \
+        (rr.metrics[0]["plan"], rr.metrics[0]["apply_plan"]) == \
+        ("fused", "fused_apply")
+    ids, got = _visible(r.graph, "v")
+    _, rvals = rr.graph.vertices_to_numpy()
+    assert got.shape == (len(ids), 3)
+    np.testing.assert_allclose(got, np.asarray(rvals["v"]), rtol=1e-5,
+                               atol=1e-6)
+    u = pregel(g, _vec_vprog, _vec_send, "sum",
+               default_msg={"m": torch.tensor(0.0)}, kernel_mode="unfused",
+               **kw)
+    assert torch.equal(r.graph.vdata["v"], u.graph.vdata["v"])
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_narrow_float_leaves_fuse_as_in_reference(dtype):
+    """bf16/f16 vertex leaves stage through f32: the triplet plans fused in
+    both packages with the same values, and a narrow vertex STATE keeps the
+    apply unfused in both.  The messages are exact in the narrow dtype: the
+    reference's fused plan evaluates a narrow UDF in f32, where torch (and
+    the port, fused or not) rounds every op to the dtype."""
+    x = np.random.default_rng(4).normal(size=GD.num_vertices)
+    G, RG = _pair_with(GD, {"x": x.astype(np.float32)})
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    g = G.mapV(lambda vid, v: {"h": v["x"].to(tdt), "x": v["x"]})
+    rg = RG.mapV(lambda vid, v: {"h": v["x"].astype(jdt), "x": v["x"]})
+    cases = [
+        (lambda sv, ev, dv: {"m": sv["h"] * 2.0},
+         lambda sv, ev, dv: {"m": sv["h"] * 2.0}, "sum"),
+        (lambda sv, ev, dv: {"m": torch.minimum(sv["h"], dv["h"]) * 2.0},
+         lambda sv, ev, dv: {"m": jnp.minimum(sv["h"], dv["h"]) * 2.0}, "min"),
+    ]
+    for fn, fn_j, reduce in cases:
+        vals, exists, _, m = g.mrTriplets(fn, reduce)
+        uvals, uexists, _, _ = g.mrTriplets(fn, reduce, kernel_mode="unfused")
+        rvals, rexists, _, rm = rg.mrTriplets(fn_j, reduce)
+        assert m["plan"] == rm["plan"] == "fused"
+        assert torch.equal(vals["m"], uvals["m"])
+        assert torch.equal(exists, uexists)
+        vm = G.vmask.numpy()
+        np.testing.assert_array_equal(exists.numpy(), np.asarray(rexists))
+        got = vals["m"].float().numpy()[vm]
+        want = np.asarray(rvals["m"], np.float32)[vm]
+        if reduce == "min":
+            np.testing.assert_array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    send = lambda sv, ev, dv: {"m": sv["h"] * ev["w"]}  # noqa: E731
+    assert mt.apply_plan_of(g, lambda vid, v, m: {**v, "x": m["m"]}, send,
+                            default_msg={"m": torch.tensor(0.0)}) == "unfused"
+    assert ref_mt.apply_plan_of(rg, lambda vid, v, m: {**v, "x": m["m"]},
+                                send, default_msg={"m": jnp.float32(0.0)}) \
+        == "unfused"
+
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_narrow_float_udf_rounds_per_op_unlike_reference_fused(dtype):
+    """Pins the value difference that stays (ROADMAP Queue 3): for a UDF
+    that is not exact in the narrow dtype, h_s * h_d + h_s, the port rounds
+    every op to the dtype, fused and unfused alike, as the reference's
+    unfused plan does; the reference's fused tile_fn evaluates it in f32
+    and rounds once.  The min reduce adds no rounding of its own."""
+    x = np.random.default_rng(6).normal(size=GD.num_vertices)
+    G, RG = _pair_with(GD, {"x": x.astype(np.float32)})
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    g = G.mapV(lambda vid, v: {"h": v["x"].to(tdt)})
+    rg = RG.mapV(lambda vid, v: {"h": v["x"].astype(jdt)})
+    fn = lambda sv, ev, dv: {"m": sv["h"] * dv["h"] + sv["h"]}  # noqa: E731
+    vals, exists, _, m = g.mrTriplets(fn, "min")
+    uvals, _, _, _ = g.mrTriplets(fn, "min", kernel_mode="unfused")
+    rvals, rexists, _, rm = rg.mrTriplets(fn, "min")
+    ruvals, _, _, _ = rg.mrTriplets(fn, "min", kernel_mode="unfused")
+    assert m["plan"] == rm["plan"] == "fused"
+    assert torch.equal(vals["m"], uvals["m"])
+    vm = G.vmask.numpy() & exists.numpy()
+    np.testing.assert_array_equal(exists.numpy(), np.asarray(rexists))
+    got = vals["m"].float().numpy()[vm]
+    np.testing.assert_array_equal(
+        got, np.asarray(ruvals["m"], np.float32)[vm])
+    assert not np.array_equal(got, np.asarray(rvals["m"], np.float32)[vm])
+
+def _ab_send(sv, ev, dv):
+    return {"m": sv["a"] * ev["w"]}
+
+
+def _ba_vprog(vid, v, msg):            # keys in another order than the state
+    return {"b": v["b"] + 1.0, "a": 0.5 * v["a"] + msg["m"]}
+
+
+def test_vprog_key_order_plans_as_reference():
+    vals = np.random.default_rng(5).random((2, GD.num_vertices))
+    G, RG = _pair_with(GD, {"a": vals[0].astype(np.float32),
+                            "b": vals[1].astype(np.float32)})
+    kw = dict(max_supersteps=4, skip_stale=None, track_metrics=True)
+    r = pregel(G, _ba_vprog, _ab_send, "sum",
+               default_msg={"m": torch.tensor(0.0)}, **kw)
+    rr = ref_pregel(RG, _ba_vprog, _ab_send, "sum",
+                    default_msg={"m": jnp.float32(0.0)}, **kw)
+    assert r.metrics[0]["apply_plan"] == rr.metrics[0]["apply_plan"] == \
+        "fused_apply"
+    u = pregel(G, _ba_vprog, _ab_send, "sum",
+               default_msg={"m": torch.tensor(0.0)}, kernel_mode="unfused",
+               **kw)
+    _, rv = rr.graph.vertices_to_numpy()
+    for k in ("a", "b"):
+        assert torch.equal(r.graph.vdata[k], u.graph.vdata[k]), k
+        np.testing.assert_allclose(_visible(r.graph, k)[1], np.asarray(rv[k]),
+                                   rtol=1e-5, atol=1e-6)
+    assert list(r.graph.vdata) == ["a", "b"]
