@@ -24,7 +24,24 @@ Phases (any failure exits non-zero before the result line):
      launches), then the last step again: with the plain attention, whose
      logits must agree in the mean, and with every flash call held in
      place against its plain version on the same inputs (a dropped KV
-     tile must fail that check in every layer).
+     tile must fail that check in every layer);
+  7. the mLSTM forward and backward kernels against their plain versions
+     at xlstm-350m's shape [8, 4, 1024, 256] chunk 64, SMOKE's heads and
+     chunk 128: the forward per element within a limit derived from f32
+     accumulation, the gradients per input within a relative-norm limit,
+     and the forward against the token-by-token recurrence at L 256
+     (scripts/mlstm_mutants.py dry-runs these checks on the CPU with a
+     dropped inter-chunk term and a cut dC carry, which must fail them);
+  8. training xlstm-350m at its full config (24 layers, 179 M f32
+     parameters, random weights from a seed) through
+     `python -m repro_torch.launch.train`'s entry point: batch 8, seq 1024,
+     3 AdamW steps, 18 mLSTM forward and 18 backward launches per step,
+     finite losses; then step 1 again from the same weights and batch:
+     through the kernels with every mLSTM forward and backward call held in
+     place against its plain version on the same inputs and cotangent, and
+     through the plain versions, whose loss must agree.
+Phase 2 also runs spmv (the PageRank send as one SpMV through the triplet
+kernel) against its plain version and a CSR `torch.sparse.mm`.
 It then prints the kernel table as one JSON line and, last, the device line
 {"ok": true, "device": {...}}.
 """
@@ -35,6 +52,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -52,6 +70,25 @@ BF16_STEP = 2.0 ** -8          # bf16 unit roundoff: half its 2^-7 spacing
 # sound reading (0.00433) and the smallest with one KV tile dropped
 # (0.00767) over weight seeds 0-3, scripts/serve_logit_margin.py on an H100
 SERVE_LOGIT_MEAN_LIMIT = 0.006
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "xlstm-350m", 8, 1024, 3
+# phase 7 shapes (name, B, H, L, Dh, chunk): the slice's, SMOKE's heads, and
+# chunk 128 at the slice's width
+MLSTM_SHAPES = [("slice: xlstm-350m, batch 8, seq 1024", 8, 4, 1024, 256, 64),
+                ("SMOKE heads (Dh 32)", 2, 2, 256, 32, 64),
+                ("chunk 128", 8, 4, 1024, 256, 128)]
+# phase 8: step 1's loss through the kernels vs through the plain versions,
+# from the same weights and batch (scripts/train_grad_spread.py on an NVIDIA
+# H100 80GB HBM3, 700 W): 11.2670908 vs 11.2640438, 2.7e-4 relative, so the
+# limit is 1e-3 (3.7x).  It checks that the whole model runs the same
+# function through the kernels; it is not meant to separate a fault inside
+# one mLSTM call, which moves a loss over 8 x 1024 tokens too little.  The
+# check that does is every mLSTM forward and backward call of the step held
+# in place against the plain version on the same inputs.  Whole-model
+# gradients are not compared: at this size the plain version's own gradient
+# moved by 0.12 to 1.82 relative norm per leaf when the weights moved by a
+# relative 1e-6 (the normaliser's max(|den|, exp(-m)) switches branch under
+# rounding), so no limit that a sound run meets would fail a wrong one.
+TRAIN_LOSS_LIMIT = 1e-3
 
 
 def log(*a):
@@ -117,6 +154,115 @@ def sum_tol(agg, msgs, n_slots: int):
     return 2 * gamma[:, None] * absum
 
 
+# mLSTM backward vs autograd of the plain version, relative norm per input.
+# Both differentiate the same f32 function with sums in other orders; over
+# nine shapes up to [8, 4, 1024, 256] the kernel read 2e-7 to 4.8e-5 on an
+# NVIDIA H100 80GB HBM3 at 700 W (scripts/mlstm_kernel_sweep.py), so 1e-3
+# leaves a 20x margin, and a dC carry cut at one chunk boundary moves the
+# gradients by more (scripts/mlstm_mutants.py, on the CPU).
+MLSTM_GRAD_REL_LIMIT = 1e-3
+
+
+def mlstm_bounds(q, k, v, logi, logf, chunk: int, want):
+    """(limit, ambiguous) for two f32 evaluations of the chunkwise mLSTM.
+
+    limit: per element, on |out - want|.  out = num / g with num and den
+    sums over at most n = 2 Dh + L + W + 16 chained terms (q.k over Dh,
+    att.v over W, q.C over Dh, C over L tokens, and the roundings of exp and
+    the division), so each evaluation is within gamma_n * (sum|terms of num|
+    + |out| * sum|terms of den|) / g of the exact value (Higham 3.1); the
+    sums of |terms| are the plain version run on |q|, |k|, |v| (its weights
+    are positive).  Two evaluations differ by at most twice that.
+
+    ambiguous: rows [B, H, L] where the two may take different branches of
+    g = max(|den|, exp(-m)), ||den| - exp(-m)| within den's bound 2 gamma_n
+    sum|den terms|; the gradient jumps between the branches there, and both
+    are valid."""
+    import torch
+    from repro_torch.kernels import ref
+    _, den, m = ref.mlstm_parts(q, k, v, logi, logf, chunk=chunk)
+    num_a, den_a, _ = ref.mlstm_parts(q.abs(), k.abs(), v.abs(), logi, logf,
+                                      chunk=chunk)
+    g = torch.maximum(den.abs(), torch.exp(-m))
+    n = 2 * q.shape[3] + q.shape[2] + min(chunk, q.shape[2]) + 16
+    gamma = n * F32_U / (1 - n * F32_U)
+    limit = 2 * gamma * (num_a.double() + want.double().abs()
+                         * den_a.double()[..., None]) / g.double()[..., None]
+    return limit, (den.abs() - torch.exp(-m)).abs() <= 2 * gamma * den_a
+
+
+def mlstm_check(kernel, q, k, v, logi, logf, chunk: int, dout) -> dict:
+    """Hold kernel(q, k, v, logi, logf, chunk) (differentiable) against the
+    plain version: the forward per element within `mlstm_bounds`' limit,
+    the gradients of <out, dout> per input within MLSTM_GRAD_REL_LIMIT
+    relative norm.  Raises AssertionError; returns the readings."""
+    import torch
+    from repro_torch.kernels import ref
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, v, logi, logf)]
+    pins = [t.detach().clone().requires_grad_() for t in (q, k, v, logi, logf)]
+    out = kernel(*ins, chunk)
+    want = ref.mlstm_chunked(*pins, chunk=chunk)
+    grads = torch.autograd.grad(out, ins, dout)
+    pgrads = torch.autograd.grad(want, pins, dout)
+    with torch.no_grad():
+        limit = mlstm_bounds(q, k, v, logi, logf, chunk, want)[0]
+        diff = (out.double() - want.double()).abs()
+        ratio = float((diff / limit).max())
+        if ratio > 1:
+            raise AssertionError(f"mlstm forward: {int((diff > limit).sum())}"
+                                 f" outputs beyond their limit (max |err| "
+                                 f"{float(diff.max()):.3g}, worst err/limit "
+                                 f"{ratio:.3g})")
+        rel = {n: float((g - pg).norm() / pg.norm()) for n, g, pg in zip(
+            ("q", "k", "v", "logi", "logf"), grads, pgrads)}
+        bad = {n: r for n, r in rel.items() if not r <= MLSTM_GRAD_REL_LIMIT}
+        if bad:
+            raise AssertionError(f"mlstm backward: relative error {bad} > "
+                                 f"{MLSTM_GRAD_REL_LIMIT}")
+        grad_err = max(float((g - pg).abs().max())
+                       for g, pg in zip(grads, pgrads))
+    return {"max_abs_err": float(diff.max()), "worst_err_over_limit": ratio,
+            "max_limit": float(limit.max()), "grad_rel_err": rel,
+            "grad_max_abs_err": grad_err}
+
+
+def mlstm_recurrence_check(out, q, k, v, logi, logf, chunk: int) -> dict:
+    """Hold a chunkwise forward `out` against the token-by-token recurrence
+    of `mlstm_step`'s math (`models.recurrent.mlstm_cell`, its own running
+    stabiliser), per element within `mlstm_bounds`' limit: another
+    algorithm, the same function, f32 sums over the same terms."""
+    import torch
+    from repro_torch.models import recurrent as R
+    with torch.no_grad():
+        b, h, l, dh = q.shape
+        st = R.mlstm_init_state(b, h, dh, device=q.device)
+        steps = []
+        for t in range(l):
+            y, st = R.mlstm_cell(q[:, :, t], k[:, :, t], v[:, :, t],
+                                 logi[:, :, t], logf[:, :, t], st)
+            steps.append(y)
+        rec = torch.stack(steps, 2)
+        limit = mlstm_bounds(q, k, v, logi, logf, chunk, rec)[0]
+        diff = (out.double() - rec.double()).abs()
+        ratio = float((diff / limit).max())
+    if ratio > 1:
+        raise AssertionError(f"mlstm forward vs recurrence: "
+                             f"{int((diff > limit).sum())} outputs beyond "
+                             f"their limit (worst err/limit {ratio:.3g})")
+    return {"max_abs_err": float(diff.max()), "worst_err_over_limit": ratio}
+
+
+def mlstm_inputs(b, h, l, dh, gen, device):
+    """Inputs drawn as tests/test_kernels.py:556-560 draws them."""
+    import torch
+    q = torch.randn((b, h, l, dh), generator=gen) * 0.5
+    k = torch.randn((b, h, l, dh), generator=gen) * 0.5
+    v = torch.randn((b, h, l, dh), generator=gen)
+    logi = torch.randn((b, h, l), generator=gen).clamp(-8, 4)
+    logf = -torch.randn((b, h, l), generator=gen).abs() * 0.2
+    return [t.to(device) for t in (q, k, v, logi, logf)]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -131,9 +277,15 @@ def main() -> int:
     from repro_torch.kernels import segment_sum as seg_mod
     from repro_torch.kernels import superstep as app_mod
     from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import mlstm as mlstm_mod
+    from repro_torch.kernels import spmv as spmv_mod
     from repro_torch.kernels import triplet as tri_mod
+    from repro_torch import configs as C
+    from repro_torch.data.tokens import SyntheticLM
     from repro_torch.launch import serve
+    from repro_torch.launch import train as train_launch
     from repro_torch.models import transformer as T
+    from repro_torch.train import train_loop as tl
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -166,7 +318,11 @@ def main() -> int:
                ("apply", app_mod.source(a_pr, "sum")),
                ("apply", app_mod.source(a_cc, "min")),
                ("segment_sum", seg_mod.source()),
-               ("flash_attention", flash_mod.source())]
+               ("flash_attention", flash_mod.source()),
+               ("triplet", tri_mod.source(spmv_mod.linear_message(1), "sum",
+                                          "dst", True))]
+    sources += [("mlstm", mlstm_mod.source(min(c, l), mlstm_mod.tiling(
+        min(c, l), dh))) for _, _, _, l, dh, c in MLSTM_SHAPES]
     t0 = time.perf_counter()
     build.prebuild(sources)
     log(f"kernel build: {len(sources)} sources in "
@@ -256,6 +412,7 @@ def main() -> int:
             tri_mod.fused_triplet)), cuda_ms(lambda: call(ref.fused_triplet)),
             nbytes, nlv * (ir_flops(spec.ir) + 1))
 
+    t_phase = time.perf_counter()
     log("phase 2: kernels vs plain versions")
     check_triplet("sum,to=dst (pagerank send)", k_pr, x_pr, ev_w, live,
                   "dst", "sum", exact=False)
@@ -323,9 +480,46 @@ def main() -> int:
            ptr.numel() * i32 + live.numel() + n_live * 4 + out_k.numel() * 4,
            n_live,
            library_ms=cuda_ms(lambda: lib_out.index_add_(0, seg_ids, flat)))
-    del x_pr, x_cc, msgs, flat, out_k, out_p, pay_pr, pay_cc, seg_ids, keep
+    del msgs, flat, out_k, out_p, seg_ids, keep
+
+    # spmv: the PageRank send (pr / deg * w into dst) as one SpMV over every
+    # partition's mirror slots, through the triplet kernel
+    t0 = time.perf_counter()
+    off = (torch.arange(nl, dtype=torch.int32, device=dev) * v_mir)[:, None]
+    sp_src = (s.src_slot + off).reshape(-1).contiguous()
+    sp_dst = (s.dst_slot + off).reshape(-1).contiguous()
+    sp_live = live.reshape(-1)
+    sp_tiles = {k: torch.from_numpy(a).to(dev) for k, a in spmv_mod.build_tiles(
+        sp_src.cpu().numpy(), sp_dst.cpu().numpy(), sp_live.cpu().numpy(),
+        S).items()}
+    t_tiles = time.perf_counter() - t0
+    sp_x = (x_pr[:, :1] / x_pr[:, 1:2]).contiguous()
+    sp_w = torch.where(sp_live, ev_w.reshape(-1), 0.0)
+    sp_args = (sp_x, sp_w, sp_src, sp_dst, sp_tiles, None, S)
+    out_k = spmv_mod.spmv(*sp_args)
+    out_p = spmv_mod.plain(*sp_args)
+    torch.cuda.synchronize()
+    keep = sp_live.nonzero()[:, 0]
+    err, tol = compare("spmv", out_k, out_p, sum_tol(
+        sp_dst[keep].long(), sp_x[sp_src[keep].long()] * sp_w[keep, None], S))
+    perm = sp_tiles["perm"][:n_live].long()
+    with warnings.catch_warnings():     # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore")
+        csr = torch.sparse_csr_tensor(sp_tiles["ptr"], sp_src[perm],
+                                      sp_w[perm], size=(S, S),
+                                      check_invariants=False)
+    record("spmv", f"pagerank send as one SpMV over the {nl} partitions' "
+           f"slots (tables built in {t_tiles:.1f} s on the host)", err, tol,
+           cuda_ms(lambda: spmv_mod.spmv(*sp_args)),
+           cuda_ms(lambda: spmv_mod.plain(*sp_args)),
+           (S + 1) * i32 + n_live * (3 * i32 + 1) + 2 * S * 4, 2 * n_live,
+           library_ms=cuda_ms(lambda: torch.sparse.mm(csr, sp_x)))
+    del (x_pr, x_cc, out_k, out_p, pay_pr, pay_cc, sp_src, sp_dst, sp_tiles,
+         sp_x, sp_w, sp_args, keep, perm, csr)
+    log(f"  phase 2: {time.perf_counter() - t_phase:.1f} s")
 
     # ---------------------------------------------------------- phase 3
+    t_phase = time.perf_counter()
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     log(f"phase 3: pagerank, {PR_ITERS} supersteps")
@@ -362,6 +556,8 @@ def main() -> int:
     # ---------------------------------------------------------- phase 4
     from scipy.sparse import csr_matrix
     from scipy.sparse.csgraph import connected_components as sp_cc
+    log(f"  phase 3: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     log("phase 4: connected components")
     sgd = symmetrize(rmat(CC_SCALE, 16, seed=1))
     sg = Graph.from_edges(sgd.src, sgd.dst, num_partitions=P, device=dev)
@@ -390,6 +586,7 @@ def main() -> int:
         f"vertices, {sg.s.num_edges} edges, {c_f.supersteps} supersteps, "
         f"{len(np.unique(vals['cc']))} components, fused {t_f:.3f} s; labels "
         f"== scipy, fused == unfused")
+    log(f"  phase 4: {time.perf_counter() - t_phase:.1f} s")
 
     launches = ops.launch_counts()
     for name in ("triplet", "apply", "segment_sum"):
@@ -560,15 +757,206 @@ def main() -> int:
     del run, logits_ref
     log(f"  phases 5-6: {time.perf_counter() - t_phase5:.1f} s")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- phase 7
+    t_phase = time.perf_counter()
+    log("phase 7: mLSTM kernels vs plain versions (bound: f32 "
+        f"{F32_FLOPS / 1e12:.0f} TFLOP/s, {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+
+    def kernel(q, k, v, logi, logf, chunk):
+        return mlstm_mod.mlstm_chunked(q, k, v, logi, logf, chunk=chunk)
+
+    for name, b, h, l, dh, chunk in MLSTM_SHAPES:
+        q, k, v, logi, logf = mlstm_inputs(b, h, l, dh, gen, dev)
+        dout = torch.randn((b, h, l, dh), generator=gen).to(dev)
+        r = mlstm_check(kernel, q, k, v, logi, logf, chunk, dout)
+        log(f"  mlstm[{name}] [{b}, {h}, {l}, {dh}] chunk {chunk}: forward "
+            f"max |err| {r['max_abs_err']:.3g} (per element <= 2 gamma_n "
+            f"(sum|num terms| + |out| sum|den terms|) / g; worst err/limit "
+            f"{r['worst_err_over_limit']:.3g}, largest limit "
+            f"{r['max_limit']:.3g}); backward relative error "
+            + ", ".join(f"{n} {e:.3g}" for n, e in r["grad_rel_err"].items())
+            + f" (limit {MLSTM_GRAD_REL_LIMIT})")
+        # operations a chunk of W rows needs, per (batch, head), over the
+        # causal pairs and the [Dh, Dh] state.  Forward: q k^T and att v
+        # (4 pairs Dh), q C and the update k^T v (4 W Dh^2), q . n and the
+        # n update (4 W Dh).  Backward: q k^T again (att is no input of the
+        # backward), dnum v^T, att^T dnum, dS k and dS^T q (10 pairs Dh);
+        # dnum C^T for dq, dC v^T for dk, k dC for dv and (dec q)^T dnum
+        # for the dC carry (8 W Dh^2; dlogf's q . (C dnum^T) reuses the dq
+        # product, so the kernel's own recompute of q C is not counted);
+        # dden's sum of dout out, q . n for den, the n terms of dq and dk,
+        # the dn carry and dlogf's q . (C dnum^T) (12 W Dh); and the
+        # e^total scaling of dC (2 Dh^2).
+        w = min(chunk, l)
+        rows, pairs = b * h * (l // w), w * (w + 1) // 2
+        bhl, states = b * h * l, b * h * (l // w) * (dh * dh + dh)
+        out, c_st, n_st = mlstm_mod.forward(q, k, v, logi, logf, chunk=chunk,
+                                            states=True)
+        pins = [t.clone().requires_grad_() for t in (q, k, v, logi, logf)]
+        want = ref.mlstm_chunked(*pins, chunk=chunk)
+        for kname, ms, plain_ms, flops, nbytes, err in (
+                ("mlstm_fwd",
+                 cuda_ms(lambda: mlstm_mod.forward(q, k, v, logi, logf,
+                                                   chunk=chunk, states=True)),
+                 cuda_ms(lambda: ref.mlstm_chunked(q, k, v, logi, logf,
+                                                   chunk=chunk), 3),
+                 rows * (4 * pairs * dh + 4 * w * dh * dh + 4 * w * dh),
+                 4 * (4 * bhl * dh + 2 * bhl + states), r["max_abs_err"]),
+                ("mlstm_bwd",
+                 cuda_ms(lambda: mlstm_mod.backward(
+                     q, k, v, logi, logf, out, dout, c_st, n_st,
+                     chunk=chunk)),
+                 cuda_ms(lambda: torch.autograd.grad(want, pins, dout,
+                                                     retain_graph=True), 3),
+                 rows * (10 * pairs * dh + 8 * w * dh * dh + 12 * w * dh
+                         + 2 * dh * dh),
+                 4 * (8 * bhl * dh + 4 * bhl + states),
+                 r["grad_max_abs_err"])):
+            record(kname, f"{name}: [{b}, {h}, {l}, {dh}] chunk {chunk}",
+                   err, "forward: per element, derived (see log); backward: "
+                   f"relative norm per input <= {MLSTM_GRAD_REL_LIMIT}",
+                   ms, plain_ms, nbytes, flops)
+        del q, k, v, logi, logf, dout, out, c_st, n_st, pins, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    b, h, l, dh, chunk = 8, 4, 256, 256, 64
+    q, k, v, logi, logf = mlstm_inputs(b, h, l, dh, gen, dev)
+    with torch.no_grad():
+        out = mlstm_mod.mlstm_chunked(q, k, v, logi, logf, chunk=chunk)
+    r = mlstm_recurrence_check(out, q, k, v, logi, logf, chunk)
+    log(f"  mlstm forward vs the token recurrence, [{b}, {h}, {l}, {dh}] "
+        f"chunk {chunk}: max |err| {r['max_abs_err']:.3g}, worst err/limit "
+        f"{r['worst_err_over_limit']:.3g}")
+    del q, k, v, logi, logf, out
+    log(f"  phase 7: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---------------------------------------------------------- phase 8
+    t_phase = time.perf_counter()
+    log(f"phase 8: train {TRAIN_ARCH}, batch {TRAIN_BATCH}, seq {TRAIN_SEQ},"
+        f" {TRAIN_STEPS} steps")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    tr = train_launch.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+                            "--batch", str(TRAIN_BATCH), "--seq",
+                            str(TRAIN_SEQ)])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    cfg = C.get(TRAIN_ARCH)
+    n_mlstm = sum(cfg.layer_pattern[i % len(cfg.layer_pattern)] == "mlstm"
+                  for i in range(cfg.n_layers))
+    for kname in ("mlstm_fwd", "mlstm_bwd"):
+        launches[kname] = counts[kname]
+        if counts[kname] != n_mlstm * TRAIN_STEPS:
+            raise AssertionError(f"{kname} launches {counts[kname]}, expected "
+                                 f"{n_mlstm * TRAIN_STEPS}")
+    losses = tr["losses"]
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"training losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = T.param_count(tr["params"])
+    steps_s = tr["step_seconds"]
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    # step 1 again from the same initial weights and batch: forward and
+    # backward through the kernels, each mLSTM call held in place against
+    # the plain version on its own inputs (forward) and cotangent
+    # (backward; zero on the rows where the normaliser's branch is
+    # ambiguous, which are counted), then the loss through the plain
+    # versions
+    params = tl.init_params(cfg, 0, dev)
+    batch = {k: torch.from_numpy(a).to(dev) for k, a in SyntheticLM(
+        cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0).batch(0).items()}
+    in_place = []
+    kernel_mlstm = ops.mlstm_chunked
+
+    def held_in_place(q, k, v, logi, logf, *, chunk, mode="auto"):
+        out = kernel_mlstm(q, k, v, logi, logf, chunk=chunk, mode=mode)
+        ins = [t.detach() for t in (q, k, v, logi, logf)]
+        rec = {}
+        in_place.append(rec)
+        with torch.no_grad():
+            want = ref.mlstm_chunked(*ins, chunk=chunk)
+            limit, ambiguous = mlstm_bounds(*ins, chunk, want)
+            ratio = float(((out.detach().double() - want.double()).abs()
+                           / limit).max())
+        rec["fwd"], rec["ambiguous"] = ratio, int(ambiguous.sum())
+        if ratio > 1:
+            raise AssertionError(f"mlstm forward in place, layer "
+                                 f"{len(in_place) - 1}: err/limit {ratio}")
+
+        def backward_held(dout):
+            dout = dout.masked_fill(ambiguous[..., None], 0.0)
+            kin = [t.clone().requires_grad_() for t in ins]
+            pin = [t.clone().requires_grad_() for t in ins]
+            with torch.enable_grad():       # hooks run with grad mode off
+                kg = torch.autograd.grad(mlstm_mod.mlstm_chunked(
+                    *kin, chunk=chunk), kin, dout)
+                pg = torch.autograd.grad(ref.mlstm_chunked(
+                    *pin, chunk=chunk), pin, dout)
+            rec["bwd"] = max(float((a - b).norm() / b.norm())
+                             for a, b in zip(kg, pg))
+            if rec["bwd"] > MLSTM_GRAD_REL_LIMIT:
+                raise AssertionError(f"mlstm backward in place: relative "
+                                     f"error {rec['bwd']}")
+
+        out.register_hook(backward_held)
+        return out
+
+    ops.mlstm_chunked = held_in_place
+    try:
+        loss = T.loss_fn(params, batch, cfg, mode="auto")
+        loss.backward()
+    finally:
+        ops.mlstm_chunked = kernel_mlstm
+    loss_k = float(loss.detach())
+    del loss
+    if len(in_place) != n_mlstm or any("bwd" not in r for r in in_place):
+        raise AssertionError(f"{len(in_place)} mlstm calls held in place")
+    with torch.no_grad():
+        loss_r = float(T.loss_fn(params, batch, cfg, mode="ref"))
+    if not abs(loss_k - loss_r) <= TRAIN_LOSS_LIMIT * abs(loss_r):
+        raise AssertionError(f"step 1 loss, kernels {loss_k} vs plain "
+                             f"{loss_r}")
+    log(f"  {cfg.name}: {n_params / 1e6:.1f} M params, {cfg.n_layers} layers "
+        f"({n_mlstm} mLSTM); losses {[round(x, 4) for x in losses]}; step "
+        f"seconds {[round(x, 3) for x in steps_s]} (synchronised), "
+        f"{TRAIN_BATCH * TRAIN_SEQ / steps_s[-1]:.0f} tokens/s at the last "
+        f"step; peak device memory {peak:.2f} GiB; mlstm launches "
+        f"{launches['mlstm_fwd']} forward, {launches['mlstm_bwd']} backward")
+    log(f"  step 1, kernels vs plain: loss {loss_k:.6f} vs {loss_r:.6f} "
+        f"(|diff| {abs(loss_k - loss_r):.3g}, limit {TRAIN_LOSS_LIMIT} "
+        f"relative; the training run's step 1 read {losses[0]:.6f}); in "
+        f"place, all {len(in_place)} mLSTM calls:"
+        f" forward worst err/limit {max(r['fwd'] for r in in_place):.3g}, "
+        f"backward relative error max "
+        f"{max(r['bwd'] for r in in_place):.3g} (limit "
+        f"{MLSTM_GRAD_REL_LIMIT}; cotangent zeroed on "
+        f"{sum(r['ambiguous'] for r in in_place)} of "
+        f"{n_mlstm * TRAIN_BATCH * cfg.n_heads * TRAIN_SEQ} rows whose "
+        f"normaliser branch is within rounding)")
+    del params, batch
+    log(f"  phase 8: {time.perf_counter() - t_phase:.1f} s")
+
     replaces = {"triplet": "src/repro/kernels/triplet.py:447",
                 "apply": "src/repro/kernels/superstep.py:179",
                 "segment_sum": "src/repro/kernels/segment_sum.py:101",
-                "flash_attention": "src/repro/kernels/flash_attention.py:121"}
+                "flash_attention": "src/repro/kernels/flash_attention.py:121",
+                "mlstm_fwd": "src/repro/kernels/mlstm.py:102",
+                "mlstm_bwd": "src/repro/kernels/mlstm.py:102",
+                "spmv": "src/repro/kernels/spmv.py:59"}
+    csrc = {"mlstm_fwd": "mlstm", "mlstm_bwd": "mlstm", "spmv": "triplet"}
+    launches.setdefault("spmv", 0)      # on no main path
     table = []
     for name in replaces:
         head = results[name][0]
         table.append({"name": name, "route": "cuda",
-                      "source": f"src/repro_torch/csrc/{name}.cu",
+                      "source": f"src/repro_torch/csrc/{csrc.get(name, name)}.cu",
                       "replaces": replaces[name], "launches": launches[name],
                       "max_abs_err": max(r["max_abs_err"] for r in results[name]),
                       "ms": head["ms"], "plain_ms": head["plain_ms"],

@@ -14,7 +14,8 @@
 // in-block) to gather and scatter with one-hot MXU matmuls over a
 // sequential grid.  Here one thread owns one (aggregation slot, message
 // column) and walks the slot's CSR range [ptr[v], ptr[v+1]) in ascending
-// order: no atomics, no tree reduction, no padding.  Dead edges are skipped
+// order (through perm where the edges are not stored in that side's
+// order): no atomics, no tree reduction, no padding.  Dead edges are skipped
 // before the UDF runs, so 0/0 on a masked edge never reaches the sum.  The
 // f32 sum is sequential in edge order, the same order segment_sum.cu uses
 // for the unfused plan, so the two plans agree bit for bit.  A hub slot's
@@ -45,7 +46,7 @@ extern "C" __global__ void triplet_kernel(
   float acc = IDENT;
   int n = 0;
   for (int i = begin; i < end; ++i) {
-    const long long e = ebase + (TO_SRC ? perm[ebase + i] : i);
+    const long long e = ebase + (PERMUTED ? perm[ebase + i] : i);
     if (!live[e]) continue;
     const float* xs = USE_SRC ? xq + (long long)src_slot[e] * dx : nullptr;
     const float* xd = USE_DST ? xq + (long long)dst_slot[e] * dx : nullptr;

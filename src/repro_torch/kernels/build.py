@@ -88,14 +88,22 @@ def prebuild(sources: list[tuple[str, str]]) -> None:
 def load(name: str, source: str, argtypes: list) -> ctypes.CDLL:
     """Build (if needed) and load the library of `source`; its `launch`
     entry gets `argtypes` and returns the cudaError_t of the launch."""
+    return load_entries(name, source, {"launch": argtypes})
+
+
+def load_entries(name: str, source: str,
+                 entries: dict[str, list]) -> ctypes.CDLL:
+    """`load` for a library with several entry points: each named C
+    function gets its argtypes and returns an int (a cudaError_t)."""
     lib = _loaded.get((name, source))
     if lib is None:
         job = _start(name, source)
         if job is not None:
             _finish(job)
         lib = ctypes.CDLL(str(_target(name, source) / "lib.so"))
-        lib.launch.argtypes = argtypes
-        lib.launch.restype = ctypes.c_int
+        for fn, argtypes in entries.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
         _loaded[(name, source)] = lib
     return lib
 

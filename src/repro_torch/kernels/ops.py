@@ -10,8 +10,10 @@ kernel_mode, one switch for the whole engine:
 from __future__ import annotations
 
 from . import flash_attention as _flash
+from . import mlstm as _mlstm
 from . import ref
 from . import segment_sum as _segsum
+from . import spmv as _spmv
 from . import superstep as _superstep
 from . import triplet as _triplet
 
@@ -55,10 +57,32 @@ def flash_attention(q, k, v, *, causal: bool = True,
     return fn(q, k, v, causal=causal, scale=scale, kv_offset=kv_offset)
 
 
+def mlstm_chunked(q, k, v, logi, logf, *, chunk: int = 128,
+                  mode: str = "auto"):
+    """Chunkwise mLSTM, q/k/v [B, H, L, Dh] (q pre-scaled), logi/logf
+    [B, H, L] -> out [B, H, L, Dh] f32; differentiable (the kernel path's
+    gradient is the backward kernel)."""
+    fn = ref.mlstm_chunked if _plain(mode) else _mlstm.mlstm_chunked
+    return fn(q, k, v, logi, logf, chunk=chunk)
+
+
+def spmv(x, w, src_slot, dst_slot, tiles, active_src_blocks, v_mir: int, *,
+         mode: str = "auto", vb: int = 512):
+    """out[v] = sum over live edges into v of w[e] * x[src e] (`tiles` from
+    `kernels.spmv.build_tiles`; `active_src_blocks` skips stale source
+    blocks)."""
+    fn = _spmv.plain if _plain(mode) else _spmv.spmv
+    return fn(x, w, src_slot, dst_slot, tiles, active_src_blocks, v_mir,
+              vb=vb)
+
+
 _COUNTED = {"triplet": _triplet.fused_triplet,
             "apply": _superstep.fused_apply,
             "segment_sum": _segsum.segment_sum,
-            "flash_attention": _flash.flash_attention}
+            "flash_attention": _flash.flash_attention,
+            "mlstm_fwd": _mlstm.forward,
+            "mlstm_bwd": _mlstm.backward,
+            "spmv": _spmv.spmv}
 
 
 def launch_counts() -> dict[str, int]:

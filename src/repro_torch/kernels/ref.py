@@ -208,3 +208,66 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     out = out / torch.where(l == 0.0, 1.0, l)
     return out.reshape(b, hq, lq, dh).to(q.dtype)
+
+
+def mlstm_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                logi: torch.Tensor, logf: torch.Tensor, *, chunk: int = 128):
+    """The chunkwise mLSTM scan of `repro/kernels/ref.py:mlstm_chunked`,
+    op for op in f32, split before its last division: (num [B, H, L, Dh],
+    den [B, H, L], m_row [B, H, L]), with out = num / max(|den|,
+    exp(-m_row)).  q/k/v [B, H, L, Dh] (q pre-scaled), logi/logf
+    [B, H, L]; L % min(chunk, L) == 0."""
+    b, h, l, dh = q.shape
+    w = min(chunk, l)
+    assert l % w == 0, (l, w)
+    nc = l // w
+
+    def chunks(x):
+        return x.float().reshape(b, h, nc, w, *x.shape[3:]).movedim(2, 0)
+
+    cq, ck, cv, cli, clf = map(chunks, (q, k, v, logi, logf))
+    tri = torch.ones((w, w), dtype=torch.bool, device=q.device).tril()
+    C = q.new_zeros((b, h, dh, dh), dtype=torch.float32)
+    n = q.new_zeros((b, h, dh), dtype=torch.float32)
+    nums, dens, ms = [], [], []
+    for qc, kc, vc, lic, lfc in zip(cq, ck, cv, cli, clf):
+        cum = torch.cumsum(lfc, dim=-1)
+        total = cum[..., -1:]
+        dmat = cum[..., :, None] - cum[..., None, :] + lic[..., None, :]
+        dmat = torch.where(tri, dmat, float("-inf"))
+        m_row = torch.maximum(dmat.amax(-1), cum)
+        att = torch.einsum("bhtk,bhsk->bhts", qc, kc) * torch.exp(
+            dmat - m_row[..., None])
+        intra = torch.einsum("bhts,bhsk->bhtk", att, vc)
+        dec = torch.exp(cum - m_row)
+        inter = torch.einsum("bhtk,bhkv->bhtv", qc * dec[..., None], C)
+        nums.append(intra + inter)
+        dens.append(att.sum(-1) + torch.einsum("bhtk,bhk->bht",
+                                               qc * dec[..., None], n))
+        ms.append(m_row)
+        wgt = torch.exp(total - cum + lic)
+        C = torch.exp(total)[..., None] * C + torch.einsum(
+            "bhsk,bhsv->bhkv", kc * wgt[..., None], vc)
+        n = torch.exp(total) * n + torch.einsum("bhsk,bhs->bhk", kc, wgt)
+    return (torch.cat(nums, 2), torch.cat(dens, 2), torch.cat(ms, 2))
+
+
+def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  logi: torch.Tensor, logf: torch.Tensor, *,
+                  chunk: int = 128) -> torch.Tensor:
+    """Chunkwise mLSTM, out [B, H, L, Dh] f32 (`mlstm_parts`).  Its
+    gradient is torch autograd through these ops."""
+    num, den, m_row = mlstm_parts(q, k, v, logi, logf, chunk=chunk)
+    return num / torch.maximum(den.abs(), torch.exp(-m_row))[..., None]
+
+
+def fused_gather_segment_sum(x: torch.Tensor, w: torch.Tensor,
+                             src_slot: torch.Tensor, dst_slot: torch.Tensor,
+                             num_segments: int) -> torch.Tensor:
+    """SpMV: out[v] = sum over edges e with dst(e) = v of w[e] * x[src e]
+    (f32 [num_segments, D]); edges with dst >= num_segments drop."""
+    keep = dst_slot < num_segments
+    msgs = x[src_slot[keep].long()].float() * w[keep, None].float()
+    out = torch.zeros((num_segments, x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    return out.index_add_(0, dst_slot[keep].long(), msgs)

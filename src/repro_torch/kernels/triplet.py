@@ -45,8 +45,13 @@ class TripletUdf:
 
 
 @functools.lru_cache(maxsize=256)
-def source(spec: TripletUdf, reduce: str, to: str) -> str:
-    """CUDA source of the kernel specialised to this UDF and reduce."""
+def source(spec: TripletUdf, reduce: str, to: str,
+           permuted: bool | None = None) -> str:
+    """CUDA source of the kernel specialised to this UDF and reduce.
+    `permuted` (default: to == "src") walks each slot's CSR range through
+    the `perm` edge order instead of the stored order."""
+    if permuted is None:
+        permuted = to == "src"
     def load(arr, col, dt):
         return f"({udf.C_TYPE[dt]})({arr}[{col}])"
 
@@ -54,7 +59,7 @@ def source(spec: TripletUdf, reduce: str, to: str) -> str:
     gen = [f"#define DM {spec.dm}",
            f"#define IDENT {udf.c_const(ref.REDUCE_IDENTITY[reduce], 'f32')}",
            f"#define REDUCE(a, b) {udf.REDUCE_C[reduce]}",
-           f"#define TO_SRC {int(to == 'src')}",
+           f"#define PERMUTED {int(permuted)}",
            f"#define USE_SRC {int(spec.uses('xs'))}",
            f"#define USE_DST {int(spec.uses('xd'))}",
            udf.PRELUDE,
@@ -84,16 +89,17 @@ def fused_triplet(x, ev, src_slot, dst_slot, live, ptr, perm,
     check(dst_slot, torch.int32, (nl, e_blk), "dst_slot")
     check(live, torch.bool, (nl, e_blk), "live")
     check(ptr, torch.int32, (nl, v_mir + 1), "ptr")
-    if to == "src":
+    if perm is not None:
         check(perm, torch.int32, (nl, e_blk), "perm")
     out = torch.empty((s, spec.dm), dtype=torch.float32, device=x.device)
     cnt = torch.empty((s,), dtype=torch.float32, device=x.device)
-    lib = build.load("triplet", source(spec, reduce, to), _ARGTYPES)
+    lib = build.load("triplet", source(spec, reduce, to, perm is not None),
+                     _ARGTYPES)
     nullp = ctypes.c_void_p(None)
     err = lib.launch(build.ptr(x), x.shape[1], build.ptr(ev), ev.shape[1],
                      build.ptr(src_slot), build.ptr(dst_slot),
                      build.ptr(live), build.ptr(ptr),
-                     build.ptr(perm) if to == "src" else nullp,
+                     build.ptr(perm) if perm is not None else nullp,
                      nl, v_mir, e_blk, build.ptr(out), build.ptr(cnt),
                      build.stream())
     build.check(err, "triplet")

@@ -14,14 +14,19 @@ The Pallas kernels trace the user's UDF into their body (`tile_fn`,
 
 Supported: elementwise add/sub/mul/div/neg/abs/minimum/maximum/where,
 comparisons, logical ops, casts (`_to_copy`), constants, the float math
-ops exp/log/log1p/expm1/sqrt/rsqrt/reciprocal/tanh/sigmoid/sin/cos/floor/
-ceil/sign, pow with a scalar exponent, clamp/clamp_min/clamp_max, and the
-value-preserving view ops as no-ops, on leaves of rank 0 or 1.  A rank-1
-value lowers to one scalar op per element (select, slice, cat, stack and
-broadcasting pick and spread them), so the IR itself stays scalar and a
-rank-1 leaf is one packed column per element.  Anything else (a reduction
-over a vector, say) makes `lower` return None and the engine plans the
-unfused path.
+ops exp/log/log1p/expm1/sqrt/rsqrt/reciprocal/tanh/sigmoid/sin/cos/atan/
+atan2/floor/ceil/sign, pow with a scalar exponent, clamp/clamp_min/
+clamp_max, and the value-preserving view ops as no-ops, on leaves of rank 0
+or 1.  A rank-1 value lowers to one scalar op per element (select, slice,
+cat, stack and broadcasting pick and spread them), so the IR itself stays
+scalar and a rank-1 leaf is one packed column per element.  Reductions over
+a rank-1 value lower where the result does not depend on the order of the
+terms: amax/amin (and max/min's values) to a chain of max/min ops, an
+integer or bool sum to a chain of integer adds.  A float sum, dot or matmul
+inside a UDF stays outside the IR on purpose: the unfused plan adds its
+terms in an order torch does not pin, so the fused plan could not equal it
+bit for bit.  Anything outside the IR makes `lower` return None and the
+engine plans the unfused path.
 
 Exactness rules the emitted C keeps: float constants are written as the
 exact bit pattern of the f32 (`__int_as_float(0x...)`), every op rounds on
@@ -36,6 +41,7 @@ f32), else the UDF plans unfused.
 from __future__ import annotations
 
 import dataclasses
+import operator
 import struct
 from typing import Callable
 
@@ -83,8 +89,13 @@ _MATH = {aten.exp.default: "exp", aten.log.default: "log",
          aten.sqrt.default: "sqrt", aten.rsqrt.default: "rsqrt",
          aten.reciprocal.default: "reciprocal", aten.tanh.default: "tanh",
          aten.sigmoid.default: "sigmoid", aten.sin.default: "sin",
-         aten.cos.default: "cos", aten.floor.default: "floor",
-         aten.ceil.default: "ceil"}
+         aten.cos.default: "cos", aten.atan.default: "atan",
+         aten.floor.default: "floor", aten.ceil.default: "ceil"}
+# reductions over the element axis of a [B, k] value, and the op that
+# chains the k terms; each leaves the value independent of the order
+_REDUCE = {aten.amax.default: "max", aten.amin.default: "min",
+           aten.max.dim: "max", aten.min.dim: "min",
+           aten.sum.dim_IntList: "add"}
 _CLAMP = {aten.clamp.default: (1, 2), aten.clamp.Tensor: (1, 2),
           aten.clamp_min.default: (1, None), aten.clamp_min.Tensor: (1, None),
           aten.clamp_max.default: (None, 1), aten.clamp_max.Tensor: (None, 1)}
@@ -105,6 +116,7 @@ class Op:
       logic   (symbol, a, b)      on bools
       neg|abs|not|sign (a,)
       exp|log|...|ceil (a,)       the float math ops of _MATH
+      atan2   (a, b)
       pow     (a, exponent)       python float exponent
       where   (cond, a, b)
     Operand entries are indices of earlier ops."""
@@ -203,6 +215,14 @@ def _lower(tr, inputs: list) -> IR:
         if node not in tr.needed or node.op == "output":
             continue
         val = node.meta.get("val")
+        if node.op == "call_function" and node.target is operator.getitem:
+            if node.args[1] != 0 or node.args[0] not in index:
+                raise _Unsupported(node)    # max/min's indices
+            index[node] = index[node.args[0]]
+            continue
+        if node.op == "call_function" and node.target in (aten.max.dim,
+                                                          aten.min.dim):
+            val = val[0]                    # (values, indices)
         if not isinstance(val, torch.Tensor) or val.dim() > 2 or (
                 val.dim() >= 1 and val.shape[0] != TRACE_BATCH):
             raise _Unsupported(node)    # one scalar or vector per element
@@ -284,6 +304,25 @@ def _lower(tr, inputs: list) -> IR:
             else:
                 r = [add(kind, (i,), out_dt)
                      for i in operand(a[0], out_dt, width)]
+        elif t is aten.atan2.default:
+            if out_dt not in FLOATS:
+                raise _Unsupported(node)
+            r = [add("atan2", (i, j), out_dt) for i, j in zip(
+                operand(a[0], out_dt, width), operand(a[1], out_dt, width))]
+        elif t in _REDUCE:
+            src_val = a[0].meta["val"]
+            dims = a[1] if len(a) > 1 else kw.get("dim")
+            dims = list(dims) if isinstance(dims, (list, tuple)) else [dims]
+            kind = _REDUCE[t]
+            if src_val.dim() != 2 or [d % 2 for d in dims] != [1] or (
+                    kind == "add" and (out_dt in FLOATS or dt_str(
+                        src_val.dtype) in FLOATS)):
+                raise _Unsupported(node)    # float sums: see the docstring
+            terms = operand(a[0], out_dt, src_val.shape[1])
+            acc = terms[0]
+            for j in terms[1:]:
+                acc = add(kind, (acc, j), out_dt)
+            r = [acc]
         elif t is aten.pow.Tensor_Scalar:
             if out_dt not in FLOATS or not isinstance(a[1], (int, float)) \
                     or (out_dt in NARROW and float(a[1]) not in POW_SPECIAL):
@@ -366,7 +405,8 @@ _LIBM = {"exp": ("expf", "exp"), "log": ("logf", "log"),
          "log1p": ("log1pf", "log1p"), "expm1": ("expm1f", "expm1"),
          "sqrt": ("sqrtf", "sqrt"), "rsqrt": ("rsqrtf", "rsqrt"),
          "tanh": ("tanhf", "tanh"), "sin": ("sinf", "sin"),
-         "cos": ("cosf", "cos"), "floor": ("floorf", "floor"),
+         "cos": ("cosf", "cos"), "atan": ("atanf", "atan"),
+         "floor": ("floorf", "floor"),
          "ceil": ("ceilf", "ceil")}
 # exponents that torch's pow computes by another op (the rest call powf)
 POW_SPECIAL = (2.0, 3.0, -2.0, 0.5, -0.5, -1.0)
@@ -438,6 +478,9 @@ def emit(ir: IR, load: Callable[[str, int, str], str],
             e = f"(!{v[a[0]]})"
         elif op.kind == "where":
             e = f"({v[a[0]]} ? {v[a[1]]} : {v[a[2]]})"
+        elif op.kind == "atan2":
+            fn = "atan2" if dt == "f64" else "atan2f"
+            e = f"{fn}({v[a[0]]}, {v[a[1]]})"
         elif op.kind in _LIBM or op.kind in ("reciprocal", "sigmoid", "pow"):
             e = _math_c(op.kind, v[a[0]], dt, a[1] if len(a) > 1 else None)
         else:
@@ -454,6 +497,7 @@ _TORCH_MATH = {"exp": torch.exp, "log": torch.log, "log1p": torch.log1p,
                "expm1": torch.expm1, "sqrt": torch.sqrt, "rsqrt": torch.rsqrt,
                "reciprocal": torch.reciprocal, "tanh": torch.tanh,
                "sigmoid": torch.sigmoid, "sin": torch.sin, "cos": torch.cos,
+               "atan": torch.atan,
                "floor": torch.floor, "ceil": torch.ceil, "sign": torch.sign,
                "neg": torch.neg, "abs": torch.abs,
                "not": torch.logical_not}
@@ -473,10 +517,10 @@ def evaluate(ir: IR, load: Callable[[str, int, torch.dtype], torch.Tensor],
             r = torch.tensor(a[0], dtype=dt, device=device)
         elif op.kind == "cast":
             r = v[a[0]].to(dt)
-        elif op.kind in ("add", "sub", "mul", "div", "min", "max"):
+        elif op.kind in ("add", "sub", "mul", "div", "min", "max", "atan2"):
             fn = {"add": torch.add, "sub": torch.sub, "mul": torch.mul,
                   "div": torch.div, "min": torch.minimum,
-                  "max": torch.maximum}[op.kind]
+                  "max": torch.maximum, "atan2": torch.atan2}[op.kind]
             r = fn(v[a[0]], v[a[1]])
         elif op.kind == "cmp":
             r = {">": torch.gt, ">=": torch.ge, "<": torch.lt, "<=": torch.le,

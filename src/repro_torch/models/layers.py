@@ -160,3 +160,18 @@ def lm_logits(p_embed: dict, x: torch.Tensor) -> torch.Tensor:
     """Tied LM head: f32 logits [B, L, vocab]."""
     return torch.einsum("bld,vd->blv", x.to(BF16),
                         p_embed["tok"].to(BF16)).float()
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Cross entropy over the vocab axis with an f32 logsumexp; the mean
+    over tokens, or over the tokens `mask` keeps."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels.long()[..., None],
+                                dim=-1)[..., 0]
+    loss = lse - gold
+    if mask is not None:
+        mask = mask.to(loss.dtype)
+        return (loss * mask).sum() / torch.clamp(mask.sum(), min=1)
+    return loss.mean()

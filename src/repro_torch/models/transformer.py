@@ -1,18 +1,25 @@
-"""Model assembly for decoding: ModelConfig -> parameters, decode state,
-one decode step.
+"""Model assembly: ModelConfig -> parameters, the training forward and
+loss, decode state and one decode step.
 
-The port of the decode half of `repro/models/transformer.py`, in the
-reference's stacked layout: layer i of a model with layer period P lives in
-`blocks/slot{i % P}` at index i // P of a leading n_super axis (period
-lcm(pattern, cross_attn_every), so every slot has one structure), and a
-Python loop over n_super takes the place of `lax.scan`.  Attention blocks
-(global and local) with dense MLPs and cross-attention sublayers are
-ported; the MoE, mLSTM, sLSTM and RG-LRU blocks, encoder-decoder models and
-the training forward raise NotImplementedError (ROADMAP Queue 1 slice 10).
+The port of `repro/models/transformer.py`, in the reference's stacked
+layout: layer i of a model with layer period P lives in `blocks/slot{i % P}`
+at index i // P of a leading n_super axis (period lcm(pattern,
+cross_attn_every), so every slot has one structure), and a Python loop over
+n_super takes the place of `lax.scan`.  Ported: attention blocks (global
+and local) with dense MLPs and cross-attention sublayers, for decoding; and
+mLSTM and sLSTM blocks, for the full-sequence forward (training) and for
+decoding.  The training forward through attention blocks needs the flash
+backward; it, MoE, RG-LRU and encoder-decoder models raise
+NotImplementedError (ROADMAP Queue 1 slice 10).
+
+The forward keeps every activation for the backward: the reference's
+`jax.checkpoint` around each super-layer is a memory knob, and xlstm-350m's
+batch 8 x seq 1024 step fits one 80 GB card without recompute.
 
 Cross-attention (`_cross_attention`) is where decoding reaches the flash
 kernel: its keys and values come from a fixed context, recomputed every
-step as in the reference.
+step as in the reference.  The mLSTM blocks' forward reaches the mLSTM
+kernels, and their backward the backward kernel.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from ..configs.base import ModelConfig
 from ..core.tree import tree_leaves
 from ..kernels import ops as kops
 from . import layers as L
+from . import recurrent as R
 
 _PENDING = "is not ported yet: ROADMAP Queue 1 slice 10"
 
@@ -49,13 +57,22 @@ def _layer_has_cross(cfg: ModelConfig, layer_idx: int) -> bool:
     return False
 
 
-def _check_supported(cfg: ModelConfig, kind: str) -> None:
+_ATTN = ("attn", "local_attn")
+_RECURRENT = ("mlstm", "slstm")
+
+
+def _check_supported(cfg: ModelConfig, kind: str, *,
+                     training: bool = False) -> None:
     if cfg.is_encdec:
         raise NotImplementedError(f"encoder-decoder models {_PENDING}")
-    if kind not in ("attn", "local_attn"):
+    if kind not in _ATTN + _RECURRENT:
         raise NotImplementedError(f"{kind} blocks {_PENDING}")
     if cfg.family == "moe":
         raise NotImplementedError(f"MoE blocks {_PENDING}")
+    if training and kind in _ATTN:
+        raise NotImplementedError(
+            f"the training forward through {kind} blocks needs the flash "
+            f"backward, which {_PENDING}")
 
 
 def _init_block(cfg: ModelConfig, kind: str, *, with_cross: bool,
@@ -65,6 +82,9 @@ def _init_block(cfg: ModelConfig, kind: str, *, with_cross: bool,
     kw = dict(generator=generator, device=device)
     ones = lambda: L.init_rms(cfg.d_model, device=device).expand(  # noqa: E731
         lead + (cfg.d_model,)).clone()
+    if kind in _RECURRENT:
+        init = R.init_mlstm if kind == "mlstm" else R.init_slstm
+        return {"ln1": ones(), "mix": init(cfg, lead=lead, **kw)}
     p: dict[str, Any] = {"ln1": ones(),
                          "attn": L.init_attention(cfg, lead=lead, **kw)}
     if cfg.d_ff:
@@ -111,11 +131,63 @@ def param_count(params: dict) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Forward (training)
+# ---------------------------------------------------------------------------
+def _apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
+                 mode: str = "auto") -> torch.Tensor:
+    """Full-sequence block application, x [B, L, D] -> x'."""
+    _check_supported(cfg, kind, training=True)
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if kind == "mlstm":
+        return x + R.mlstm_block(p["mix"], h, chunk=cfg.mlstm_chunk,
+                                 mode=mode)
+    return x + R.slstm_block(p["mix"], h)
+
+
+def _run_stack(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+               mode: str = "auto") -> torch.Tensor:
+    types, n_super, rem = _pattern(cfg)
+    for s in range(n_super):
+        for j, t in enumerate(types):
+            x = _apply_block(_index(params["blocks"][f"slot{j}"], s), x, cfg,
+                             t, mode=mode)
+    for i in range(rem):
+        x = _apply_block(params["rem"][f"layer{i}"], x, cfg,
+                         types[i % len(types)], mode=mode)
+    return x
+
+
+def forward(params: dict, batch: dict, cfg: ModelConfig, *,
+            mode: str = "auto") -> torch.Tensor:
+    """batch {"tokens" [B, S]} -> f32 logits [B, S, vocab]."""
+    if cfg.is_encdec or cfg.n_context_tokens:
+        raise NotImplementedError(f"the training forward of {cfg.name} "
+                                  f"{_PENDING}")
+    x = L.embed(params["embed"], batch["tokens"])
+    x = _run_stack(params, x, cfg, mode=mode)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return L.lm_logits(params["embed"], x)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *,
+            mode: str = "auto") -> torch.Tensor:
+    """Mean next-token cross entropy of batch {"tokens", "labels"[, "mask"]}."""
+    logits = forward(params, batch, cfg, mode=mode)
+    return L.softmax_xent(logits, batch["labels"], batch.get("mask"))
+
+
+# ---------------------------------------------------------------------------
 # Decode
 # ---------------------------------------------------------------------------
 def _init_block_state(cfg: ModelConfig, kind: str, batch: int, kv_len: int,
                       *, lead: tuple, device) -> dict:
     _check_supported(cfg, kind)
+    if kind == "mlstm":
+        return R.mlstm_init_state(batch, cfg.n_heads, cfg.head_dim,
+                                  lead=lead, device=device)
+    if kind == "slstm":
+        return R.slstm_init_state(batch, cfg.d_model, lead=lead,
+                                  device=device)
     cache_len = (min(kv_len, cfg.window) if kind == "local_attn" and cfg.window
                  else kv_len)
     shape = lead + (batch, cfg.n_kv_heads, cache_len, cfg.head_dim)
@@ -125,7 +197,8 @@ def _init_block_state(cfg: ModelConfig, kind: str, batch: int, kv_len: int,
 
 def init_decode_state(cfg: ModelConfig, batch: int, kv_len: int, *,
                       device) -> dict:
-    """Zero bf16 KV caches, stacked per slot as the parameters are."""
+    """Zero decode state (bf16 KV caches, f32 recurrent states), stacked per
+    slot as the parameters are."""
     types, n_super, rem = _pattern(cfg)
     period = len(types)
     state: dict[str, Any] = {}
@@ -157,10 +230,17 @@ def _apply_block_decode(p: dict, x: torch.Tensor, pos: int, state: dict,
                         cfg: ModelConfig, kind: str, *,
                         cross_ctx: torch.Tensor | None = None,
                         mode: str = "auto") -> torch.Tensor:
-    """One token through one attention block: x [B, 1, D] -> x'.  Writes
-    this position's keys and values into `state`'s caches in place."""
+    """One token through one block: x [B, 1, D] -> x'.  Writes this
+    position's keys and values into `state`'s caches, or the block's new
+    recurrent state into `state`, in place."""
     _check_supported(cfg, kind)
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if kind in _RECURRENT:
+        step = R.mlstm_step if kind == "mlstm" else R.slstm_step
+        y, new = step(p["mix"], h, state)
+        for k, t in new.items():
+            state[k].copy_(t)
+        return x + y
     cache_len = state["k"].shape[2]
     slot = pos % cache_len              # ring buffer (= pos at full length)
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,

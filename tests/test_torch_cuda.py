@@ -318,13 +318,36 @@ def _vec_send(sv, ev, dv):
     return {"m": torch.exp(sv["v"]) * ev["w"] + dv["v"][0]}
 
 
+def _reductions_data(g):
+    rng = np.random.default_rng(7)
+    shape = tuple(g.s.home_vid.shape)
+    return {"a": rng.normal(size=shape).astype(np.float32),
+            "v": rng.normal(size=shape + (3,)).astype(np.float32),
+            "r": rng.integers(-50, 50, shape + (3,)).astype(np.int32)}
+
+
+def _atan_sum(sv, ev, dv):
+    return {"m": torch.atan2(sv["a"], dv["a"]) * ev["w"]
+            + torch.atan(dv["a"])}
+
+
+def _reductions_max(sv, ev, dv):
+    return {"m": sv["v"].amax() - torch.amin(dv["v"]) + sv["v"].max()
+            + sv["r"].sum().to(torch.float32) * 0.01}
+
+
 @pytest.mark.parametrize("case", ["exp_sum", "math_max", "vector_sum",
-                                  "bf16_sum"])
+                                  "bf16_sum", "atan_sum", "reductions_max"])
 def test_fused_equals_unfused_on_card(case, cuda):
-    """The triplet kernel's libm calls (expf, logf, ...) against torch's
-    CUDA ops in the unfused plan, rank-1 leaves and bf16 leaves: the two
-    plans agree bit for bit on the card."""
-    if case == "vector_sum":
+    """The triplet kernel's libm calls (expf, logf, atanf, atan2f, ...)
+    against torch's CUDA ops in the unfused plan, rank-1 leaves and their
+    order-free reductions (amax, amin, an integer sum), and bf16 leaves:
+    the two plans agree bit for bit on the card."""
+    if case in ("atan_sum", "reductions_max"):
+        g = _graph(GD, cuda, _reductions_data)
+        send, reduce = {"atan_sum": (_atan_sum, "sum"),
+                        "reductions_max": (_reductions_max, "max")}[case]
+    elif case == "vector_sum":
         g, send, reduce = _graph(GD, cuda, _vec_data), _vec_send, "sum"
     elif case == "bf16_sum":
         g = _graph(GD, cuda, _vdata_f)
@@ -430,3 +453,125 @@ def test_serve_smoke_on_card_goes_through_the_kernel(cuda):
         gl, gst = T.decode_step(gparams, gst, tok.to(cuda), pos, cfg,
                                 cross_ctx=gctx)
         torch.testing.assert_close(gl.cpu(), cl, rtol=3e-2, atol=3e-2)
+
+
+# ------------------------------------------------------------ mLSTM kernels
+MLSTM_SHAPES = [
+    (1, 2, 64, 16, 16), (2, 1, 128, 32, 32), (1, 4, 96, 8, 48),
+    (2, 2, 32, 64, 32), (1, 1, 128, 256, 64),
+    (2, 2, 128, 32, 64),        # xlstm-350m SMOKE heads (Dh 32, chunk 64)
+    (1, 2, 256, 64, 128), (1, 1, 256, 256, 128),
+]
+
+
+def _mlstm_inputs(b, h, l, dh, cuda, seed=0):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.normal(size=(b, h, l, dh)) * 0.5,
+            rng.normal(size=(b, h, l, dh)) * 0.5,
+            rng.normal(size=(b, h, l, dh)),
+            np.clip(rng.normal(size=(b, h, l)), -8, 4),
+            -np.abs(rng.normal(size=(b, h, l))) * 0.2]
+    return [torch.from_numpy(a.astype(np.float32)).to(cuda) for a in arrs]
+
+
+@pytest.mark.parametrize("shape", MLSTM_SHAPES, ids=str)
+def test_mlstm_kernels_match_plain(shape, cuda):
+    """Forward within the CPU sweep's rtol/atol 2e-4 of the plain version
+    on the card; the backward kernel's gradients within 1e-4 relative norm
+    of autograd through the plain version, per input; each launches once;
+    two runs are bit-equal (no atomics)."""
+    from repro_torch.kernels import mlstm as mlstm_mod
+    b, h, l, dh, chunk = shape
+    ins = _mlstm_inputs(b, h, l, dh, cuda)
+    a = [t.clone().requires_grad_() for t in ins]
+    p = [t.clone().requires_grad_() for t in ins]
+    ops.reset_launch_counts()
+    out = mlstm_mod.mlstm_chunked(*a, chunk=chunk)
+    want = ref.mlstm_chunked(*p, chunk=chunk)
+    dout = torch.from_numpy(np.random.default_rng(1).normal(
+        size=out.shape).astype(np.float32)).to(cuda)
+    grads = torch.autograd.grad(out, a, dout)
+    pgrads = torch.autograd.grad(want, p, dout)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["mlstm_fwd"] == counts["mlstm_bwd"] == 1
+    torch.testing.assert_close(out, want, rtol=2e-4, atol=2e-4)
+    for g, pg in zip(grads, pgrads):
+        assert float((g - pg).norm() / pg.norm()) <= 1e-4
+    out2 = mlstm_mod.mlstm_chunked(*a, chunk=chunk)
+    assert torch.equal(out, out2)
+    assert all(torch.equal(x, y) for x, y in
+               zip(grads, torch.autograd.grad(out2, a, dout)))
+
+
+def test_mlstm_without_grad_saves_no_states(cuda):
+    """Under no_grad (or with inputs that need no grad) the forward writes
+    no chunk-entry states and builds no graph; odd shapes raise."""
+    from repro_torch.kernels import mlstm as mlstm_mod
+    ins = _mlstm_inputs(2, 2, 128, 32, cuda)
+    with torch.no_grad():
+        before = torch.cuda.memory_allocated()
+        out = mlstm_mod.mlstm_chunked(*ins, chunk=64)
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() - before == out.numel() * 4
+    assert out.grad_fn is None
+    with pytest.raises(ValueError):
+        mlstm_mod.mlstm_chunked(*ins, chunk=40)
+    with pytest.raises(ValueError):        # L 100 is no multiple of 64
+        mlstm_mod.mlstm_chunked(*_mlstm_inputs(1, 1, 100, 32, cuda), chunk=64)
+
+
+@pytest.mark.parametrize("active", [False, True])
+def test_spmv_on_card_matches_plain(active, cuda):
+    """spmv through the triplet kernel (one launch each) against its plain
+    version on the card, rtol 1e-5 (index_add_ adds with atomics)."""
+    from repro_torch.kernels import spmv as spmv_mod
+    rng = np.random.default_rng(4)
+    v, e, d = 300, 4000, 3
+    src = rng.integers(0, v, e).astype(np.int32)
+    dst = rng.integers(0, v, e).astype(np.int32)
+    mask = rng.random(e) > 0.1
+    w = (rng.normal(size=e) * mask).astype(np.float32)
+    x = rng.normal(size=(v, d)).astype(np.float32)
+    tiles = spmv_mod.build_tiles(src, dst, mask, v)
+    act = torch.from_numpy(rng.random(-(-v // 64)) < 0.5).to(cuda) \
+        if active else None
+    args = [torch.from_numpy(a).to(cuda) for a in (x, w, src, dst)]
+    before = spmv_mod.spmv.launches
+    got = ops.spmv(*args, tiles, act, v, vb=64)
+    want = ops.spmv(*args, tiles, act, v, vb=64, mode="ref")
+    torch.cuda.synchronize()
+    assert spmv_mod.spmv.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_train_smoke_on_card_goes_through_the_kernels(cuda):
+    """xlstm-350m SMOKE: two training steps on the card launch the mLSTM
+    forward and backward kernels 3 times each per step (3 mLSTM layers) and
+    follow the CPU run of the same weights and batches: losses within
+    2e-3 relative (bf16 einsums round differently on the two devices)."""
+    from repro_torch import configs as C
+    from repro_torch.data.tokens import SyntheticLM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_loop as tl
+    cfg = C.get("xlstm-350m", smoke=True)
+    step = tl.make_train_step(cfg, opt.AdamWConfig(total_steps=2,
+                                                   warmup_steps=5))
+    data = SyntheticLM(cfg.vocab, 128, 2, seed=0)
+
+    def two_steps(params, device):
+        state, losses = opt.init(params), []
+        for i in range(2):
+            batch = {k: torch.from_numpy(a).to(device)
+                     for k, a in data.batch(i).items()}
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+        return losses
+
+    cpu = tl.init_params(cfg, 0, "cpu")
+    gpu = tree_map(lambda t: t.detach().to(cuda).requires_grad_(True), cpu)
+    ops.reset_launch_counts()
+    g = two_steps(gpu, cuda)
+    counts = ops.launch_counts()
+    assert counts["mlstm_fwd"] == counts["mlstm_bwd"] == 3 * 2
+    np.testing.assert_allclose(g, two_steps(cpu, "cpu"), rtol=2e-3)

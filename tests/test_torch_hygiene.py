@@ -26,7 +26,12 @@ def _modules():
 
 def test_port_imports_neither_jax_nor_reference():
     mods = _modules()
-    assert "repro_torch.core.mrtriplets" in mods
+    for m in ("repro_torch.core.mrtriplets", "repro_torch.kernels.mlstm",
+              "repro_torch.kernels.spmv", "repro_torch.models.recurrent",
+              "repro_torch.train.optimizer", "repro_torch.train.fault",
+              "repro_torch.train.train_loop", "repro_torch.data.tokens",
+              "repro_torch.launch.train"):
+        assert m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -61,6 +66,13 @@ def test_default_device_without_cuda_raises(monkeypatch):
         Graph.from_edges(gd.src, gd.dst, num_partitions=4, device="cuda")
     g = Graph.from_edges(gd.src, gd.dst, num_partitions=4, device="cpu")
     assert g.device.type == "cpu"
+
+
+def test_train_default_device_without_cuda_raises(monkeypatch):
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "xlstm-350m", "--smoke", "--steps", "1"])
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -20,6 +20,7 @@ from repro.core import mrtriplets as ref_mt  # noqa: E402
 from repro.kernels import ops as ref_ops  # noqa: E402
 from repro.kernels import ref as ref_kref  # noqa: E402
 from repro.kernels import segment_sum as ref_segsum  # noqa: E402
+from repro.kernels import spmv as jspmv  # noqa: E402
 from repro.kernels.triplet import flatten_tiles  # noqa: E402
 from repro_torch.core import Graph, analysis  # noqa: E402
 from repro_torch.core import algorithms as alg  # noqa: E402
@@ -29,6 +30,7 @@ from repro_torch.core.tree import ElemSpec, tree_leaves  # noqa: E402
 from repro_torch.data import rmat  # noqa: E402
 from repro_torch.kernels import ops, ref, udf  # noqa: E402
 from repro_torch.kernels import segment_sum as seg_mod  # noqa: E402
+from repro_torch.kernels import spmv as spmv_mod  # noqa: E402
 from repro_torch.kernels import superstep as app_mod  # noqa: E402
 from repro_torch.kernels import triplet as tri_mod  # noqa: E402
 
@@ -411,13 +413,17 @@ def test_narrow_constant_outside_dtype_plans_unfused():
 def test_udf_outside_ir_plans_unfused():
     g, _ = _graphs(_vdata_f)
 
+    def erf_send(sv, ev, dv):
+        return {"m": torch.erf(sv["a"])}
+
     def atan_send(sv, ev, dv):
         return {"m": torch.atan(sv["a"])}
 
     def exp_send(sv, ev, dv):
         return {"m": torch.exp(sv["a"])}
 
-    assert mt.plan_of(g, atan_send, "sum") == "unfused"
+    assert mt.plan_of(g, erf_send, "sum") == "unfused"
+    assert mt.plan_of(g, atan_send, "sum") == "fused"
     assert mt.plan_of(g, exp_send, "sum") == "fused"
     assert mt.plan_of(g, _send_f, "sum") == "fused"
 
@@ -458,6 +464,88 @@ def test_wrappers_on_cpu_run_plain_and_launch_nothing():
     assert torch.equal(seg_mod.segment_sum(msgs, s.edge_mask, s.agg_ptr["dst"]),
                        ref.segment_sum(msgs, s.edge_mask, s.agg_ptr["dst"]))
     assert ops.launch_counts() == {"triplet": 0, "apply": 0, "segment_sum": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0, "mlstm_fwd": 0,
+                                   "mlstm_bwd": 0, "spmv": 0}
     with pytest.raises(ValueError):
         ops.triplet(*args, mode="pallas")
+
+
+# ----------------------------------------------------------------- spmv
+def _spmv_case(e, v, d, seed):
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, v, e).astype(np.int32)
+    dst = rng.integers(0, v, e).astype(np.int32)
+    mask = rng.random(e) > 0.15
+    w = (rng.normal(size=e) * mask).astype(np.float32)
+    x = rng.normal(size=(v, d)).astype(np.float32)
+    return src, dst, mask, w, x
+
+
+@pytest.mark.parametrize("e,v,d,eb,vb", [
+    (500, 100, 1, 128, 64), (2000, 500, 8, 256, 128), (64, 16, 4, 32, 16)])
+def test_spmv_sweep_matches_reference(e, v, d, eb, vb):
+    """The reference's spmv sweep (tests/test_kernels.py:test_spmv_sweep):
+    the port's spmv (the triplet kernel's plain version on the CPU) against
+    the reference's Pallas spmv in interpret mode and its oracle
+    `fused_gather_segment_sum`, rtol and atol 1e-4."""
+    src, dst, mask, w, x = _spmv_case(e, v, d, 0)
+    tiles = spmv_mod.build_tiles(src, dst, mask, v)
+    got = ops.spmv(*map(torch.from_numpy, (x, w, src, dst)), tiles, None, v,
+                   vb=vb)
+    jt = jspmv.build_tiles(src, dst, mask, v, eb=eb, vb=vb)
+    kern = jspmv.spmv(*map(jnp.asarray, (x, w, src, dst, jt["perm"],
+                                         jt["chunk_dst"], jt["chunk_src"])),
+                      None, v, eb=eb, vb=vb, interpret=True)
+    want = ref_kref.fused_gather_segment_sum(*map(jnp.asarray, (x, w, src, dst)),
+                                         v)
+    assert got.shape == (v, d) and got.dtype == torch.float32
+    for other in (kern, want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(other), rtol=1e-4,
+                                   atol=1e-4)
+    np.testing.assert_allclose(
+        ops.spmv(*map(torch.from_numpy, (x, w, src, dst)), tiles, None, v,
+                 mode="ref").numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+def test_spmv_active_block_skip_matches_reference():
+    """Block-level skipStale (tests/test_kernels.py:test_spmv_active_block_
+    skip): only sources in the active block 0 contribute."""
+    rng = np.random.default_rng(1)
+    v, e = 128, 400
+    src = rng.integers(0, v, e).astype(np.int32)
+    dst = rng.integers(0, v, e).astype(np.int32)
+    w = np.ones(e, np.float32)
+    x = rng.normal(size=(v, 2)).astype(np.float32)
+    active = np.zeros(-(-v // 32), bool)
+    active[0] = True
+    tiles = spmv_mod.build_tiles(src, dst, np.ones(e, bool), v)
+    got = ops.spmv(*map(torch.from_numpy, (x, w, src, dst)), tiles,
+                   torch.from_numpy(active), v, vb=32)
+    jt = jspmv.build_tiles(src, dst, np.ones(e, bool), v, eb=64, vb=32)
+    kern = jspmv.spmv(*map(jnp.asarray, (x, w, src, dst, jt["perm"],
+                                         jt["chunk_dst"], jt["chunk_src"])),
+                      jnp.asarray(active), v, eb=64, vb=32, interpret=True)
+    want = ref_kref.fused_gather_segment_sum(*map(jnp.asarray, (
+        x, w * (src < 32), src, dst)), v)
+    for other in (kern, want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(other), rtol=1e-4,
+                                   atol=1e-4)
+    plain = ops.spmv(*map(torch.from_numpy, (x, w, src, dst)), tiles,
+                     torch.from_numpy(active), v, vb=32, mode="ref")
+    np.testing.assert_allclose(plain.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_spmv_tiles_are_dst_csr():
+    src, dst, mask, _, _ = _spmv_case(300, 40, 1, 2)
+    t = spmv_mod.build_tiles(src, dst, mask, 40)
+    live = np.flatnonzero(mask)
+    n = live.size
+    assert t["ptr"][-1] == n and t["ptr"].dtype == np.int32
+    assert sorted(t["perm"][:n]) == sorted(live)
+    assert np.all(np.diff(dst[t["perm"][:n]]) >= 0)
+    for vtx in range(40):
+        seg = t["perm"][t["ptr"][vtx]:t["ptr"][vtx + 1]]
+        assert np.all(dst[seg] == vtx) and np.all(np.diff(seg) > 0)
+    with pytest.raises(ValueError):
+        spmv_mod.build_tiles(src, dst, mask, 10)

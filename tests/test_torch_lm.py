@@ -186,7 +186,7 @@ def test_serve_defaults_to_the_card(monkeypatch):
         serve.run(ARCH, smoke=True, batch=1, prompt_len=1, gen=1)
 
 
-@pytest.mark.parametrize("arch", ["xlstm-350m", "moonshot-v1-16b-a3b",
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "moonshot-v1-16b-a3b",
                                   "seamless-m4t-medium"])
 def test_unported_blocks_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
