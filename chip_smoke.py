@@ -9,7 +9,10 @@ Phases (any failure exits non-zero before the result line):
   2. each kernel against its plain PyTorch version at the shapes of the
      PageRank graph: triplet (sum to dst, sum to src, min), apply (sum,
      min), segment_sum — with kernel, plain and library-call times and the
-     least time the card's memory rate allows;
+     least time the card's memory rate allows; the triplet kernel (every
+     variant), segment_sum and spmv also bit for bit against
+     `ref.ordered_segment_reduce`, the model of the summation order they
+     share (`csrc/segorder.cuh`), with the piece tables' sizes logged;
   3. PageRank (tol 0, 10 supersteps) on rmat(22, 16, seed=0), P=4: fused
      plans, bit-equal to the unfused plan, within 1e-4 of a float64 oracle;
   4. connected components on symmetrize(rmat(21, 16, seed=1)), P=4: labels
@@ -138,22 +141,6 @@ def ir_flops(ir) -> int:
                            "where", "neg", "abs") for op in ir.ops)
 
 
-def sum_tol(agg, msgs, n_slots: int):
-    """Per-slot limit [n_slots, D] (float64) on |kernel - plain| for two f32
-    sums of the same messages in different orders.  A sum of n terms in any
-    order is within gamma_(n-1) * sum|m| of the exact sum, gamma_k =
-    k u / (1 - k u) (Higham, Accuracy and Stability, 4.2), so two such sums
-    differ by at most twice that.  A slot of one message gets 0; a dropped
-    or doubled message of an ordinary slot exceeds the limit."""
-    import torch
-    absum = torch.zeros((n_slots, msgs.shape[1]), dtype=torch.float64,
-                        device=msgs.device)
-    absum.index_add_(0, agg, msgs.abs().double())
-    k = (torch.bincount(agg, minlength=n_slots).double() - 1).clamp(min=0)
-    gamma = k * F32_U / (1 - k * F32_U)
-    return 2 * gamma[:, None] * absum
-
-
 # mLSTM backward vs autograd of the plain version, relative norm per input.
 # Both differentiate the same f32 function with sums in other orders; over
 # nine shapes up to [8, 4, 1024, 256] the kernel read 2e-7 to 4.8e-5 on an
@@ -273,7 +260,7 @@ def main() -> int:
     from repro_torch.core import mrtriplets as mt
     from repro_torch.core.graph import Graph, _degree_msg
     from repro_torch.data import rmat, symmetrize
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import build, ops, ref, segorder
     from repro_torch.kernels import segment_sum as seg_mod
     from repro_torch.kernels import superstep as app_mod
     from repro_torch.kernels import flash_attention as flash_mod
@@ -385,22 +372,30 @@ def main() -> int:
             f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}")
         results.setdefault(kernel, []).append(row)
 
-    def check_triplet(variant, spec, x, ev, lv, to, reduce, exact):
+    def check_triplet(variant, spec, x, ev, lv, to, reduce, exact, library):
         """exact: every message is an integer-valued f32 and every sum stays
-        below 2^24, so a sum in any order is exact."""
+        below 2^24, so a sum in any order is exact.  library: (one PyTorch
+        call computing the same function, what it leaves out)."""
         perm = s.src_perm if to == "src" else None
-        ptr = s.agg_ptr[to]
-        call = lambda fn: fn(x, ev, s.src_slot, s.dst_slot, lv, ptr, perm,  # noqa: E731
-                             spec, to=to, reduce=reduce)
-        out_k, cnt_k = call(tri_mod.fused_triplet)
+        ptr, pieces = s.agg_ptr[to], s.agg_pieces[to]
+        call = lambda fn, **kw: fn(x, ev, s.src_slot, s.dst_slot, lv, ptr,  # noqa: E731
+                                   perm, spec, to=to, reduce=reduce, **kw)
+        kernel = lambda: call(tri_mod.fused_triplet, pieces=pieces)  # noqa: E731
+        out_k, cnt_k = kernel()
         out_p, cnt_p = call(ref.fused_triplet)
+        out_o, cnt_o = ref.ordered_triplet(x, ev, s.src_slot, s.dst_slot, lv,
+                                           ptr, perm, spec, pieces,
+                                           reduce=reduce)
         torch.cuda.synchronize()
         compare(f"triplet[{variant}] counts", cnt_k, cnt_p)
+        compare(f"triplet[{variant}] vs ordered model", out_k, out_o)
+        compare(f"triplet[{variant}] counts vs ordered model", cnt_k, cnt_o)
+        del out_o, cnt_o
         limit = None
         if reduce == "sum" and not exact:
             agg, msgs = ref.triplet_messages(x, ev, s.src_slot, s.dst_slot, lv,
                                              ptr, perm, spec, to=to)
-            limit = sum_tol(agg, msgs, S)
+            limit = ref.sum_tol(agg, msgs, S)
             del agg, msgs
         err, tol = compare(f"triplet[{variant}]", out_k, out_p, limit)
         nlv = int(lv.sum())
@@ -408,18 +403,66 @@ def main() -> int:
         nbytes = (ptr.numel() * i32 + lv.numel()
                   + nlv * i32 * (used + ev.shape[1] + (to == "src"))
                   + x.numel() * 4 + out_k.numel() * 4 + cnt_k.numel() * 4)
-        record("triplet", variant, err, tol, cuda_ms(lambda: call(
-            tri_mod.fused_triplet)), cuda_ms(lambda: call(ref.fused_triplet)),
-            nbytes, nlv * (ir_flops(spec.ir) + 1))
+        lib_fn, lib_note = library
+        record("triplet", f"{variant}; library: {lib_note}", err,
+               f"{tol}; bit-equal to the ordered model", cuda_ms(kernel),
+               cuda_ms(lambda: call(ref.fused_triplet)), nbytes,
+               nlv * (ir_flops(spec.ir) + 1), library_ms=cuda_ms(lib_fn))
+        return out_k
 
     t_phase = time.perf_counter()
     log("phase 2: kernels vs plain versions")
-    check_triplet("sum,to=dst (pagerank send)", k_pr, x_pr, ev_w, live,
-                  "dst", "sum", exact=False)
+    for side in ("dst", "src"):
+        pc = s.agg_pieces[side]
+        log(f"  pieces[{side}]: longest segment "
+            f"{int(torch.diff(s.agg_ptr[side], dim=1).max())} edges, "
+            f"{int(pc.ptr[:, -1].sum())} pieces of at most "
+            f"{segorder.SEG_PIECE}, {pc.multi.shape[0]} segments of several "
+            f"pieces")
+    # the PageRank send (pr / deg * w into dst) as one SpMV over every
+    # partition's mirror slots: spmv's tables, and the CSR matrix of
+    # torch.sparse.mm, the library call for the send and for spmv
+    t0 = time.perf_counter()
+    off = (torch.arange(nl, dtype=torch.int32, device=dev) * v_mir)[:, None]
+    sp_src = (s.src_slot + off).reshape(-1).contiguous()
+    sp_dst = (s.dst_slot + off).reshape(-1).contiguous()
+    sp_live = live.reshape(-1)
+    sp_tiles = {k: torch.from_numpy(a).to(dev) for k, a in spmv_mod.build_tiles(
+        sp_src.cpu().numpy(), sp_dst.cpu().numpy(), sp_live.cpu().numpy(),
+        S).items()}
+    t_tiles = time.perf_counter() - t0
+    log(f"  pieces[spmv]: {int(sp_tiles['piece_ptr'][0, -1])} pieces, "
+        f"{sp_tiles['piece_multi'].shape[0]} segments of several pieces")
+    sp_x = (x_pr[:, 1:2] / x_pr[:, :1]).contiguous()
+    sp_w = torch.where(sp_live, ev_w.reshape(-1), 0.0)
+    perm = sp_tiles["perm"][:n_live].long()
+    with warnings.catch_warnings():     # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore")
+        csr = torch.sparse_csr_tensor(sp_tiles["ptr"], sp_src[perm],
+                                      sp_w[perm], size=(S, S),
+                                      check_invariants=False)
+    deg_ids = sp_src[sp_live].long()
+    cc_dst = sp_dst[live_half.reshape(-1)].long()
+    cc_rows = x_cc[sp_src[live_half.reshape(-1)].long(), 0]
+    cc_out = torch.full((S,), ref.REDUCE_IDENTITY["min"], device=dev)
+    pr_send = check_triplet(
+        "sum,to=dst (pagerank send)", k_pr, x_pr, ev_w, live, "dst", "sum",
+        False, (lambda: torch.sparse.mm(csr, sp_x),
+                "torch.sparse.mm on the CSR of the live edges with pr / deg "
+                "prepared; leaves out the division, the live mask and the "
+                "counts"))
     check_triplet("sum,to=src (degree)", k_deg, x0, ev0, live, "src", "sum",
-                  exact=True)
+                  True, (lambda: torch.bincount(deg_ids, minlength=S),
+                         "torch.bincount over the live edges' source slots "
+                         "prepared; leaves out the live mask and the float "
+                         "cast"))
     check_triplet("min,to=dst (cc send)", k_cc, x_cc, ev0, live_half,
-                  "dst", "min", exact=True)
+                  "dst", "min", True,
+                  (lambda: cc_out.scatter_reduce_(0, cc_dst, cc_rows, "amin"),
+                   "scatter_reduce_ amin of the live edges' source rows "
+                   "gathered beforehand; leaves out the gather, the live "
+                   "mask and the counts"))
+    del deg_ids, cc_dst, cc_rows, cc_out
 
     send_idx = s.routes["dst"][0]
     k = send_idx.shape[2]
@@ -464,58 +507,57 @@ def main() -> int:
 
     # the unfused PageRank aggregate: messages in dst CSR order
     msgs = torch.rand((nl, e_blk, 1), generator=gen).to(dev)
-    ptr = s.agg_ptr["dst"]
-    out_k = seg_mod.segment_sum(msgs, live, ptr).reshape(S, 1)
+    ptr, pieces = s.agg_ptr["dst"], s.agg_pieces["dst"]
+    out_k = seg_mod.segment_sum(msgs, live, ptr, pieces).reshape(S, 1)
     out_p = ref.segment_sum(msgs, live, ptr).reshape(S, 1)
+    out_o, _ = ref.ordered_segment_reduce(msgs, live, ptr, pieces)
     torch.cuda.synchronize()
+    compare("segment_sum vs ordered model", out_k, out_o)
     seg_ids = ref.csr_segments(live, ptr).reshape(-1)
     keep = seg_ids < S
-    err, tol = compare("segment_sum", out_k, out_p, sum_tol(
+    err, tol = compare("segment_sum", out_k, out_p, ref.sum_tol(
         seg_ids[keep], msgs.reshape(-1, 1)[keep], S))
     flat = msgs.reshape(-1, 1)
     lib_out = torch.zeros((S + 1, 1), device=dev)
-    record("segment_sum", "sum (unfused pagerank aggregate)", err, tol,
-           cuda_ms(lambda: seg_mod.segment_sum(msgs, live, ptr)),
+    record("segment_sum", "sum (unfused pagerank aggregate); library: "
+           "index_add_ with the segment ids prepared", err,
+           f"{tol}; bit-equal to the ordered model",
+           cuda_ms(lambda: seg_mod.segment_sum(msgs, live, ptr, pieces)),
            cuda_ms(lambda: ref.segment_sum(msgs, live, ptr)),
            ptr.numel() * i32 + live.numel() + n_live * 4 + out_k.numel() * 4,
            n_live,
            library_ms=cuda_ms(lambda: lib_out.index_add_(0, seg_ids, flat)))
-    del msgs, flat, out_k, out_p, seg_ids, keep
+    del msgs, flat, out_k, out_p, out_o, seg_ids, keep
 
-    # spmv: the PageRank send (pr / deg * w into dst) as one SpMV over every
-    # partition's mirror slots, through the triplet kernel
-    t0 = time.perf_counter()
-    off = (torch.arange(nl, dtype=torch.int32, device=dev) * v_mir)[:, None]
-    sp_src = (s.src_slot + off).reshape(-1).contiguous()
-    sp_dst = (s.dst_slot + off).reshape(-1).contiguous()
-    sp_live = live.reshape(-1)
-    sp_tiles = {k: torch.from_numpy(a).to(dev) for k, a in spmv_mod.build_tiles(
-        sp_src.cpu().numpy(), sp_dst.cpu().numpy(), sp_live.cpu().numpy(),
-        S).items()}
-    t_tiles = time.perf_counter() - t0
-    sp_x = (x_pr[:, :1] / x_pr[:, 1:2]).contiguous()
-    sp_w = torch.where(sp_live, ev_w.reshape(-1), 0.0)
+    # spmv: the same send through spmv's wrapper and tables
     sp_args = (sp_x, sp_w, sp_src, sp_dst, sp_tiles, None, S)
     out_k = spmv_mod.spmv(*sp_args)
     out_p = spmv_mod.plain(*sp_args)
+    out_o, _ = ref.ordered_triplet(
+        sp_x, sp_w.reshape(-1, 1), sp_src.reshape(1, -1),
+        sp_dst.reshape(1, -1), sp_live.reshape(1, -1),
+        sp_tiles["ptr"].reshape(1, -1), sp_tiles["perm"].reshape(1, -1),
+        spmv_mod.linear_message(1), segorder.Pieces(
+            sp_tiles["piece_ptr"], sp_tiles["piece_seg"],
+            sp_tiles["piece_multi"]))
     torch.cuda.synchronize()
+    compare("spmv vs ordered model", out_k, out_o)
+    # the same messages (pr / deg * w) in the same pieces: the fused send
+    compare("spmv vs the triplet kernel's pagerank send", out_k, pr_send)
     keep = sp_live.nonzero()[:, 0]
-    err, tol = compare("spmv", out_k, out_p, sum_tol(
+    err, tol = compare("spmv", out_k, out_p, ref.sum_tol(
         sp_dst[keep].long(), sp_x[sp_src[keep].long()] * sp_w[keep, None], S))
-    perm = sp_tiles["perm"][:n_live].long()
-    with warnings.catch_warnings():     # "sparse CSR support is in beta"
-        warnings.simplefilter("ignore")
-        csr = torch.sparse_csr_tensor(sp_tiles["ptr"], sp_src[perm],
-                                      sp_w[perm], size=(S, S),
-                                      check_invariants=False)
     record("spmv", f"pagerank send as one SpMV over the {nl} partitions' "
-           f"slots (tables built in {t_tiles:.1f} s on the host)", err, tol,
+           f"slots (tables built in {t_tiles:.1f} s on the host); library: "
+           f"torch.sparse.mm on the same CSR", err,
+           f"{tol}; bit-equal to the ordered model and to the triplet "
+           f"kernel's pagerank send",
            cuda_ms(lambda: spmv_mod.spmv(*sp_args)),
            cuda_ms(lambda: spmv_mod.plain(*sp_args)),
            (S + 1) * i32 + n_live * (3 * i32 + 1) + 2 * S * 4, 2 * n_live,
            library_ms=cuda_ms(lambda: torch.sparse.mm(csr, sp_x)))
-    del (x_pr, x_cc, out_k, out_p, pay_pr, pay_cc, sp_src, sp_dst, sp_tiles,
-         sp_x, sp_w, sp_args, keep, perm, csr)
+    del (x_pr, x_cc, out_k, out_p, out_o, pr_send, pay_pr, pay_cc, sp_src,
+         sp_dst, sp_tiles, sp_x, sp_w, sp_args, keep, perm, csr)
     log(f"  phase 2: {time.perf_counter() - t_phase:.1f} s")
 
     # ---------------------------------------------------------- phase 3

@@ -215,10 +215,12 @@ def ship_aggregates_home(s, partial: Any, had_msg: torch.Tensor, need: str,
 
 
 def _segment_aggregate(msgs: Any, ids: torch.Tensor, valid: torch.Tensor,
-                       ptr: torch.Tensor, reduce: str, kernel_mode: str):
+                       ptr: torch.Tensor, pieces, reduce: str,
+                       kernel_mode: str):
     """Per-partition segment reduction of edge messages [nl, E, ...], in
-    the aggregation side's CSR order (row pointers `ptr`), into mirror
-    slots; float sums go through the segment_sum kernel."""
+    the aggregation side's CSR order (row pointers `ptr`, piece tables
+    `pieces`), into mirror slots; float sums go through the segment_sum
+    kernel."""
     nl, e = ids.shape
     v_mir = ptr.shape[1] - 1
     num_seg = nl * v_mir
@@ -227,7 +229,7 @@ def _segment_aggregate(msgs: Any, ids: torch.Tensor, valid: torch.Tensor,
 
     def agg_leaf(leaf):
         if reduce == "sum" and leaf.dtype.is_floating_point:
-            return kops.segment_sum(leaf, valid.contiguous(), ptr,
+            return kops.segment_sum(leaf, valid.contiguous(), ptr, pieces,
                                     mode=kernel_mode)
         tail = tuple(leaf.shape[2:])
         ident = reduce_identity(reduce, leaf.dtype)
@@ -393,7 +395,7 @@ def _fused_aggregate(g, mirror_tree, live, to, reduce, kernel_mode,
     out, cnt = kops.triplet(
         x, ev, s.src_slot, s.dst_slot, live.contiguous(), s.agg_ptr[to],
         s.src_perm if to == "src" else None, plan.kernel, to=to,
-        reduce=reduce, mode=kernel_mode)
+        reduce=reduce, mode=kernel_mode, pieces=s.agg_pieces[to])
     out = out.reshape(nl, s.v_mir, plan.dm)
     had_msg = cnt.reshape(nl, s.v_mir) > 0
     leaves = []
@@ -502,7 +504,8 @@ def mr_triplets(g, map_fn: Callable, reduce: str = "sum", *, to: str = "dst",
             ids = gather_rows(s.src_slot, perm)
             agg_valid = gather_rows(live, perm)
         partial, had_msg = _segment_aggregate(agg_msgs, ids, agg_valid,
-                                              s.agg_ptr[to], reduce, sub_mode)
+                                              s.agg_ptr[to], s.agg_pieces[to],
+                                              reduce, sub_mode)
 
     values, exists, m_back = ship_aggregates_home(
         s, partial, had_msg, to, reduce, ex, combine=not return_routed)

@@ -13,6 +13,12 @@ loads and needs only row pointers, so `gpu_tables` builds:
                                       "dst" over dst_slot (edges are stored
                                       dst-sorted), "src" over
                                       src_slot[src_perm] (the stable src sort)
+  agg_pieces[side]                    the piece tables of agg_ptr[side]
+                                      (`kernels/segorder.py`): each slot's
+                                      CSR range cut into pieces of at most
+                                      SEG_PIECE edges, the summation order
+                                      the triplet and segment_sum kernels
+                                      share
   apply_inv[side] [P, V_blk, P] int32 apply_inv[q, v, pe] = j where
                                       routes[side][0][q, pe, j] == v, else -1:
                                       which route entry of source partition pe
@@ -33,6 +39,7 @@ import dataclasses
 
 import numpy as np
 
+from ..kernels import segorder
 from .hashing import hash_mod, hash_mod32
 
 INT_PAD = np.int32(2**31 - 1)  # sorts after every real id
@@ -101,6 +108,7 @@ class GraphStructure:
     max_vid: int = 0
     # GPU tables in place of the Pallas tiles (see module docstring)
     agg_ptr: dict = None          # type: ignore[assignment]
+    agg_pieces: dict = None       # type: ignore[assignment]
     apply_inv: dict = None        # type: ignore[assignment]
 
     def home_of(self, vids: np.ndarray) -> np.ndarray:
@@ -197,10 +205,11 @@ PARTITIONERS = {
 
 def gpu_tables(src_slot: np.ndarray, dst_slot: np.ndarray,
                src_perm: np.ndarray, edge_mask: np.ndarray, routes: dict,
-               v_mir: int, v_blk: int) -> tuple[dict, dict]:
-    """(agg_ptr, apply_inv) — the CSR and inverse-route tables the CUDA
-    kernels index (module docstring).  Requires each partition's live edges
-    to be the prefix of its slab, as build_structure lays them out."""
+               v_mir: int, v_blk: int) -> tuple[dict, dict, dict]:
+    """(agg_ptr, agg_pieces, apply_inv) — the CSR, piece and inverse-route
+    tables the CUDA kernels index (module docstring).  Requires each
+    partition's live edges to be the prefix of its slab, as build_structure
+    lays them out."""
     p = src_slot.shape[0]
     n = edge_mask.sum(axis=1)
     if not np.array_equal(edge_mask,
@@ -219,7 +228,9 @@ def gpu_tables(src_slot: np.ndarray, dst_slot: np.ndarray,
         q, pe, j = np.nonzero(send >= 0)
         inv[q, send[q, pe, j], pe] = j
         apply_inv[side] = inv
-    return {"dst": dptr, "src": sptr}, apply_inv
+    agg_ptr = {"dst": dptr, "src": sptr}
+    agg_pieces = {k: segorder.piece_tables(v) for k, v in agg_ptr.items()}
+    return agg_ptr, agg_pieces, apply_inv
 
 
 def build_structure(
@@ -395,8 +406,8 @@ def build_structure(
                      for pe, f in enumerate(flags)])
                 for need, flags in need_flags.items()}
 
-    agg_ptr, apply_inv = gpu_tables(src_slot, dst_slot, src_perm, edge_mask,
-                                    routes, v_mir, v_blk)
+    agg_ptr, agg_pieces, apply_inv = gpu_tables(
+        src_slot, dst_slot, src_perm, edge_mask, routes, v_mir, v_blk)
     stats = PartitionStats(
         num_vertices=n_vertices,
         num_edges=n_edges,
@@ -434,5 +445,6 @@ def build_structure(
         b_width=b_width,
         max_vid=int(all_vids.max()) if n_vertices else 0,
         agg_ptr=agg_ptr,
+        agg_pieces=agg_pieces,
         apply_inv=apply_inv,
     )

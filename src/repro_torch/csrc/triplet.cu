@@ -1,76 +1,121 @@
 // Fused mrTriplets sweep: gather both endpoint rows, run the edge UDF,
-// reduce into the aggregation slot — one pass, messages never reach memory.
+// reduce into the aggregation slot — messages never reach device memory.
 //
 // Replaces: src/repro/kernels/triplet.py:fused_triplet (pallas_call at :447,
-// body _make_kernel :246, segmented_reduce_mxu :192).
+// body _make_kernel :246, segmented_reduce_mxu :192), and with it
+// src/repro/kernels/spmv.py:spmv, which runs the same pallas_call.
 //
-// Bound: memory.  Per live edge it reads the CSR entry (and src_perm for
-// to=src), the edge's slots (4 B each side used), its live byte, its packed
-// edge payload (4 B/column) and the used mirror rows (4 B/column/side), which
-// are random gathers; per slot it writes dm+1 floats.  The arithmetic is a
-// few flops per edge.
+// Bound: bytes.  Per live edge it reads its CSR position's index streams
+// (perm for to=src, the edge's slots, its live byte, its edge payload at 4 B
+// a column) and gathers the used endpoint rows of x at random; per slot it
+// writes dm + 1 floats.  The UDF is a few operations per edge.
 //
 // Design: the TPU kernel grouped edges into 512-edge chunks by (out-block,
 // in-block) to gather and scatter with one-hot MXU matmuls over a
-// sequential grid.  Here one thread owns one (aggregation slot, message
-// column) and walks the slot's CSR range [ptr[v], ptr[v+1]) in ascending
-// order (through perm where the edges are not stored in that side's
-// order): no atomics, no tree reduction, no padding.  Dead edges are skipped
-// before the UDF runs, so 0/0 on a masked edge never reaches the sum.  The
-// f32 sum is sequential in edge order, the same order segment_sum.cu uses
-// for the unfused plan, so the two plans agree bit for bit.  A hub slot's
-// thread walks all of its edges alone: that serial tail is the known cost.
+// sequential grid.  Here the order of segorder.cuh (inlined below) cuts
+// every slot's CSR range into pieces of at most SEG_PIECE edges.  A warp
+// takes 32 pieces, one a lane; the warp stages its span a window at a time,
+// lane l taking positions l, l + 32, ...: coalesced index reads, 32
+// independent row gathers in flight, the UDF evaluated once per live edge
+// (dead edges skip it, so 0/0 on a masked edge never reaches the sum), all
+// dm columns at once.  Each lane then reduces its piece from shared memory.
+// No thread walks more than SEG_PIECE positions of a slot, so a hub slot of
+// 10^5 edges is spread over thousands of lanes on every SM instead of one
+// thread walking it alone; a second pass, one warp per slot cut into
+// several pieces, loads the partials 32 at a time and adds them in piece
+// order.  What stays serial is that chain of register adds (about 1,500 for
+// the largest hub of rmat(22,16)).  The gathers of x rows are random (a 32 B
+// sector for 4-8 useful bytes when x exceeds L2), which is where the time
+// above the byte bound goes.  The f32 order is the one segment_sum.cu uses
+// for the unfused plan, so the two plans agree bit for bit.
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
 
+#include "segorder.cuh"
+
 //@GENERATED@
 
-extern "C" __global__ void triplet_kernel(
-    const float* __restrict__ x, long long dx,
-    const float* __restrict__ ev, long long de,
-    const int* __restrict__ src_slot, const int* __restrict__ dst_slot,
-    const unsigned char* __restrict__ live, const int* __restrict__ ptr,
-    const int* __restrict__ perm, int nl, int v_mir, int e_blk,
-    float* __restrict__ out, float* __restrict__ cnt) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)nl * v_mir * DM) return;
-  const long long slot = t / DM;
-  const int col = (int)(t % DM);
-  const int q = (int)(slot / v_mir);
-  const int v = (int)(slot % v_mir);
-  const int* rp = ptr + (long long)q * (v_mir + 1);
-  const int begin = rp[v], end = rp[v + 1];
-  const long long ebase = (long long)q * e_blk;
-  const float* xq = x + (long long)q * v_mir * dx;
-  float acc = IDENT;
-  int n = 0;
-  for (int i = begin; i < end; ++i) {
-    const long long e = ebase + (PERMUTED ? perm[ebase + i] : i);
-    if (!live[e]) continue;
-    const float* xs = USE_SRC ? xq + (long long)src_slot[e] * dx : nullptr;
-    const float* xd = USE_DST ? xq + (long long)dst_slot[e] * dx : nullptr;
-    float msg[DM];
-    udf_msg(xs, ev + e * de, xd, msg);
-    acc = REDUCE(acc, msg[col]);
-    ++n;
+struct TripletOp {
+  static __device__ __forceinline__ float ident() { return IDENT; }
+  static __device__ __forceinline__ float op(float a, float b) {
+    return REDUCE(a, b);
   }
-  out[slot * DM + col] = acc;
-  if (col == 0) cnt[slot] = (float)n;
+};
+
+struct TripletStage {
+  const float* x;
+  long long dx;
+  const float* ev;
+  long long de;
+  const int* src_slot;
+  const int* dst_slot;
+  const unsigned char* live;
+  const int* perm;
+  int v_mir, e_blk;
+
+  __device__ __forceinline__ bool operator()(int q, int pos,
+                                             float* msg) const {
+    const long long ebase = (long long)q * e_blk;
+    const long long e = ebase + (PERMUTED ? __ldg(perm + ebase + pos) : pos);
+    if (!__ldg(live + e)) return false;
+    const float* xq = x + (long long)q * v_mir * dx;
+    const float* xs =
+        USE_SRC ? xq + (long long)__ldg(src_slot + e) * dx : nullptr;
+    const float* xd =
+        USE_DST ? xq + (long long)__ldg(dst_slot + e) * dx : nullptr;
+    udf_msg(xs, ev + e * de, xd, msg);
+    return true;
+  }
+};
+
+using Shape = SegShape<DM>;
+
+extern "C" __global__ void __launch_bounds__(Shape::WARPS * 32)
+    triplet_pieces(TripletStage st, const int* __restrict__ ptr,
+                   const int* __restrict__ pptr, const int* __restrict__ pseg,
+                   int np, long long n_warps, float* __restrict__ out,
+                   float* __restrict__ cnt, float* __restrict__ part,
+                   int* __restrict__ part_cnt) {
+  __shared__ float sm[Shape::WARPS][Shape::WIN * DM];
+  __shared__ unsigned char sl[Shape::WARPS][Shape::WIN];
+  const int w = threadIdx.x >> 5;
+  const long long gw = (long long)blockIdx.x * Shape::WARPS + w;
+  if (gw >= n_warps) return;
+  seg_pieces<DM, TripletOp>(st, ptr, pptr, pseg, st.v_mir, np, gw, out, cnt,
+                            DM, part, part_cnt, sm[w], sl[w]);
+}
+
+extern "C" __global__ void triplet_combine(
+    const int* __restrict__ multi, int nm, const int* __restrict__ pptr,
+    int v_mir, int np, float* __restrict__ out, float* __restrict__ cnt,
+    const float* __restrict__ part, const int* __restrict__ part_cnt) {
+  seg_combine<TripletOp>(
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5, multi, nm, DM,
+      pptr, v_mir, np, out, cnt, DM, part, part_cnt);
 }
 
 extern "C" int launch(const void* x, long long dx, const void* ev,
                       long long de, const void* src_slot,
                       const void* dst_slot, const void* live,
-                      const void* ptr, const void* perm, int nl, int v_mir,
-                      int e_blk, void* out, void* cnt, void* stream) {
-  const long long total = (long long)nl * v_mir * DM;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
+                      const void* ptr, const void* perm, const void* pptr,
+                      const void* pseg, const void* multi, int nl, int v_mir,
+                      int e_blk, int np, int nm, void* out, void* cnt,
+                      void* part, void* part_cnt, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  TripletStage st{(const float*)x, dx, (const float*)ev, de,
+                  (const int*)src_slot, (const int*)dst_slot,
+                  (const unsigned char*)live, (const int*)perm, v_mir,
+                  e_blk};
+  const long long n_warps = (long long)nl * (np / 32);
+  const long long blocks = (n_warps + Shape::WARPS - 1) / Shape::WARPS;
   if (blocks > 0)
-    triplet_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const float*)x, dx, (const float*)ev, de, (const int*)src_slot,
-        (const int*)dst_slot, (const unsigned char*)live, (const int*)ptr,
-        (const int*)perm, nl, v_mir, e_blk, (float*)out, (float*)cnt);
+    triplet_pieces<<<(unsigned)blocks, Shape::WARPS * 32, 0, s>>>(
+        st, (const int*)ptr, (const int*)pptr, (const int*)pseg, np, n_warps,
+        (float*)out, (float*)cnt, (float*)part, (int*)part_cnt);
+  if (nm > 0)
+    triplet_combine<<<(unsigned)((nm + 7) / 8), 256, 0, s>>>(
+        (const int*)multi, nm, (const int*)pptr, v_mir, np, (float*)out,
+        (float*)cnt, (const float*)part, (const int*)part_cnt);
   return (int)cudaGetLastError();
 }

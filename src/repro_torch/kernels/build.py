@@ -2,8 +2,9 @@
 
 Each kernel is one `.cu` source under `src/repro_torch/csrc/` with a plain C
 entry point (`launch`), optionally specialised by generated text (the UDF
-code from `kernels/udf.py` and a few #defines).  The full source text keys
-the build: it lands in `build/repro_torch/<name>-<hash>/` at the repository
+code from `kernels/udf.py` and a few #defines).  `template` inlines the
+headers a source includes from `csrc/` (`segorder.cuh`), so the full source
+text, headers and all, keys the build: it lands in `build/repro_torch/<name>-<hash>/` at the repository
 root, so a content change rebuilds and an unchanged kernel is reused.
 Libraries load with ctypes; nothing here includes PyTorch's headers, so a
 build takes seconds.
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -30,9 +32,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _loaded: dict[tuple[str, str], ctypes.CDLL] = {}
 
 
+_INCLUDE = re.compile(r'^#include "(\w+\.cuh)"$', re.M)
+
+
 def template(name: str) -> str:
-    """Text of csrc/<name>.cu."""
-    return (CSRC / f"{name}.cu").read_text()
+    """Text of csrc/<name>.cu with each `#include "<header>.cuh"` of csrc/
+    replaced by the header's text (a header edit changes the build key)."""
+    return _INCLUDE.sub(lambda m: (CSRC / m.group(1)).read_text(),
+                        (CSRC / f"{name}.cu").read_text())
 
 
 def _nvcc() -> str:

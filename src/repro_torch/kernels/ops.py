@@ -27,18 +27,24 @@ def _plain(mode: str) -> bool:
     return mode == "ref"
 
 
-def segment_sum(msgs, live, ptr, *, mode: str = "auto"):
-    """CSR segment sum of live messages [nl, E, ...]; [nl, V, ...]."""
-    fn = ref.segment_sum if _plain(mode) else _segsum.segment_sum
-    return fn(msgs, live, ptr)
+def segment_sum(msgs, live, ptr, pieces=None, *, mode: str = "auto"):
+    """CSR segment sum of live messages [nl, E, ...]; [nl, V, ...].  The
+    kernel takes `ptr`'s piece tables (`kernels/segorder.py`)."""
+    if _plain(mode):
+        return ref.segment_sum(msgs, live, ptr)
+    return _segsum.segment_sum(msgs, live, ptr, pieces)
 
 
 def triplet(x, ev, src_slot, dst_slot, live, ptr, perm, spec, *,
-            to: str = "dst", reduce: str = "sum", mode: str = "auto"):
-    """Fused gather + map + segment-reduce; (out [S, dm] f32, cnt [S])."""
-    fn = ref.fused_triplet if _plain(mode) else _triplet.fused_triplet
-    return fn(x, ev, src_slot, dst_slot, live, ptr, perm, spec, to=to,
-              reduce=reduce)
+            to: str = "dst", reduce: str = "sum", mode: str = "auto",
+            pieces=None):
+    """Fused gather + map + segment-reduce; (out [S, dm] f32, cnt [S]).
+    The kernel takes `ptr`'s piece tables (`kernels/segorder.py`)."""
+    if _plain(mode):
+        return ref.fused_triplet(x, ev, src_slot, dst_slot, live, ptr, perm,
+                                 spec, to=to, reduce=reduce)
+    return _triplet.fused_triplet(x, ev, src_slot, dst_slot, live, ptr, perm,
+                                  spec, to=to, reduce=reduce, pieces=pieces)
 
 
 def superstep_apply(pay, live, inv, x, vid, vmask, spec, *,

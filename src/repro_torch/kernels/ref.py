@@ -3,16 +3,22 @@
 Same arguments and same results as the CUDA kernels in csrc/.  The CPU path
 and the tests run these; on the card `chip_smoke.py` holds each kernel
 against them.  They run on any device.  On the CPU `index_add_` adds in
-index order, so the sums here follow the kernels' sequential edge order and
-the fused and unfused plans agree bit for bit; on the card `index_add_` uses
-atomics, so there they agree with the kernels only within f32 rounding.
+index order, so the fused and unfused plain versions agree bit for bit; on
+the card `index_add_` uses atomics, so there they agree with the kernels
+only within f32 rounding (`sum_tol`).
+
+`ordered_segment_reduce` is not a plain version but the exact model of the
+order the triplet and segment_sum kernels sum in (`csrc/segorder.cuh`): the
+card checks hold both kernels to it bit for bit.  For a segment of at most
+SEG_PIECE entries that order is the sequential one `index_add_` follows on
+the CPU.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from . import udf
+from . import segorder, udf
 
 # Finite reduce identities (f32 extremes, not ±inf), as in the reference.
 REDUCE_IDENTITY = {
@@ -112,6 +118,106 @@ def fused_triplet(x, ev, src_slot, dst_slot, live, ptr, perm, spec, *,
         out.scatter_reduce_(0, agg[:, None].expand_as(msgs), msgs,
                             _SCATTER[reduce], include_self=True)
     return out, cnt
+
+
+def triplet_terms(x, ev, src_slot, dst_slot, live, ptr, perm, spec):
+    """The terms the triplet kernel reduces, at their CSR positions: (terms
+    [nl, E_blk, dm] f32, zero where dead, live [nl, E_blk] bool of each
+    position, false past ptr[:, -1]).  Arguments as `fused_triplet`."""
+    nl, e_blk = src_slot.shape
+    pos = torch.arange(e_blk, device=ptr.device)
+    order = pos.expand(nl, e_blk) if perm is None else perm.long()
+    e = order + torch.arange(nl, device=ptr.device)[:, None] * e_blk
+    lv = live.reshape(-1)[e] & (pos[None, :] < ptr[:, -1:].long())
+    _, msgs = triplet_messages(x, ev, src_slot, dst_slot, live, ptr, perm,
+                               spec)
+    terms = torch.zeros((nl, e_blk, spec.dm), dtype=torch.float32,
+                        device=x.device)
+    terms[lv] = msgs
+    return terms, lv
+
+
+def ordered_segment_reduce(terms, live, ptr, pieces, reduce: str = "sum"):
+    """The summation order of `csrc/segorder.cuh`, in plain PyTorch.
+
+    terms [nl, E, D] (f32) and live [nl, E] at CSR positions, ptr
+    [nl, V+1] row pointers, pieces their `segorder.Pieces` (host or
+    device).  Each piece's live terms are combined step by step in
+    ascending position from the identity (`torch.where(live, acc + t,
+    acc)`), then each segment's piece partials step by step in piece
+    order.  Elementwise ops only, no float sum whose order torch leaves
+    open.  Pieces are binned by length, so a step touches only the
+    pieces still running.  Returns (out [nl * V, D] f32, identity where no
+    term is live; cnt [nl * V] int64 live terms)."""
+    nl, e_blk = live.shape
+    dev = terms.device
+    t = terms.reshape(nl * e_blk, -1).float()
+    lv = live.reshape(-1).to(dev)
+    ident = REDUCE_IDENTITY[reduce]
+    op = {"sum": torch.add, "min": torch.minimum,
+          "max": torch.maximum}[reduce]
+    host = segorder.Pieces(*(np.asarray(a.cpu() if isinstance(a, torch.Tensor)
+                                        else a) for a in pieces))
+    q, _, begin, end = segorder.spans(np.asarray(ptr.cpu()), host)
+    # within each piece: position i of every piece longer than i
+    length = end - begin
+    by_len = np.argsort(-length, kind="stable")
+    longer = np.cumsum(np.bincount(length, minlength=segorder.SEG_PIECE + 1)
+                       [::-1])[::-1]                    # longer[i]: len >= i
+    base = torch.as_tensor(q * e_blk + begin, device=dev)
+    by_len = torch.as_tensor(by_len, device=dev)
+    acc = torch.full((length.size, t.shape[1]), ident, dtype=torch.float32,
+                     device=dev)
+    cnt = torch.zeros(length.size, dtype=torch.int64, device=dev)
+    for i in range(segorder.SEG_PIECE):
+        run = by_len[:int(longer[i + 1])]
+        p = base[run] + i
+        keep = lv[p]
+        acc[run] = torch.where(keep[:, None], op(acc[run], t[p]), acc[run])
+        cnt[run] += keep
+    # then over each segment's pieces; pieces are listed per partition in
+    # table order, so piece k of partition q is row first[q] + k
+    pptr = host.ptr.astype(np.int64)
+    first = np.cumsum(pptr[:, -1]) - pptr[:, -1]
+    k0 = (first[:, None] + pptr[:, :-1]).reshape(-1)
+    n = np.diff(pptr, axis=1).reshape(-1)
+    by_n = np.argsort(-n, kind="stable")
+    more = np.cumsum(np.bincount(n, minlength=2)[::-1])[::-1]  # n >= j
+    k0_t = torch.as_tensor(k0, device=dev)
+    out, total = acc[k0_t].clone(), cnt[k0_t].clone()
+    for j in range(1, len(more) - 1):
+        segs = torch.as_tensor(by_n[:int(more[j + 1])], device=dev)
+        k = k0_t[segs] + j
+        out[segs] = op(out[segs], acc[k])
+        total[segs] += cnt[k]
+    return out, total
+
+
+def ordered_triplet(x, ev, src_slot, dst_slot, live, ptr, perm, spec, pieces,
+                    *, reduce: str = "sum"):
+    """The triplet kernel's exact result (`ordered_segment_reduce` over
+    `triplet_terms`): (out [S, dm] f32, cnt [S] f32)."""
+    terms, lv = triplet_terms(x, ev, src_slot, dst_slot, live, ptr, perm,
+                              spec)
+    out, cnt = ordered_segment_reduce(terms, lv, ptr, pieces, reduce)
+    return out, cnt.to(torch.float32)
+
+
+def sum_tol(agg, msgs, n_slots: int):
+    """Per-slot limit [n_slots, D] (float64) on |a - b| for two f32 sums of
+    the same messages (msgs [n, D] into flat slots agg [n]) in different
+    orders.  A sum of n terms in any order is within gamma_(n-1) * sum|m|
+    of the exact sum, gamma_k = k u / (1 - k u) (Higham, Accuracy and
+    Stability, 4.2), so two such sums differ by at most twice that.  A slot
+    of one message gets 0; a dropped or doubled message of an ordinary slot
+    exceeds the limit."""
+    u = 2.0 ** -24
+    absum = torch.zeros((n_slots, msgs.shape[1]), dtype=torch.float64,
+                        device=msgs.device)
+    absum.index_add_(0, agg, msgs.abs().double())
+    k = (torch.bincount(agg, minlength=n_slots).double() - 1).clamp(min=0)
+    gamma = k * u / (1 - k * u)
+    return 2 * gamma[:, None] * absum
 
 
 def fused_apply(pay, live, inv, x, vid, vmask, spec, *, reduce: str = "sum"):

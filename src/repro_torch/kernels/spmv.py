@@ -9,10 +9,12 @@ w * x[src]; here it runs csrc/triplet.cu the same way:
 `active_src_blocks` keeps the reference's block-level skipStale: an edge is
 live iff `active[src // vb]`.  In place of the Pallas chunk tiles,
 `build_tiles` returns CSR tables built once in numpy: `ptr [V+1]` row
-pointers over the destinations and `perm [E]`, the structurally live edges
+pointers over the destinations, `perm [E]`, the structurally live edges
 in ascending (dst, edge index) order, which the kernel walks per
-destination with a sequential f32 sum.  Memory bounds it, as the triplet
-kernel.  On CPU tensors it runs the triplet kernel's plain version.
+destination, and the piece tables of `ptr` (`piece_ptr`, `piece_seg`,
+`piece_multi`; `kernels/segorder.py`), which fix the f32 summation order.
+Bytes bound it, as the triplet kernel.  On CPU tensors it runs the triplet
+kernel's plain version.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import functools
 import numpy as np
 import torch
 
-from . import ref, udf
+from . import ref, segorder, udf
 from . import triplet as _triplet
 
 
@@ -41,7 +43,9 @@ def build_tiles(src_slot: np.ndarray, dst_slot: np.ndarray,
                 edge_mask: np.ndarray, v_mir: int) -> dict[str, np.ndarray]:
     """CSR tables of the structurally live edges (numpy, int32): ptr
     [v_mir + 1] over the destinations, perm [E] the live edges sorted by
-    destination (stable), padded with 0 past ptr[v_mir]."""
+    destination (stable), padded with 0 past ptr[v_mir], and the piece
+    tables of ptr as one partition (piece_ptr [1, v_mir + 1], piece_seg
+    [1, NP], piece_multi [M])."""
     dst = np.asarray(dst_slot)
     live = np.flatnonzero(np.asarray(edge_mask, bool))
     hi = max(int(dst[live].max()), int(np.asarray(src_slot)[live].max())) \
@@ -54,7 +58,9 @@ def build_tiles(src_slot: np.ndarray, dst_slot: np.ndarray,
     perm[:order.size] = order
     ptr = np.zeros(v_mir + 1, np.int32)
     np.cumsum(np.bincount(dst[live], minlength=v_mir), out=ptr[1:])
-    return {"ptr": ptr, "perm": perm}
+    pieces = segorder.piece_tables(ptr[None])
+    return {"ptr": ptr, "perm": perm, "piece_ptr": pieces.ptr,
+            "piece_seg": pieces.seg, "piece_multi": pieces.multi}
 
 
 def live_edges(src_slot: torch.Tensor, active_src_blocks, vb: int,
@@ -74,6 +80,9 @@ def plain(x, w, src_slot, dst_slot, tiles, active_src_blocks, v_mir: int,
                                         src_slot, dst_slot, v_mir)
 
 
+_TABLES = ("ptr", "perm", "piece_ptr", "piece_seg", "piece_multi")
+
+
 def spmv(x: torch.Tensor, w: torch.Tensor, src_slot: torch.Tensor,
          dst_slot: torch.Tensor, tiles: dict, active_src_blocks, v_mir: int,
          *, vb: int = 512) -> torch.Tensor:
@@ -82,15 +91,15 @@ def spmv(x: torch.Tensor, w: torch.Tensor, src_slot: torch.Tensor,
     dev = x.device
     e = w.shape[0]
     live = live_edges(src_slot, active_src_blocks, vb, e)
-    ptr, perm = (torch.as_tensor(tiles[k], device=dev).to(torch.int32)
-                 for k in ("ptr", "perm"))
+    ptr, perm, *pieces = (torch.as_tensor(tiles[k], device=dev)
+                          .to(torch.int32) for k in _TABLES)
     out, _ = _triplet.fused_triplet(
         x.float().contiguous(), w.float().reshape(e, 1).contiguous(),
         src_slot.to(torch.int32).reshape(1, e).contiguous(),
         dst_slot.to(torch.int32).reshape(1, e).contiguous(),
         live.reshape(1, e).contiguous(), ptr.reshape(1, -1),
         perm.reshape(1, e), linear_message(x.shape[1]), to="dst",
-        reduce="sum")
+        reduce="sum", pieces=segorder.Pieces(*pieces))
     if dev.type == "cuda":
         spmv.launches += 1
     return out

@@ -1,12 +1,14 @@
 """The fused mrTriplets sweep on the GPU: wrapper of csrc/triplet.cu.
 
 Replaces `src/repro/kernels/triplet.py:fused_triplet` (pallas_call at :447).
-One thread per (aggregation slot, message column) walks the slot's CSR
-range of live edges in ascending order, evaluates the map UDF (generated C
-from `kernels/udf.py`) on the gathered endpoint rows and reduces
-sequentially.  What bounds it on the card is memory: per live edge the CSR
-entry, its slots, live byte, edge payload and the used endpoint rows
-(random gathers).  See the source for the design notes.
+Each slot's CSR range is cut into pieces of at most `segorder.SEG_PIECE`
+edges (the graph's piece tables, `kernels/segorder.py`); a warp evaluates
+the map UDF (generated C from `kernels/udf.py`) once per live edge of 32
+pieces' span, each lane reduces one piece in ascending order, and a second
+pass combines the pieces of the long slots in piece order: the summation
+order of `csrc/segorder.cuh`, which `segment_sum.cu` shares.  What bounds it
+on the card is bytes: per live edge the index streams, the edge payload and
+the used endpoint rows (random gathers).  See the source for the design.
 
 On a CPU tensor the wrapper runs the plain version (`kernels/ref.py`); on a
 CUDA tensor it launches the kernel or raises.
@@ -19,13 +21,11 @@ import functools
 
 import torch
 
-from . import build, ref, udf
+from . import build, ref, segorder, udf
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_P, ctypes.c_longlong, _P, ctypes.c_longlong, _P, _P, _P, _P, _P,
+             _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
 
 plain = ref.fused_triplet
 
@@ -71,17 +71,36 @@ def source(spec: TripletUdf, reduce: str, to: str,
     return build.template("triplet").replace("//@GENERATED@", "\n".join(gen))
 
 
+def check_pieces(kernel: str, pieces, nl: int, v: int) -> tuple[int, int]:
+    """Raise unless `pieces` are int32 CUDA piece tables of nl partitions
+    of v segments (`segorder.Pieces`); (pieces per partition, segments of
+    several pieces)."""
+    if not isinstance(pieces, segorder.Pieces):
+        raise ValueError(f"{kernel}: pieces must be segorder.Pieces, got "
+                         f"{type(pieces).__name__}")
+    n_p = pieces.seg.shape[-1]
+    if n_p % segorder.WARP or n_p < v:
+        raise ValueError(f"{kernel}: {n_p} pieces a partition is no "
+                         f"multiple of {segorder.WARP} at least {v}")
+    check = functools.partial(build.check_arg, kernel)
+    check(pieces.ptr, torch.int32, (nl, v + 1), "pieces.ptr")
+    check(pieces.seg, torch.int32, (nl, n_p), "pieces.seg")
+    check(pieces.multi, torch.int32, (pieces.multi.shape[0],), "pieces.multi")
+    return n_p, pieces.multi.shape[0]
 
 
 def fused_triplet(x, ev, src_slot, dst_slot, live, ptr, perm,
-                  spec: TripletUdf, *, to: str = "dst", reduce: str = "sum"):
-    """Arguments and results as `kernels.ref.fused_triplet`."""
+                  spec: TripletUdf, *, to: str = "dst", reduce: str = "sum",
+                  pieces: segorder.Pieces | None = None):
+    """Arguments and results as `kernels.ref.fused_triplet`; on the card
+    `pieces` are the piece tables of `ptr` (CUDA tensors)."""
     if x.device.type != "cuda":
         return plain(x, ev, src_slot, dst_slot, live, ptr, perm, spec,
                      to=to, reduce=reduce)
     nl, e_blk = src_slot.shape
     v_mir = ptr.shape[1] - 1
     s = nl * v_mir
+    n_p, n_m = check_pieces("triplet", pieces, nl, v_mir)
     check = functools.partial(build.check_arg, "triplet")
     check(x, torch.float32, (s, x.shape[1]), "x")
     check(ev, torch.float32, (nl * e_blk, ev.shape[1]), "ev")
@@ -93,6 +112,10 @@ def fused_triplet(x, ev, src_slot, dst_slot, live, ptr, perm,
         check(perm, torch.int32, (nl, e_blk), "perm")
     out = torch.empty((s, spec.dm), dtype=torch.float32, device=x.device)
     cnt = torch.empty((s,), dtype=torch.float32, device=x.device)
+    # scratch rows of the pieces after a slot's first (segorder.cuh)
+    rows = max(nl * (n_p - v_mir), 1)
+    part = torch.empty((rows, spec.dm), dtype=torch.float32, device=x.device)
+    part_cnt = torch.empty((rows,), dtype=torch.int32, device=x.device)
     lib = build.load("triplet", source(spec, reduce, to, perm is not None),
                      _ARGTYPES)
     nullp = ctypes.c_void_p(None)
@@ -100,8 +123,10 @@ def fused_triplet(x, ev, src_slot, dst_slot, live, ptr, perm,
                      build.ptr(src_slot), build.ptr(dst_slot),
                      build.ptr(live), build.ptr(ptr),
                      build.ptr(perm) if perm is not None else nullp,
-                     nl, v_mir, e_blk, build.ptr(out), build.ptr(cnt),
-                     build.stream())
+                     build.ptr(pieces.ptr), build.ptr(pieces.seg),
+                     build.ptr(pieces.multi), nl, v_mir, e_blk, n_p, n_m,
+                     build.ptr(out), build.ptr(cnt), build.ptr(part),
+                     build.ptr(part_cnt), build.stream())
     build.check(err, "triplet")
     fused_triplet.launches += 1
     return out, cnt

@@ -6,14 +6,17 @@ the module is imported.  On a machine with one card and nvcc:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 
-The graphs are small (rmat(10, 8), P=4): this checks that every kernel
+The graphs are small (rmat(10, 8), P=4, and the hub graph: rmat(10, 8)
+joined to a symmetrized star whose centre has 2048 edges each way, so its
+slots span many pieces of SEG_PIECE edges): this checks that every kernel
 variant the slice generates builds, launches and computes what its plain
 version computes, including UDFs that `chip_smoke.py` does not run (delta
 PageRank's changed_fn, quickstart's `more_senior`, every IR op).  Min/max,
-counts and the apply kernel must match exactly.  The triplet sums are held
-within rtol 1e-5 of the plain version, whose `index_add_` adds with atomics
-on the card; segment_sum must equal its plain version run on the CPU, which
-adds in the kernel's order, bit for bit.  End to end, the card's fused
+counts and the apply kernel must match exactly.  The triplet and
+segment_sum kernels must equal `ref.ordered_segment_reduce`, the model of
+their shared summation order (`csrc/segorder.cuh`), bit for bit; the
+triplet sums are also held within rtol 1e-5 of the plain version, whose
+`index_add_` adds with atomics on the card.  End to end, the card's fused
 plan equals its unfused plan bit for bit, CC equals the CPU run exactly and
 PageRank equals it within rtol 1e-5, atol 1e-6.
 """
@@ -26,8 +29,9 @@ from repro_torch.core import Graph, analysis  # noqa: E402
 from repro_torch.core import algorithms as alg  # noqa: E402
 from repro_torch.core import mrtriplets as mt  # noqa: E402
 from repro_torch.core.tree import ElemSpec, tree_map  # noqa: E402
-from repro_torch.data import rmat, symmetrize  # noqa: E402
-from repro_torch.kernels import ops, ref, udf  # noqa: E402
+from repro_torch.data import rmat, star, symmetrize  # noqa: E402
+from repro_torch.data.graphs import GraphData  # noqa: E402
+from repro_torch.kernels import ops, ref, segorder, udf  # noqa: E402
 from repro_torch.kernels import segment_sum as seg_mod  # noqa: E402
 from repro_torch.kernels import superstep as app_mod  # noqa: E402
 from repro_torch.kernels import triplet as tri_mod  # noqa: E402
@@ -35,6 +39,9 @@ from repro_torch.kernels import triplet as tri_mod  # noqa: E402
 P = 4
 GD = rmat(10, 8, seed=42)
 SGD = symmetrize(GD)
+_STAR = symmetrize(star(2049))
+HUB = GraphData(np.concatenate([GD.src, _STAR.src]),
+                np.concatenate([GD.dst, _STAR.dst]), 2049)
 F32, I32 = ElemSpec((), torch.float32), ElemSpec((), torch.int32)
 pytestmark = pytest.mark.cuda
 
@@ -107,15 +114,22 @@ def _check_triplet(g, spec, x, ev, live, to, reduce):
     args = (x, ev, s.src_slot, s.dst_slot, live, s.agg_ptr[to],
             s.src_perm if to == "src" else None, spec)
     before = tri_mod.fused_triplet.launches
-    out, cnt = tri_mod.fused_triplet(*args, to=to, reduce=reduce)
+    out, cnt = tri_mod.fused_triplet(*args, to=to, reduce=reduce,
+                                     pieces=s.agg_pieces[to])
     want, wcnt = ref.fused_triplet(*args, to=to, reduce=reduce)
+    exact, ecnt = ref.ordered_triplet(*args, s.agg_pieces[to], reduce=reduce)
     torch.cuda.synchronize()
     assert tri_mod.fused_triplet.launches == before + 1
-    assert out.is_cuda and torch.equal(cnt, wcnt)
+    assert out.is_cuda and torch.equal(cnt, wcnt) and torch.equal(cnt, ecnt)
+    assert torch.equal(out, exact)
     if reduce == "sum":
         torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
     else:
         assert torch.equal(out, want)
+
+
+def _longest_slot(g, to):
+    return int(torch.diff(g.s.agg_ptr[to], dim=1).max())
 
 
 @pytest.mark.parametrize("to", ["dst", "src"])
@@ -128,6 +142,31 @@ def test_triplet_kernel_matches_plain(reduce, payload, to, cuda):
     x, ev, live = _triplet_inputs(g, 2 if payload == "f" else 1, seed=5)
     if payload == "i":
         x = x.abs().mul(1000).round()
+    _check_triplet(g, spec, x, ev, live, to, reduce)
+
+
+def _vec3_data(g):
+    rng = np.random.default_rng(8)
+    return {"v": rng.normal(size=tuple(g.s.home_vid.shape) + (3,))
+            .astype(np.float32)}
+
+
+def _vec3_send(sv, ev, dv):
+    return {"m": sv["v"] * ev["w"]}
+
+
+@pytest.mark.parametrize("to", ["dst", "src"])
+@pytest.mark.parametrize("dm", [1, 3])
+@pytest.mark.parametrize("reduce", ["sum", "max"])
+def test_triplet_kernel_on_hub_graph(reduce, dm, to, cuda):
+    """Slots of 1000+ edges, cut into many pieces and combined by the
+    second pass: bit-equal to the ordered model, counts exact."""
+    vdata, send = (_vdata_f, _send_f) if dm == 1 else (_vec3_data, _vec3_send)
+    g = _graph(HUB, cuda, vdata)
+    assert _longest_slot(g, to) >= 8 * segorder.SEG_PIECE
+    spec = mt.fused_plan(g, send, reduce).kernel
+    assert spec.dm == dm
+    x, ev, live = _triplet_inputs(g, 2 if dm == 1 else 3, seed=9)
     _check_triplet(g, spec, x, ev, live, to, reduce)
 
 
@@ -207,25 +246,37 @@ def test_apply_kernel_matches_plain(case, cuda):
         assert torch.equal(new[k], want[k]), k
 
 
+@pytest.mark.parametrize("graph", ["rmat", "hub"])
 @pytest.mark.parametrize("to", ["dst", "src"])
 @pytest.mark.parametrize("d", [1, 3])
-def test_segment_sum_kernel_matches_plain(d, to, cuda):
-    """Both add each segment's live entries in ascending order: on the
-    plain version's CPU run that order is exact, so the kernel must equal
-    it bit for bit."""
-    s = _graph(GD, cuda).s
+def test_segment_sum_kernel_matches_plain(d, to, graph, cuda):
+    """The kernel adds in the order of csrc/segorder.cuh, so it must equal
+    `ref.ordered_segment_reduce` on the same messages bit for bit (run on
+    the CPU, and on the card); slots of at most SEG_PIECE entries also
+    equal the plain version's CPU run, which adds in ascending order."""
+    g = _graph(GD if graph == "rmat" else HUB, cuda)
+    s = g.s
+    if graph == "hub":
+        assert _longest_slot(g, to) >= 8 * segorder.SEG_PIECE
     rng = np.random.default_rng(d)
     msgs = torch.from_numpy(rng.normal(size=(P, s.e_blk, d))
                             .astype(np.float32)).to(cuda)
     live = (s.edge_mask.cpu() & torch.from_numpy(
         rng.random((P, s.e_blk)) < 0.7)).to(cuda)
+    ptr, pieces = s.agg_ptr[to], s.agg_pieces[to]
     before = seg_mod.segment_sum.launches
-    got = seg_mod.segment_sum(msgs, live, s.agg_ptr[to])
-    want = ref.segment_sum(msgs.cpu(), live.cpu(), s.agg_ptr[to].cpu())
+    got = seg_mod.segment_sum(msgs, live, ptr, pieces)
+    want, _ = ref.ordered_segment_reduce(msgs.cpu(), live.cpu(), ptr.cpu(),
+                                         pieces)
+    on_card, _ = ref.ordered_segment_reduce(msgs, live, ptr, pieces)
+    plain = ref.segment_sum(msgs.cpu(), live.cpu(), ptr.cpu()).reshape(-1, d)
     torch.cuda.synchronize()
     assert seg_mod.segment_sum.launches == before + 1
     assert got.shape == (P, s.v_mir, d)
-    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got.cpu().reshape(-1, d), want)
+    assert torch.equal(on_card.cpu(), want)
+    short = (torch.diff(ptr, dim=1) <= segorder.SEG_PIECE).reshape(-1).cpu()
+    assert torch.equal(want[short], plain[short])
 
 
 def test_wrappers_on_cuda_raise_instead_of_falling_back(cuda):
@@ -233,12 +284,24 @@ def test_wrappers_on_cuda_raise_instead_of_falling_back(cuda):
     s = g.s
     spec = mt.fused_plan(g, _send_f, "sum").kernel
     x, ev, live = _triplet_inputs(g, 2, seed=5)
+    pieces = s.agg_pieces["dst"]
     with pytest.raises(ValueError):
         tri_mod.fused_triplet(x, ev, s.src_slot.long(), s.dst_slot, live,
+                              s.agg_ptr["dst"], None, spec, pieces=pieces)
+    with pytest.raises(ValueError):         # the piece tables are required
+        tri_mod.fused_triplet(x, ev, s.src_slot, s.dst_slot, live,
                               s.agg_ptr["dst"], None, spec)
     with pytest.raises(ValueError):
+        tri_mod.fused_triplet(x, ev, s.src_slot, s.dst_slot, live,
+                              s.agg_ptr["dst"], None, spec,
+                              pieces=pieces._replace(seg=pieces.seg[:, :-1]))
+    with pytest.raises(ValueError):
         seg_mod.segment_sum(torch.ones(P, s.e_blk, 1, device=cuda), live,
-                            s.agg_ptr["dst"].long())
+                            s.agg_ptr["dst"].long(), pieces)
+    with pytest.raises(ValueError):
+        seg_mod.segment_sum(torch.ones(P, s.e_blk, 1, device=cuda), live,
+                            s.agg_ptr["dst"], pieces._replace(
+                                ptr=pieces.ptr.long()))
 
 
 def _end_to_end(run, gd, leaf, device):
@@ -246,22 +309,27 @@ def _end_to_end(run, gd, leaf, device):
     return r, r.graph.vdata[leaf].cpu()
 
 
+@pytest.mark.parametrize("graph", ["rmat", "hub"])
 @pytest.mark.parametrize("tol", [0.0, 1e-3])
-def test_pagerank_on_card(tol, cuda):
+def test_pagerank_on_card(tol, graph, cuda):
+    """Fused == unfused bit for bit on the card (both kernels sum in the
+    order of csrc/segorder.cuh; the hub graph's slots span many pieces),
+    and within f32 rounding of the CPU run."""
+    gd = GD if graph == "rmat" else HUB
     run = lambda g, **kw: alg.pagerank(g, num_iters=12, tol=tol,  # noqa: E731
                                        track_metrics=True, **kw)
     ops.reset_launch_counts()
-    r, pr = _end_to_end(run, GD, "pr", cuda)
+    r, pr = _end_to_end(run, gd, "pr", cuda)
     counts = ops.launch_counts()
     assert counts["triplet"] >= r.supersteps + 1          # + the degree pass
     assert counts["apply"] == r.supersteps
     assert (r.metrics[0]["plan"], r.metrics[0]["apply_plan"]) == \
         ("fused", "fused_apply")
-    u, pr_u = _end_to_end(lambda g: run(g, kernel_mode="unfused"), GD, "pr",
+    u, pr_u = _end_to_end(lambda g: run(g, kernel_mode="unfused"), gd, "pr",
                           cuda)
     assert ops.launch_counts()["segment_sum"] > 0
     assert torch.equal(pr, pr_u) and r.supersteps == u.supersteps
-    c, pr_c = _end_to_end(run, GD, "pr", "cpu")
+    c, pr_c = _end_to_end(run, gd, "pr", "cpu")
     assert r.supersteps == c.supersteps
     torch.testing.assert_close(pr, pr_c, rtol=1e-5, atol=1e-6)
 
@@ -521,15 +589,20 @@ def test_mlstm_without_grad_saves_no_states(cuda):
         mlstm_mod.mlstm_chunked(*_mlstm_inputs(1, 1, 100, 32, cuda), chunk=64)
 
 
+@pytest.mark.parametrize("hub", [False, True])
 @pytest.mark.parametrize("active", [False, True])
-def test_spmv_on_card_matches_plain(active, cuda):
+def test_spmv_on_card_matches_plain(active, hub, cuda):
     """spmv through the triplet kernel (one launch each) against its plain
-    version on the card, rtol 1e-5 (index_add_ adds with atomics)."""
+    version on the card, rtol 1e-5 (index_add_ adds with atomics), and bit
+    for bit against the ordered model of the kernel's summation order
+    (with a hub row of 2000 edges: many pieces)."""
     from repro_torch.kernels import spmv as spmv_mod
     rng = np.random.default_rng(4)
     v, e, d = 300, 4000, 3
     src = rng.integers(0, v, e).astype(np.int32)
     dst = rng.integers(0, v, e).astype(np.int32)
+    if hub:
+        dst[:2000] = 7
     mask = rng.random(e) > 0.1
     w = (rng.normal(size=e) * mask).astype(np.float32)
     x = rng.normal(size=(v, d)).astype(np.float32)
@@ -540,9 +613,18 @@ def test_spmv_on_card_matches_plain(active, cuda):
     before = spmv_mod.spmv.launches
     got = ops.spmv(*args, tiles, act, v, vb=64)
     want = ops.spmv(*args, tiles, act, v, vb=64, mode="ref")
+    t = {k: torch.from_numpy(a).to(cuda) for k, a in tiles.items()}
+    live = spmv_mod.live_edges(args[2], act, 64, e)
+    exact, _ = ref.ordered_triplet(
+        args[0], args[1].reshape(e, 1), args[2].reshape(1, e),
+        args[3].reshape(1, e), live.reshape(1, e), t["ptr"].reshape(1, -1),
+        t["perm"].reshape(1, e), spmv_mod.linear_message(d),
+        segorder.Pieces(t["piece_ptr"], t["piece_seg"], t["piece_multi"]))
     torch.cuda.synchronize()
     assert spmv_mod.spmv.launches == before + 1
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, exact)
+    assert (t["piece_multi"].numel() > 0) == hub
 
 
 def test_train_smoke_on_card_goes_through_the_kernels(cuda):
