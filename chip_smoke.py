@@ -15,6 +15,15 @@ Phases (any failure exits non-zero before the result line):
      share (`csrc/segorder.cuh`), with the piece tables' sizes logged;
   3. PageRank (tol 0, 10 supersteps) on rmat(22, 16, seed=0), P=4: fused
      plans, bit-equal to the unfused plan, within 1e-4 of a float64 oracle;
+  3b. on the same graph, PageRank over the int8 wire, and with
+     narrow-resident int8, fp8_e4m3 and fp8_e5m2 mirrors (the triplet
+     kernel reading the encoded rows through their scale plane): fused
+     plans, bit-equal to the unfused plan under each resident codec,
+     normalised ranks within 1e-3 of the f32 run, int8 resident within
+     10/254 relative L2 of the int8 wire-only run, mirror bytes <= 0.35x
+     and int8 wire bytes <= 1/3 of the f32 run's; then the PageRank send as
+     one mrTriplets over bf16 vertex properties (the bf16 row variant),
+     bit-equal to its unfused plan;
   4. connected components on symmetrize(rmat(21, 16, seed=1)), P=4: labels
      bit-equal to scipy's min-id labels and to the unfused plan;
   5. the flash attention kernel against its plain version at the serve
@@ -44,7 +53,11 @@ Phases (any failure exits non-zero before the result line):
      place against its plain version on the same inputs and cotangent, and
      through the plain versions, whose loss must agree.
 Phase 2 also runs spmv (the PageRank send as one SpMV through the triplet
-kernel) against its plain version and a CSR `torch.sparse.mm`.
+kernel) against its plain version and a CSR `torch.sparse.mm`, and the
+triplet kernel on the PageRank send's rows encoded by `wire.encode_resident`
+(int8, fp8 e4m3 and e5m2 with their scale planes) and in bf16: bit-equal to
+the kernel on the decoded f32 rows and to the ordered model, with a mutant
+(the scale plane zeroed) that must fail that check.
 It then prints the kernel table as one JSON line and, last, the device line
 {"ok": true, "device": {...}}.
 """
@@ -92,10 +105,25 @@ MLSTM_SHAPES = [("slice: xlstm-350m, batch 8, seq 1024", 8, 4, 1024, 256, 64),
 # relative 1e-6 (the normaliser's max(|den|, exp(-m)) switches branch under
 # rounding), so no limit that a sound run meets would fail a wrong one.
 TRAIN_LOSS_LIMIT = 1e-3
+# phase 3b: the narrow-resident codecs, and the contracts of the reference's
+# tests (test_wire.py:test_pagerank_int8_wire_error_and_bytes_regression,
+# test_view.py:test_narrow_resident_f32_pagerank_norm_err)
+RESIDENT_CODECS = ("int8", "fp8_e4m3", "fp8_e5m2")
+RANK_LIMIT = 1e-3              # max |normalised rank - f32 run's|
+DRIFT_PER_STEP = 1 / 254       # relative L2, resident vs wire-only, a step
+MIRROR_RATIO_LIMIT = 0.35      # resident mirror bytes / f32 mirror bytes
+WIRE_RATIO_LIMIT = 1 / 3       # int8 bytes_on_wire / f32 bytes_on_wire
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def _to_bf16(vid, v):
+    """PageRank's vertex properties in bf16: its send then reads bf16 rows."""
+    import torch
+    return {**v, "deg": v["deg"].to(torch.bfloat16),
+            "pr": v["pr"].to(torch.bfloat16)}
 
 
 def cuda_ms(fn, n: int = 5) -> float:
@@ -258,6 +286,8 @@ def main() -> int:
         return 2
     from repro_torch.core import algorithms as alg
     from repro_torch.core import mrtriplets as mt
+    from repro_torch.core import wire
+    from repro_torch.core import with_wire
     from repro_torch.core.graph import Graph, _degree_msg
     from repro_torch.data import rmat, symmetrize
     from repro_torch.kernels import build, ops, ref, segorder
@@ -308,6 +338,17 @@ def main() -> int:
                ("flash_attention", flash_mod.source()),
                ("triplet", tri_mod.source(spmv_mod.linear_message(1), "sum",
                                           "dst", True))]
+    resident_x = [wire.make_codec(c).fdtype for c in RESIDENT_CODECS]
+    # the PageRank send reading encoded rows: resident payloads with their
+    # scale planes, and bf16 rows (the bf16 send's own UDF on the main path)
+    sources += [("triplet", tri_mod.source(k_pr, "sum", "dst", False, dt,
+                                           True, 2)) for dt in resident_x]
+    sources += [("triplet", tri_mod.source(k_pr, "sum", "dst", False,
+                                           torch.bfloat16, False, 2))]
+    g_bf_t = g_pr_t.mapV(_to_bf16)
+    k_bf = mt.fused_plan(g_bf_t, alg.pagerank_send, "sum").kernel
+    sources += [("triplet", tri_mod.source(k_bf, "sum", "dst", False,
+                                           torch.bfloat16, False, 2))]
     sources += [("mlstm", mlstm_mod.source(min(c, l), mlstm_mod.tiling(
         min(c, l), dh))) for _, _, _, l, dh, c in MLSTM_SHAPES]
     t0 = time.perf_counter()
@@ -464,6 +505,73 @@ def main() -> int:
                    "mask and the counts"))
     del deg_ids, cc_dst, cc_rows, cc_out
 
+    def check_encoded(name, xe, xscale, dec):
+        """The PageRank send on encoded rows xe (+ scale plane): bit-equal
+        to the kernel on the decoded f32 rows dec and to the ordered model,
+        within sum_tol of the plain version on (xe, xscale); the kernel with
+        the scale plane zeroed must fail the ordered-model check."""
+        ptr, pieces = s.agg_ptr["dst"], s.agg_pieces["dst"]
+        args = (ev_w, s.src_slot, s.dst_slot, live, ptr, None, k_pr)
+        kernel = lambda x, sc: tri_mod.fused_triplet(  # noqa: E731
+            x, *args, pieces=pieces, xscale=sc)
+        plain = lambda: ref.fused_triplet(xe, *args, xscale=xscale)  # noqa: E731
+        out_e, cnt_e = kernel(xe, xscale)
+        out_d, cnt_d = kernel(dec, None)
+        out_o, _ = ref.ordered_triplet(dec, *args, pieces)
+        out_p, _ = plain()
+        torch.cuda.synchronize()
+        compare(f"triplet_{name} vs the kernel on decoded rows", out_e, out_d)
+        compare(f"triplet_{name} counts", cnt_e, cnt_d)
+        compare(f"triplet_{name} vs ordered model", out_e, out_o)
+        agg, msgs = ref.triplet_messages(dec, *args)
+        err, tol = compare(f"triplet_{name}", out_e, out_p,
+                           ref.sum_tol(agg, msgs, S))
+        del agg, msgs, out_d, out_p
+        mutant = "no scale plane"
+        if xscale is not None:
+            bad, _ = kernel(xe, torch.zeros_like(xscale))
+            try:
+                compare(f"triplet_{name} mutant (scale plane zeroed)", bad,
+                        out_o)
+            except AssertionError as e:
+                mutant = f"fails as it must: {e}"
+            else:
+                raise AssertionError(f"triplet_{name}: the zeroed scale "
+                                     f"plane passed the check")
+            del bad
+        log(f"  triplet_{name} mutant: {mutant}")
+        nlv = int(live.sum())
+        nbytes = (ptr.numel() * i32 + live.numel() + nlv * i32 * 2
+                  + xe.numel() * xe.element_size()
+                  + (xscale.numel() if xscale is not None else 0)
+                  + out_e.numel() * 4 + cnt_e.numel() * 4)
+        f32_ms = cuda_ms(lambda: kernel(dec, None))
+        record(f"triplet_{name}", f"pagerank send on {xe.dtype} rows"
+               f"{' with an int8 scale plane' if xscale is not None else ''}"
+               f"; the kernel on the decoded f32 rows took {f32_ms:.4f} ms "
+               f"in this run; library: none (no single PyTorch call "
+               f"dequantizes and reduces)", err,
+               f"{tol}; bit-equal to the kernel on the decoded rows and to "
+               f"the ordered model", cuda_ms(lambda: kernel(xe, xscale)),
+               cuda_ms(plain), nbytes, nlv * (ir_flops(k_pr.ir) + 1 + 2 * (
+                   xscale is not None)))
+        results[f"triplet_{name}"][-1]["f32_ms"] = f32_ms
+        del out_e, cnt_e, out_o
+
+    x_pr3 = x_pr.reshape(nl, v_mir, 2)
+    for cname in RESIDENT_CODECS:
+        leaf = wire.encode_resident(x_pr3, wire.make_codec(cname,
+                                                           resident=True),
+                                    "scaled")
+        check_encoded(tri_mod.variant(leaf.payload.dtype, True),
+                      leaf.payload.reshape(S, 2),
+                      leaf.scale.reshape(-1, 2).contiguous(),
+                      leaf.decode().reshape(S, 2))
+        del leaf
+    x_bf = x_pr.to(torch.bfloat16)
+    check_encoded("bf16", x_bf, None, x_bf.float())
+    del x_pr3, x_bf
+
     send_idx = s.routes["dst"][0]
     k = send_idx.shape[2]
     rlive = ((send_idx >= 0) & (torch.rand(send_idx.shape, generator=gen)
@@ -593,12 +701,116 @@ def main() -> int:
         f"({t_u / r_u.supersteps * 1e3:.2f} ms per superstep); "
         f"fused == unfused bit for bit; max|pr-ref|/max|ref| = {rel:.3g}; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del r_f, r_u, g, gd
+    counts_3 = ops.launch_counts()
+    del r_u
+    log(f"  phase 3: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---------------------------------------------------------- phase 3b
+    t_phase = time.perf_counter()
+    log(f"phase 3b: pagerank over the int8 wire and narrow-resident mirrors, "
+        f"{PR_ITERS} supersteps, same graph")
+
+    def norm(r):
+        pr = r.graph.vdata["pr"][r.graph.vmask].double()
+        return pr / pr.sum()
+
+    def run(codec, resident, mode="auto"):
+        """PageRank over `codec`, the launch counts set to 0 just before it
+        and read just after: (result, seconds, counts)."""
+        gw = g.replace(ex=with_wire(g.ex, codec, resident=resident))
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = alg.pagerank(gw, num_iters=PR_ITERS, track_metrics=True,
+                         kernel_mode=mode)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        if mode == "auto" and (r.metrics[0]["plan"], r.metrics[0][
+                "apply_plan"]) != ("fused", "fused_apply"):
+            raise AssertionError(f"pagerank over {codec}: plans "
+                                 f"{r.metrics[0]['plan']}, "
+                                 f"{r.metrics[0]['apply_plan']}")
+        return r, t, counts
+
+    want_n = norm(r_f)
+    f32_hbm = r_f.metrics[-1]["mirror_hbm_bytes"]
+    f32_wire = sum(m["bytes_on_wire"] for m in r_f.metrics)
+    per_step = {"f32 wire": t_f / r_f.supersteps * 1e3}
+    resident_launches = {}
+
+    def check_ranks(label, r):
+        err = float((norm(r) - want_n).abs().max())
+        if not err <= RANK_LIMIT:
+            raise AssertionError(f"pagerank {label}: normalised ranks "
+                                 f"{err} from the f32 run's")
+        return err
+
+    r8w, t, _ = run("int8", False)
+    per_step["int8 wire"] = t / r8w.supersteps * 1e3
+    err = check_ranks("int8 wire", r8w)
+    wire8 = sum(m["bytes_on_wire"] for m in r8w.metrics)
+    if not wire8 <= WIRE_RATIO_LIMIT * f32_wire:
+        raise AssertionError(f"int8 bytes_on_wire {wire8} vs f32 {f32_wire}")
+    log(f"  int8 wire: {per_step['int8 wire']:.2f} ms per superstep, ranks "
+        f"{err:.3g} from f32, bytes_on_wire {wire8:.0f} = "
+        f"{wire8 / f32_wire:.4f} of f32's {f32_wire:.0f}")
+    for cname in RESIDENT_CODECS:
+        r, t, counts = run(cname, True)
+        key = "triplet_" + tri_mod.variant(wire.make_codec(cname).fdtype, True)
+        resident_launches[key] = counts.get(key, 0)
+        if resident_launches[key] < PR_ITERS:
+            raise AssertionError(f"{cname} resident: {key} launched "
+                                 f"{resident_launches[key]} times")
+        per_step[f"{cname} resident"] = t / r.supersteps * 1e3
+        ru, t_u, _ = run(cname, True, "unfused")
+        if not torch.equal(r.graph.vdata["pr"], ru.graph.vdata["pr"]):
+            raise AssertionError(f"pagerank {cname} resident: fused != "
+                                 f"unfused")
+        err = check_ranks(f"{cname} resident", r)
+        hbm = r.metrics[-1]["mirror_hbm_bytes"]
+        if not hbm <= MIRROR_RATIO_LIMIT * f32_hbm:
+            raise AssertionError(f"{cname} mirror bytes {hbm} vs f32 "
+                                 f"{f32_hbm}")
+        drift = ""
+        if cname == "int8":
+            a = r.graph.vdata["pr"].double()
+            b = r8w.graph.vdata["pr"].double()
+            rel_l2 = float((a - b).norm() / b.norm())
+            if not rel_l2 <= PR_ITERS * DRIFT_PER_STEP:
+                raise AssertionError(f"int8 resident drift {rel_l2}")
+            drift = (f", relative L2 {rel_l2:.3g} from the int8 wire-only "
+                     f"run (limit {PR_ITERS * DRIFT_PER_STEP:.4f})")
+        log(f"  {cname} resident: {per_step[f'{cname} resident']:.2f} ms per "
+            f"superstep (unfused {t_u / ru.supersteps * 1e3:.2f}), {key} "
+            f"launched {resident_launches[key]} times, fused == unfused bit "
+            f"for bit, ranks {err:.3g} from f32, mirror bytes {hbm} = "
+            f"{hbm / f32_hbm:.4f} of f32's{drift}")
+        del r, ru
+    # bf16 vertex properties: the send reads bf16 mirror rows
+    gb = r_f.graph.mapV(_to_bf16)
+    ops.reset_launch_counts()
+    vb, eb, _, mb = gb.mrTriplets(alg.pagerank_send, "sum")
+    torch.cuda.synchronize()
+    resident_launches["triplet_bf16"] = ops.launch_counts().get(
+        "triplet_bf16", 0)
+    vu, eu, _, _ = gb.mrTriplets(alg.pagerank_send, "sum",
+                                 kernel_mode="unfused")
+    if mb["plan"] != "fused" or resident_launches["triplet_bf16"] < 1:
+        raise AssertionError(f"bf16 send: plan {mb['plan']}, launches "
+                             f"{resident_launches['triplet_bf16']}")
+    if not (torch.equal(vb["m"], vu["m"]) and torch.equal(eb, eu)):
+        raise AssertionError("bf16 send: fused != unfused")
+    log(f"  bf16 send as one mrTriplets: fused == unfused bit for bit")
+    del gb, vb, eb, vu, eu, r8w, r_f, g, gd
+    log(f"  ms per superstep (incl. the degree pass): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in per_step.items()))
+    log(f"  phase 3b: {time.perf_counter() - t_phase:.1f} s")
 
     # ---------------------------------------------------------- phase 4
     from scipy.sparse import csr_matrix
     from scipy.sparse.csgraph import connected_components as sp_cc
-    log(f"  phase 3: {time.perf_counter() - t_phase:.1f} s")
+    ops.reset_launch_counts()
     t_phase = time.perf_counter()
     log("phase 4: connected components")
     sgd = symmetrize(rmat(CC_SCALE, 16, seed=1))
@@ -630,8 +842,11 @@ def main() -> int:
         f"== scipy, fused == unfused")
     log(f"  phase 4: {time.perf_counter() - t_phase:.1f} s")
 
-    launches = ops.launch_counts()
-    for name in ("triplet", "apply", "segment_sum"):
+    counts_4 = ops.launch_counts()
+    launches = {k: counts_3.get(k, 0) + counts_4.get(k, 0)
+                for k in set(counts_3) | set(counts_4)}
+    launches.update(resident_launches)
+    for name in ("triplet", "apply", "segment_sum", *resident_launches):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
     del sg, sgd, c_f, c_u, adj, lab, minid, ids_np, vals
@@ -993,6 +1208,12 @@ def main() -> int:
                 "mlstm_bwd": "src/repro/kernels/mlstm.py:102",
                 "spmv": "src/repro/kernels/spmv.py:59"}
     csrc = {"mlstm_fwd": "mlstm", "mlstm_bwd": "mlstm", "spmv": "triplet"}
+    # the triplet kernel's encoded-row variants: the reference's have_scale
+    # body of the same pallas_call (_make_kernel :246, _spread_scale_tile
+    # :233), and its bf16 tiles
+    for name in resident_launches:
+        replaces[name] = "src/repro/kernels/triplet.py:447"
+        csrc[name] = "triplet"
     launches.setdefault("spmv", 0)      # on no main path
     table = []
     for name in replaces:

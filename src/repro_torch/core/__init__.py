@@ -1,5 +1,5 @@
 """Engine: partitioning, exchange, view, mrTriplets, Pregel, algorithms."""
-from .exchange import LocalExchange
+from .exchange import LocalExchange, with_wire
 from .graph import Graph
 
-__all__ = ["Graph", "LocalExchange"]
+__all__ = ["Graph", "LocalExchange", "with_wire"]

@@ -7,17 +7,21 @@ map(triplets); result = reduceByKey(messages).  Physical plan, as in
   1. join elimination (§4.5.2): the UDF trace picks the routing table
      ("src" / "dst" / "both" / none) and the vertex leaves it reads;
   2. vertex shipping through the graph-resident view (§4.5.1): only dirty
-     leaves and missing directions move, over the dense transport;
+     leaves and missing directions move, over the dense transport and
+     through the exchange's wire codec (`core/wire.py`); under a resident
+     codec the mirrors stay encoded between supersteps (§2.4);
   3. the edge map + local aggregation, either fused — one CUDA kernel
      gathers both endpoints, runs the UDF and reduces into mirror slots
-     (kernels/triplet.py) — or unfused: gather, vmapped UDF, segment
-     reduce (kernels/segment_sum.py for float sums);
+     (kernels/triplet.py; it reads encoded mirrors through their scale
+     plane) — or unfused: gather, vmapped UDF, segment reduce
+     (kernels/segment_sum.py for float sums);
   4. the aggregate return over the same routes, combined at the homes in
      ascending source-partition order, or handed raw to the fused Pregel
      apply (kernels/superstep.py).
 
-Scope: the f32 wire, dense transport, no pushed-down subgraph predicate;
-the fused plans take leaves of rank <= 1, with bf16/f16 staged through f32.
+Scope: dense transport, no pushed-down subgraph predicate; the fused plans
+take leaves of rank <= 1, with f16 staged through f32 and bf16 mirrors
+staged as bf16 when every used leaf is bf16.
 """
 from __future__ import annotations
 
@@ -29,11 +33,13 @@ import torch
 
 from . import analysis
 from . import transport as transport_mod
+from . import wire as wire_mod
 from .tree import (ElemSpec, bmask, elem_spec, gather_rows, nbytes_of,
                    scatter_rows, tree_flatten, tree_leaves, tree_map,
                    tree_unflatten, tree_zeros_like_elem, vmap2)
 from ..kernels import ops as kops
 from ..kernels import udf
+from ..kernels.ref import SCALE_GROUP
 from ..kernels.superstep import ApplyUdf
 from ..kernels.triplet import TripletUdf
 
@@ -68,7 +74,8 @@ class ShipMetrics:
     wire_bytes: int                  # static bytes a dense collective moves
     effective_bytes: torch.Tensor    # data actually needed
     n_shipped: torch.Tensor          # route entries that carried a value
-    bytes_accounted: int             # codec accounting (== wire_bytes on f32)
+    bytes_accounted: Any             # codec accounting: int, or an int64
+    #                                  tensor under a delta codec
     bytes_shipped: int               # what the transport really moved
     route_width: int                 # K of the route
     bytes_link_modeled: float        # ring-lowered link bytes
@@ -97,17 +104,20 @@ class ShipMetrics:
                 for v in (getattr(self, f.name),)}
 
 
-def _route_ship(ex, sendbuf: Any, flags: torch.Tensor, *, elem_bytes: int,
-                recvflags: torch.Tensor | None = None):
-    """Move one routed [nl, P, K, ...] buffer + its flags and account it."""
+def _route_ship(ex, sendbuf: Any, flags: torch.Tensor, *, bound: int | None,
+                elem_bytes: int, recvflags: torch.Tensor | None = None):
+    """Move one routed [nl, P, K, ...] buffer + its flags (the wire's
+    active set) through the codec and account it."""
     recvbuf, rflags, shipped = transport_mod.ship_transport(
-        ex, sendbuf, flags, recvflags=recvflags)
+        ex, sendbuf, flags, bound=bound, recvflags=recvflags)
     p = flags.shape[1]
-    static = nbytes_of(sendbuf)
     n = flags.sum()
     metrics = ShipMetrics(
-        wire_bytes=static, effective_bytes=n * elem_bytes, n_shipped=n,
-        bytes_accounted=static, bytes_shipped=shipped,
+        wire_bytes=wire_mod.static_wire_bytes(sendbuf, ex.codec, bound),
+        effective_bytes=n * elem_bytes, n_shipped=n,
+        bytes_accounted=wire_mod.bytes_on_wire(sendbuf, ex.codec, flags,
+                                               bound),
+        bytes_shipped=shipped,
         route_width=flags.shape[-1],
         # a2a on a ring: each chip's diagonal block never leaves it
         bytes_link_modeled=shipped * (p - 1) / max(p, 1))
@@ -123,11 +133,15 @@ def _take_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def ship_to_mirrors(s, values: Any, need: str, ex, *,
                     active: torch.Tensor | None = None,
-                    cache: ViewCache | None = None):
+                    cache: ViewCache | None = None, bound: int | None = None):
     """Materialise the replicated vertex view for one need set.
 
     values: pytree [nl, V_blk, ...]; active [nl, V_blk] ships only those
-    rows (None: every routed row).  Returns (ViewCache, ShipMetrics)."""
+    rows (None: every routed row); bound: |value| bound of lossless int
+    narrowing.  A narrow-resident cache is decoded for the scatter and the
+    result re-encoded once after it: untouched blocks round-trip exactly,
+    blocks a fresh row landed in re-quantize against their new absmax.
+    Returns (ViewCache, ShipMetrics)."""
     if s.has_bcast:
         raise NotImplementedError(
             "the broadcast lane (bcast_min_repl) is not ported yet")
@@ -144,12 +158,14 @@ def ship_to_mirrors(s, values: Any, need: str, ex, *,
     # full ship: the receiver knows the flags from the route's structure
     structural = (recv_slot < s.v_mir) if active is None else None
     recvbuf, recvflags, metrics = _route_ship(
-        ex, sendbuf, flags, elem_bytes=elem_bytes, recvflags=structural)
+        ex, sendbuf, flags, bound=bound, elem_bytes=elem_bytes,
+        recvflags=structural)
 
     # incremental scatter: only fresh entries overwrite their mirror slot
     idx = torch.where(recvflags, recv_slot, s.v_mir).reshape(nl, -1)
-    init = (cache.mirror if cache is not None else tree_map(
-        lambda l: l.new_zeros((nl, s.v_mir) + tuple(l.shape[3:])), recvbuf))
+    init = (wire_mod.decode_tree(cache.mirror) if cache is not None
+            else tree_map(lambda l: l.new_zeros(
+                (nl, s.v_mir) + tuple(l.shape[3:])), recvbuf))
     mirror = tree_map(
         lambda b, leaf: scatter_rows(
             b, idx, leaf.reshape((nl, p * k) + tuple(leaf.shape[3:]))),
@@ -157,24 +173,37 @@ def ship_to_mirrors(s, values: Any, need: str, ex, *,
     shipped = scatter_rows(
         torch.zeros((nl, s.v_mir), dtype=torch.bool, device=idx.device), idx,
         torch.ones((nl, p * k), dtype=torch.bool, device=idx.device))
+    codec = ex.codec
+    if codec is not None and codec.resident:
+        def encode(leaf):
+            kind = wire_mod.resident_kind(leaf.dtype, codec, bound)
+            return (wire_mod.encode_resident(leaf, codec, kind, bound=bound)
+                    if kind else leaf)
+        mirror = tree_map(encode, mirror)
     filled = shipped if cache is None else (cache.filled | shipped)
     return ViewCache(mirror=mirror, filled=filled, active=shipped), metrics
 
 
 def ship_aggregates_home(s, partial: Any, had_msg: torch.Tensor, need: str,
-                         reduce: str, ex, *, combine: bool = True):
+                         reduce: str, ex, *, combine: bool = True,
+                         bound: int | None = None):
     """Return partial aggregates [nl, V_mir, ...] to the vertex homes and
-    combine them.  Float sums combine in ascending source partition — one
-    partition's route entries hit distinct home rows, so each step is a
-    collision-free add and the order is fixed (the fused apply reproduces
+    combine them.  Float sums combine in f32 in ascending source partition
+    — one partition's route entries hit distinct home rows, so each step is
+    a collision-free add and the order is fixed (the fused apply reproduces
     it).  combine=False returns the raw routed buffer (recv [nl, P, K, ...],
-    rflags [nl, P, K]) for the fused apply."""
+    rflags [nl, P, K]) for the fused apply.
+
+    The return wire zero-substitutes the entries the homes discard before
+    the codec (an int identity would wrap a narrowed cast, a float one blow
+    up a block's absmax); `bound` certifies message values, which partial
+    sums escape, so sum aggregates never pack."""
     send_idx, recv_slot = s.routes[need]
     nl, p, k = send_idx.shape
     backbuf = tree_map(lambda leaf: _take_rows(leaf, recv_slot), partial)
     backflags = _take_rows(had_msg, recv_slot) & (recv_slot < s.v_mir)
     recv, rflags, metrics = _route_ship(
-        ex, backbuf, backflags,
+        ex, backbuf, backflags, bound=None if reduce == "sum" else bound,
         elem_bytes=nbytes_of(tree_map(lambda v: v[0, 0], partial)))
     if not combine:
         return recv, rflags, metrics
@@ -371,31 +400,76 @@ def _plan_fused(g, map_fn, deps, need, reduce, force_need, vex, eex,
                       msg_treedef=msg_treedef, kernel=TripletUdf(ir, dm))
 
 
-def _pack_cols(tree, used, nl: int, n: int, device) -> torch.Tensor:
-    """Column-pack the used leaves of a [nl, N] pytree into f32 [nl, N, D]."""
+def _pack_cols(tree, used, nl: int, n: int, device,
+               keep_bf16: bool = False) -> torch.Tensor:
+    """Column-pack the used leaves of a [nl, N] pytree into f32 [nl, N, D];
+    with keep_bf16, into bf16 when every used leaf is bf16 (a bf16 mirror:
+    the kernel upcasts exactly, so results equal f32 staging while the
+    packed rows halve)."""
     leaves = tree_leaves(tree) if tree is not None else []
-    cols = [l.reshape(nl, n, -1).float() for l, u in zip(leaves, used) if u]
+    cols = [l.reshape(nl, n, -1) for l, u in zip(leaves, used) if u]
     if not cols:
         return torch.zeros((nl, n, 0), dtype=torch.float32, device=device)
-    return torch.cat(cols, dim=-1)
+    stage = (torch.bfloat16 if keep_bf16 and all(
+        c.dtype == torch.bfloat16 for c in cols) else torch.float32)
+    return torch.cat([c.to(stage) for c in cols], dim=-1)
+
+
+def _pack_cols_encoded(tree, used, nl: int, n: int):
+    """Column-pack narrow-resident leaves without decoding them (§2.4):
+    (payload [nl, n, D] in the shared narrow dtype, scale [nl,
+    ceil(n / SCALE_GROUP), D] int8), or None when the used leaves cannot
+    share one encoded staging matrix (not all resident, mixed payload
+    dtypes, another scale block) and the caller decodes on read.  "int"
+    leaves ride with zero exponents (2^0 = 1; their payload upcasts
+    exactly)."""
+    if tree is None:
+        return None
+    sel = [l for l, u in zip(tree_leaves(tree), used) if u]
+    if not sel or not all(wire_mod.is_resident(l) for l in sel):
+        return None
+    pdt = sel[0].payload.dtype
+    if any(l.payload.dtype != pdt or l.block != SCALE_GROUP for l in sel):
+        return None
+    nb = max(-(-n // SCALE_GROUP), 1)
+    pcols, scols = [], []
+    for l in sel:
+        pc = l.payload.reshape(nl, n, -1)
+        pcols.append(pc)
+        scols.append(torch.zeros((nl, nb, pc.shape[-1]), dtype=torch.int8,
+                                 device=pc.device) if l.scale is None
+                     else l.scale.reshape(nl, nb, -1))
+    return torch.cat(pcols, dim=-1), torch.cat(scols, dim=-1)
 
 
 def _fused_aggregate(g, mirror_tree, live, to, reduce, kernel_mode,
                      plan: _FusedPlan):
     """Gather both endpoint views, run the map UDF and segment-reduce into
-    mirror slots in one kernel sweep; (partial [nl, V_mir] tree, had_msg)."""
+    mirror slots in one kernel sweep; (partial [nl, V_mir] tree, had_msg).
+
+    `mirror_tree` may hold narrow-resident leaves: when every used leaf
+    shares one encoded layout the kernel reads the payload and its scale
+    plane [nl * ceil(V_mir / 32), D], else the tree decodes on read."""
     s = g.s
     nl = live.shape[0]
     dev = live.device
-    x = _pack_cols(mirror_tree, plan.v_used, nl, s.v_mir, dev)
-    x = x.reshape(nl * s.v_mir, x.shape[-1])
+    xscale = None
+    enc = _pack_cols_encoded(mirror_tree, plan.v_used, nl, s.v_mir)
+    if enc is not None:
+        x, sc = enc
+        xscale = sc.reshape(-1, sc.shape[-1]).contiguous()
+    else:
+        x = _pack_cols(wire_mod.decode_tree(mirror_tree), plan.v_used, nl,
+                       s.v_mir, dev, keep_bf16=True)
+    x = x.reshape(nl * s.v_mir, x.shape[-1]).contiguous()
     n_e = len(tree_leaves(g.edata))
     ev = _pack_cols(g.edata, (plan.e_used,) * n_e, nl, s.e_blk, dev)
     ev = ev.reshape(nl * s.e_blk, ev.shape[-1])
     out, cnt = kops.triplet(
         x, ev, s.src_slot, s.dst_slot, live.contiguous(), s.agg_ptr[to],
         s.src_perm if to == "src" else None, plan.kernel, to=to,
-        reduce=reduce, mode=kernel_mode, pieces=s.agg_pieces[to])
+        reduce=reduce, mode=kernel_mode, pieces=s.agg_pieces[to],
+        xscale=xscale)
     out = out.reshape(nl, s.v_mir, plan.dm)
     had_msg = cnt.reshape(nl, s.v_mir) > 0
     leaves = []
@@ -431,6 +505,13 @@ def mr_triplets(g, map_fn: Callable, reduce: str = "sum", *, to: str = "dst",
     s, ex = g.s, g.ex
     nl = g.vmask.shape[0]
     transport_mod.resolve_transport(transport)
+    # wire-packing bound: an explicit payload_bound certifies every signed
+    # int payload; the id-valued default (max_vid) speaks only for int32
+    # ids, so it is floored at int16's own range (narrower dtypes never
+    # narrow on it); max_vid 0 means unknown
+    bound = (payload_bound if payload_bound is not None
+             else (max(s.max_vid, np.iinfo(np.int16).max)
+                   if s.max_vid > 0 else None))
 
     vex, eex = elem_spec(g.vdata), elem_spec(g.edata)
     deps = analysis.analyze_message_fn(map_fn, vex, eex, vex)
@@ -460,13 +541,13 @@ def mr_triplets(g, map_fn: Callable, reduce: str = "sum", *, to: str = "dst",
     ships_fwd = 0
     if need is not None:
         view, mirror_tree, m_fwd, ships_fwd = view_mod.refresh_view(
-            g, need, leaf_mask=leaf_mask)
+            g, need, leaf_mask=leaf_mask, bound=bound)
         metrics["fwd"] = m_fwd
     else:
         mirror_tree = None
         # no vertex data read: no delta information, every slot is fresh
         view = (graph_view if graph_view is not None
-                else view_mod.empty_view(s, g.vdata, nl))
+                else view_mod.empty_view(s, g.vdata, nl, ex.codec, bound))
         view = view.replace(active=torch.ones((nl, s.v_mir), dtype=torch.bool,
                                               device=g.vmask.device))
         metrics["fwd"] = ShipMetrics.zero(g.vmask.device)
@@ -488,10 +569,13 @@ def mr_triplets(g, map_fn: Callable, reduce: str = "sum", *, to: str = "dst",
     metrics["plan"] = "fused" if plan is not None else "unfused"
 
     if plan is not None:
+        # the view's mirror as it holds it: the kernel reads resident
+        # leaves through their scale plane
         partial, had_msg = _fused_aggregate(g, mirror_tree, live, to, reduce,
                                             kernel_mode, plan)
     else:
         zeros_elem = tree_zeros_like_elem(g.vdata, (nl, s.e_blk))
+        mirror_tree = wire_mod.decode_tree(mirror_tree)
         svals = gather_rows(mirror_tree, s.src_slot) if uses_src else zeros_elem
         dvals = gather_rows(mirror_tree, s.dst_slot) if uses_dst else zeros_elem
         msgs = vmap2(map_fn)(svals, g.edata, dvals)
@@ -508,7 +592,8 @@ def mr_triplets(g, map_fn: Callable, reduce: str = "sum", *, to: str = "dst",
                                               reduce, sub_mode)
 
     values, exists, m_back = ship_aggregates_home(
-        s, partial, had_msg, to, reduce, ex, combine=not return_routed)
+        s, partial, had_msg, to, reduce, ex, combine=not return_routed,
+        bound=bound)
     metrics["back"] = m_back
     metrics["ships_fwd"] = ships_fwd
     metrics["ships"] = ships_fwd + 1
@@ -518,7 +603,8 @@ def mr_triplets(g, map_fn: Callable, reduce: str = "sum", *, to: str = "dst",
                                 + m_back.bytes_shipped)
     metrics["bytes_link_modeled"] = (metrics["fwd"].bytes_link_modeled
                                      + m_back.bytes_link_modeled)
-    metrics["mirror_hbm_bytes"] = nbytes_of(view.mirror)
+    # device bytes the mirror carry keeps between calls (§2.4)
+    metrics["mirror_hbm_bytes"] = wire_mod.resident_hbm_bytes(view.mirror)
     return values, exists, view, metrics
 
 

@@ -101,7 +101,8 @@ def pregel(g: Graph, vprog: Callable, send_msg: Callable,
     static_info = {
         "join_arity": deps.n_way,
         "need": _derive_need(deps, None) or "none",
-        "wire": "f32", "transport_policy": "dense",
+        "wire": g.ex.codec.name if g.ex.codec is not None else "f32",
+        "transport_policy": "dense",
         "plan": plan_of(g, send_msg, gather, kernel_mode=kernel_mode,
                         payload_bound=payload_bound),
         "apply_plan": (apply_plan_of(

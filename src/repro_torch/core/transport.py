@@ -1,10 +1,11 @@
-"""How a routed exchange buffer moves (dense transport, f32 wire).
+"""How a routed exchange buffer moves (the dense transport).
 
 The reference chooses per superstep between a dense all_to_all and a
-ragged, compacted one (`repro.core.transport`).  This slice ports the dense
-plan and its byte accounting for the f32 wire; the ragged and adaptive
-plans come with a later slice and are refused here rather than quietly run
-dense.
+ragged, compacted one (`repro.core.transport`).  The port has the dense
+plan, through the exchange's wire codec (`core/wire.py`), and its byte
+accounting; the ragged and adaptive plans, the capacity tiers, the ring
+pipeline and the integrity ladder come with a later slice and are refused
+here rather than quietly run dense.
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ import dataclasses
 
 import torch
 
-from .tree import tree_leaves, tree_map
+from . import wire as wire_mod
+from .tree import tree_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,25 +33,29 @@ def resolve_transport(spec) -> TransportPolicy:
         f"transport {spec!r}: only the dense transport is ported")
 
 
-def _dense_wire_bytes(tree, flags_shipped: bool) -> int:
-    """Bytes the dense collectives move on the f32 wire: the payload, plus
-    one flag byte per entry when the flags ride a collective (incremental
-    ships; full ships rebuild them from the route's structure)."""
+def _dense_wire_bytes(tree, codec, bound, flags_shipped: bool) -> int:
+    """Bytes the dense collectives move: the codec's payload and block
+    exponents, plus one flag byte per entry when the flags ride a
+    collective (incremental ships; full ships rebuild them from the
+    route's structure)."""
     leaves = tree_leaves(tree)
-    total = sum(x.numel() * x.element_size() for x in leaves)
+    total = wire_mod.static_wire_bytes(tree, codec, bound)
     if flags_shipped and leaves:
         nl, p, k = leaves[0].shape[:3]
         total += nl * p * k
     return total
 
 
-def ship_transport(ex, tree, flags: torch.Tensor, *,
+def ship_transport(ex, tree, flags: torch.Tensor, *, bound: int | None = None,
                    policy: TransportPolicy = DENSE,
                    recvflags: torch.Tensor | None = None):
     """Move one routed [nl, P, K, ...] buffer and its [nl, P, K] freshness
-    flags; recvflags, when the receiver knows them structurally, skip the
-    flags collective.  Returns (recv_tree, recv_flags, bytes shipped)."""
+    flags through the exchange's codec (flags are the wire's active set:
+    stale entries ship as zeros); recvflags, when the receiver knows them
+    structurally, skip the flags collective.  Returns (recv_tree,
+    recv_flags, bytes shipped)."""
     resolve_transport(policy)
-    recv = tree_map(ex.transpose, tree)
+    recv = ex.tree_ship(tree, active=flags, bound=bound)
     rflags = recvflags if recvflags is not None else ex.transpose(flags)
-    return recv, rflags, _dense_wire_bytes(tree, flags_shipped=recvflags is None)
+    return recv, rflags, _dense_wire_bytes(tree, ex.codec, bound,
+                                           flags_shipped=recvflags is None)

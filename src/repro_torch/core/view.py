@@ -11,8 +11,11 @@ dirty rows, or a full ship of its missing directions, and leaves with the
 same resolution share one routed collective.
 
 Caching changes ships, never values: a clean mirror slot already holds what
-a cold ship would rematerialise.  The visibility mirror and the wire codecs
-of the reference wait for later slices.
+a cold ship would rematerialise.  Under a `resident=True` wire codec the
+eligible mirror leaves are `wire.ResidentLeaf`s, encoded in device memory
+(§2.4); the unfused plan decodes the mirror on read and the fused triplet
+plan reads the encoded one (the host pays the decode only where a consumer
+reads values).  The visibility mirror waits for a later slice.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import Any
 
 import torch
 
+from . import wire as wire_mod
 from .mrtriplets import ShipMetrics, ViewCache, ship_to_mirrors
 from .tree import (tree_flatten, tree_flatten_with_path, tree_leaves,
                    tree_map, tree_unflatten, vmap2)
@@ -48,6 +52,7 @@ class GraphView:
     """Graph-resident replicated vertex view with per-leaf dirty tracking."""
 
     mirror: Any               # pytree == vdata, leaves [nl, V_mir, ...]
+    #                           (tensors or wire.ResidentLeaf)
     filled: torch.Tensor      # [nl, V_mir] bool — slot ever shipped
     active: torch.Tensor      # [nl, V_mir] bool — slots of the latest refresh
     dirty: Any                # pytree == vdata, leaves [nl, 2, V_blk] bool
@@ -58,12 +63,21 @@ class GraphView:
         return dataclasses.replace(self, **kw)
 
 
-def empty_view(s, vdata, nl: int) -> GraphView:
-    """A cold view: nothing filled, nothing dirty."""
+def empty_view(s, vdata, nl: int, codec=None,
+               bound: int | None = None) -> GraphView:
+    """A cold view: nothing filled, nothing dirty.  Under a resident codec
+    the eligible mirror leaves start encoded, so the view's structure is
+    the same cold and warm."""
     dev = s.home_mask.device
     v_blk = s.home_mask.shape[-1]
-    mirror = tree_map(
-        lambda x: x.new_zeros((nl, s.v_mir) + tuple(x.shape[2:])), vdata)
+
+    def cold_leaf(x):
+        z = x.new_zeros((nl, s.v_mir) + tuple(x.shape[2:]))
+        kind = wire_mod.resident_kind(x.dtype, codec, bound)
+        return (wire_mod.encode_resident(z, codec, kind, bound=bound)
+                if kind is not None else z)
+
+    mirror = tree_map(cold_leaf, vdata)
     dirty = tree_map(lambda x: torch.zeros((nl, 2, v_blk), dtype=torch.bool,
                                            device=dev), vdata)
     n = len(tree_leaves(vdata))
@@ -73,7 +87,8 @@ def empty_view(s, vdata, nl: int) -> GraphView:
 
 
 def compatible(view: GraphView | None, vdata, nl: int, v_mir: int) -> bool:
-    """Does this view's mirror match vdata's structure and element specs?"""
+    """Does this view's mirror match vdata's structure and element specs?
+    Resident leaves compare through their decoded dtype and shape."""
     if view is None:
         return False
     m_leaves, m_spec = tree_flatten(view.mirror)
@@ -99,19 +114,22 @@ def _plan_leaf(dirs: str, stale: str, need_d: str):
     return plans
 
 
-def refresh_view(g, need: str, *, leaf_mask=None):
+def refresh_view(g, need: str, *, leaf_mask=None, bound: int | None = None):
     """Materialise the replicated view for one consumer through the cache.
 
-    Returns (view', mirror_tree, merged ShipMetrics, n_ships): n_ships is
+    Returns (view', mirror_tree, merged ShipMetrics, n_ships): mirror_tree
+    is the view's mirror as it holds it (resident leaves encoded: a
+    consumer that reads values decodes it, `wire.decode_tree`), n_ships
     the number of routed collectives this refresh ran (0 for a clean
-    view); leaves the consumer does not read keep whatever the view holds."""
+    view); leaves the consumer does not read keep whatever the view holds.
+    bound: |value| bound of lossless int narrowing on the wire."""
     s, ex = g.s, g.ex
     nl = g.vmask.shape[0]
     flat_vals, treedef = tree_flatten(g.vdata)
     n = len(flat_vals)
     view = g.view
     if not compatible(view, g.vdata, nl, s.v_mir):
-        view = empty_view(s, g.vdata, nl)
+        view = empty_view(s, g.vdata, nl, ex.codec, bound)
     mir_l = list(tree_leaves(view.mirror))
     dirty_l = list(tree_leaves(view.dirty))
     dirs_l, stale_l = list(view.dirs), list(view.stale)
@@ -138,7 +156,8 @@ def refresh_view(g, need: str, *, leaf_mask=None):
                 act = d if act is None else (act | d)
         sub, m = ship_to_mirrors(
             s, vals, _NEED[route_d], ex, active=act,
-            cache=ViewCache(mirror=prev, filled=filled, active=filled))
+            cache=ViewCache(mirror=prev, filled=filled, active=filled),
+            bound=bound)
         n_ships += 1
         merged = m if merged is None else merged.merge(m)
         filled = sub.filled
@@ -209,8 +228,8 @@ def view_after_rewrite(view: GraphView | None, old_vdata, new_vdata,
     None to dirty every surviving leaf.  changed: the rows the rewrite
     touched — None (all), "diff", a callable f(old_elem, new_elem) -> bool,
     or a [nl, V_blk] bool tensor.  Leaves match by path: passthrough leaves
-    keep their state, rewritten ones gain dirty rows, new or retyped ones
-    start cold."""
+    keep their state, rewritten ones gain dirty rows (both keep resident
+    mirrors encoded), new or retyped ones start cold."""
     if view is None:
         return None
     old_paths = {p: i for i, (p, _) in enumerate(

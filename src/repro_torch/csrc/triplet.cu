@@ -28,6 +28,20 @@
 // sector for 4-8 useful bytes when x exceeds L2), which is where the time
 // above the byte bound goes.  The f32 order is the one segment_sum.cu uses
 // for the unfused plan, so the two plans agree bit for bit.
+//
+// Encoded rows (X_ROWS): the reference's have_scale body (_make_kernel :246,
+// _spread_scale_tile :233) dequantizes whole gathered tiles in VMEM.  Here x
+// holds X_T elements (bf16, or a narrow-resident int8 / int16 / fp8 payload)
+// and, under HAVE_SCALE, an int8 scale plane with one exponent per 32 rows
+// of a partition and column.  Each used endpoint row is loaded into DX
+// registers, converted exactly to f32 and, under HAVE_SCALE, multiplied by
+// 2^e built from its exponent bits (exact for e in [-126, 126]; exp2f need
+// not be).  The UDF then runs on the registers, so the kernel on (payload,
+// scale) equals the kernel on the decoded f32 rows bit for bit.  Per live
+// edge the row gathers shrink to sizeof(X_T) bytes a column plus one
+// exponent byte a column.
+#include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
@@ -43,8 +57,27 @@ struct TripletOp {
   }
 };
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(signed char v) { return (float)v; }
+__device__ __forceinline__ float to_f32(short v) { return (float)v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 v) {
+  return static_cast<float>(v);
+}
+__device__ __forceinline__ float to_f32(__nv_fp8_e5m2 v) {
+  return static_cast<float>(v);
+}
+
+// 2^e for an int8 exponent e in [-126, 126], from its bits
+__device__ __forceinline__ float pow2i(int e) {
+  return __int_as_float((e + 127) << 23);
+}
+
 struct TripletStage {
-  const float* x;
+  const X_T* x;
+  const signed char* xscale;
   long long dx;
   const float* ev;
   long long de;
@@ -59,14 +92,40 @@ struct TripletStage {
     const long long ebase = (long long)q * e_blk;
     const long long e = ebase + (PERMUTED ? __ldg(perm + ebase + pos) : pos);
     if (!__ldg(live + e)) return false;
+#if X_ROWS
+    float xs[DX], xd[DX];
+    if (USE_SRC) load_row(q, __ldg(src_slot + e), xs);
+    if (USE_DST) load_row(q, __ldg(dst_slot + e), xd);
+    udf_msg(xs, ev + e * de, xd, msg);
+#else
     const float* xq = x + (long long)q * v_mir * dx;
     const float* xs =
         USE_SRC ? xq + (long long)__ldg(src_slot + e) * dx : nullptr;
     const float* xd =
         USE_DST ? xq + (long long)__ldg(dst_slot + e) * dx : nullptr;
     udf_msg(xs, ev + e * de, xd, msg);
+#endif
     return true;
   }
+
+#if X_ROWS
+  // row `slot` of partition q as DX exact f32 values
+  __device__ __forceinline__ void load_row(int q, int slot, float* r) const {
+    const X_T* xr = x + ((long long)q * v_mir + slot) * DX;
+#if HAVE_SCALE
+    const signed char* sr =
+        xscale + ((long long)q * ((v_mir + 31) >> 5) + (slot >> 5)) * DX;
+#endif
+#pragma unroll
+    for (int c = 0; c < DX; ++c) {
+      float v = to_f32(xr[c]);
+#if HAVE_SCALE
+      v *= pow2i(sr[c]);
+#endif
+      r[c] = v;
+    }
+  }
+#endif
 };
 
 using Shape = SegShape<DM>;
@@ -95,7 +154,8 @@ extern "C" __global__ void triplet_combine(
       pptr, v_mir, np, out, cnt, DM, part, part_cnt);
 }
 
-extern "C" int launch(const void* x, long long dx, const void* ev,
+extern "C" int launch(const void* x, const void* xscale, long long dx,
+                      const void* ev,
                       long long de, const void* src_slot,
                       const void* dst_slot, const void* live,
                       const void* ptr, const void* perm, const void* pptr,
@@ -103,7 +163,8 @@ extern "C" int launch(const void* x, long long dx, const void* ev,
                       int e_blk, int np, int nm, void* out, void* cnt,
                       void* part, void* part_cnt, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  TripletStage st{(const float*)x, dx, (const float*)ev, de,
+  TripletStage st{(const X_T*)x, (const signed char*)xscale, dx,
+                  (const float*)ev, de,
                   (const int*)src_slot, (const int*)dst_slot,
                   (const unsigned char*)live, (const int*)perm, v_mir,
                   e_blk};

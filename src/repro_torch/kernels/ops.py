@@ -37,14 +37,16 @@ def segment_sum(msgs, live, ptr, pieces=None, *, mode: str = "auto"):
 
 def triplet(x, ev, src_slot, dst_slot, live, ptr, perm, spec, *,
             to: str = "dst", reduce: str = "sum", mode: str = "auto",
-            pieces=None):
+            pieces=None, xscale=None):
     """Fused gather + map + segment-reduce; (out [S, dm] f32, cnt [S]).
-    The kernel takes `ptr`'s piece tables (`kernels/segorder.py`)."""
+    The kernel takes `ptr`'s piece tables (`kernels/segorder.py`); x may be
+    a narrow-resident payload with its scale plane `xscale`."""
     if _plain(mode):
         return ref.fused_triplet(x, ev, src_slot, dst_slot, live, ptr, perm,
-                                 spec, to=to, reduce=reduce)
+                                 spec, to=to, reduce=reduce, xscale=xscale)
     return _triplet.fused_triplet(x, ev, src_slot, dst_slot, live, ptr, perm,
-                                  spec, to=to, reduce=reduce, pieces=pieces)
+                                  spec, to=to, reduce=reduce, pieces=pieces,
+                                  xscale=xscale)
 
 
 def superstep_apply(pay, live, inv, x, vid, vmask, spec, *,
@@ -92,10 +94,16 @@ _COUNTED = {"triplet": _triplet.fused_triplet,
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches of each CUDA kernel since the last reset."""
-    return {name: fn.launches for name, fn in _COUNTED.items()}
+    """Launches of each CUDA kernel since the last reset; "triplet" counts
+    every variant, "triplet_<variant>" each x encoding on its own
+    (`kernels.triplet.variant`)."""
+    counts = {name: fn.launches for name, fn in _COUNTED.items()}
+    counts.update({f"triplet_{k}": n
+                   for k, n in _triplet.fused_triplet.variants.items()})
+    return counts
 
 
 def reset_launch_counts() -> None:
     for fn in _COUNTED.values():
         fn.launches = 0
+    _triplet.fused_triplet.variants.clear()

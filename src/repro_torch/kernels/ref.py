@@ -27,6 +27,30 @@ REDUCE_IDENTITY = {
     "max": float(np.finfo(np.float32).min),
 }
 _SCATTER = {"min": "amin", "max": "amax"}
+# mirror rows that share one exponent of a narrow-resident scale plane
+SCALE_GROUP = 32
+
+
+def pow2(e: torch.Tensor) -> torch.Tensor:
+    """2^e as f32, built from its exponent bits: exact for every integer e
+    in [-126, 127] (a libm exp2 need not be)."""
+    return ((e.to(torch.int32) + 127) << 23).view(torch.float32)
+
+
+def dequant_rows(x: torch.Tensor, xscale: torch.Tensor | None,
+                 nl: int) -> torch.Tensor:
+    """The f32 rows a triplet kernel reads from x [nl * V, Dx] (f32, bf16,
+    int8, int16 or fp8): the exact upcast, times 2^xscale when a scale plane
+    xscale [nl * ceil(V / SCALE_GROUP), Dx] int8 is given, row v of
+    partition q taking exponent row q * ceil(V / SCALE_GROUP) + v //
+    SCALE_GROUP."""
+    xf = x.float()
+    if xscale is None:
+        return xf
+    v = x.shape[0] // max(nl, 1)
+    nb = -(-v // SCALE_GROUP)
+    e = xscale.reshape(nl, nb, -1).repeat_interleave(SCALE_GROUP, dim=1)
+    return xf * pow2(e[:, :v].reshape(x.shape[0], -1))
 
 
 def csr_segments(live: torch.Tensor, ptr: torch.Tensor) -> torch.Tensor:
@@ -71,10 +95,11 @@ def _csr_edges(ptr, perm, e_blk: int) -> torch.Tensor:
 
 
 def triplet_messages(x, ev, src_slot, dst_slot, live, ptr, perm, spec, *,
-                     to: str = "dst"):
+                     to: str = "dst", xscale=None):
     """The messages `fused_triplet` reduces: (agg [n] flat slot of each live
     edge in CSR order, msgs [n, dm] f32).  Arguments as `fused_triplet`."""
     nl, e_blk = src_slot.shape
+    x = dequant_rows(x, xscale, nl)
     s = x.shape[0]
     v_mir = s // max(nl, 1)
     e = _csr_edges(ptr, perm, e_blk)
@@ -94,19 +119,21 @@ def triplet_messages(x, ev, src_slot, dst_slot, live, ptr, perm, spec, *,
 
 
 def fused_triplet(x, ev, src_slot, dst_slot, live, ptr, perm, spec, *,
-                  to: str = "dst", reduce: str = "sum"):
+                  to: str = "dst", reduce: str = "sum", xscale=None):
     """out[v] = reduce over live edges e with slot_to(e) = v of
     UDF(x[src e], ev[e], x[dst e]); returns (out [S, dm] f32 with the
     reduce identity at empty slots, cnt [S] f32 live message counts).
 
-    x [S, Dx] f32 packed mirror rows (S = nl * v_mir), ev [nl*E_blk, De]
+    x [S, Dx] packed mirror rows (S = nl * v_mir): f32, bf16, or a
+    narrow-resident payload (int8, int16, fp8) with its scale plane xscale
+    (see `dequant_rows`), read as the exact f32 values; ev [nl*E_blk, De]
     f32 packed edge payload, src_slot/dst_slot/live [nl, E_blk], ptr
     [nl, v_mir+1] CSR row pointers of the aggregation side, perm
     [nl, E_blk] its edge order (to="src"; None for "dst"), spec a
     kernels.triplet.TripletUdf."""
     s = x.shape[0]
     agg, msgs = triplet_messages(x, ev, src_slot, dst_slot, live, ptr, perm,
-                                 spec, to=to)
+                                 spec, to=to, xscale=xscale)
     cnt = torch.zeros(s, dtype=torch.float32, device=x.device)
     cnt.index_add_(0, agg, torch.ones_like(agg, dtype=torch.float32))
     if reduce == "sum":
@@ -120,7 +147,8 @@ def fused_triplet(x, ev, src_slot, dst_slot, live, ptr, perm, spec, *,
     return out, cnt
 
 
-def triplet_terms(x, ev, src_slot, dst_slot, live, ptr, perm, spec):
+def triplet_terms(x, ev, src_slot, dst_slot, live, ptr, perm, spec,
+                  xscale=None):
     """The terms the triplet kernel reduces, at their CSR positions: (terms
     [nl, E_blk, dm] f32, zero where dead, live [nl, E_blk] bool of each
     position, false past ptr[:, -1]).  Arguments as `fused_triplet`."""
@@ -130,7 +158,7 @@ def triplet_terms(x, ev, src_slot, dst_slot, live, ptr, perm, spec):
     e = order + torch.arange(nl, device=ptr.device)[:, None] * e_blk
     lv = live.reshape(-1)[e] & (pos[None, :] < ptr[:, -1:].long())
     _, msgs = triplet_messages(x, ev, src_slot, dst_slot, live, ptr, perm,
-                               spec)
+                               spec, xscale=xscale)
     terms = torch.zeros((nl, e_blk, spec.dm), dtype=torch.float32,
                         device=x.device)
     terms[lv] = msgs
@@ -194,11 +222,11 @@ def ordered_segment_reduce(terms, live, ptr, pieces, reduce: str = "sum"):
 
 
 def ordered_triplet(x, ev, src_slot, dst_slot, live, ptr, perm, spec, pieces,
-                    *, reduce: str = "sum"):
+                    *, reduce: str = "sum", xscale=None):
     """The triplet kernel's exact result (`ordered_segment_reduce` over
     `triplet_terms`): (out [S, dm] f32, cnt [S] f32)."""
     terms, lv = triplet_terms(x, ev, src_slot, dst_slot, live, ptr, perm,
-                              spec)
+                              spec, xscale)
     out, cnt = ordered_segment_reduce(terms, lv, ptr, pieces, reduce)
     return out, cnt.to(torch.float32)
 

@@ -25,7 +25,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import Graph, analysis  # noqa: E402
+from repro_torch.core import Graph, analysis, with_wire  # noqa: E402
+from repro_torch.core import wire as wire_mod  # noqa: E402
 from repro_torch.core import algorithms as alg  # noqa: E402
 from repro_torch.core import mrtriplets as mt  # noqa: E402
 from repro_torch.core.tree import ElemSpec, tree_map  # noqa: E402
@@ -168,6 +169,93 @@ def test_triplet_kernel_on_hub_graph(reduce, dm, to, cuda):
     assert spec.dm == dm
     x, ev, live = _triplet_inputs(g, 2 if dm == 1 else 3, seed=9)
     _check_triplet(g, spec, x, ev, live, to, reduce)
+
+
+ENCODED = {"int8": ("int8", "scaled"), "e4m3": ("fp8_e4m3", "scaled"),
+           "e5m2": ("fp8_e5m2", "scaled"), "int16": ("int8", "int"),
+           "bf16": (None, None)}
+
+
+@pytest.mark.parametrize("graph", ["rmat", "hub"])
+@pytest.mark.parametrize("to", ["dst", "src"])
+@pytest.mark.parametrize("reduce", ["sum", "max"])
+@pytest.mark.parametrize("enc", sorted(ENCODED))
+def test_triplet_kernel_on_encoded_rows(enc, reduce, to, graph, cuda):
+    """The kernel on (payload, scale plane), or on bf16 rows, equals the
+    kernel on the decoded f32 rows and the ordered model bit for bit;
+    zeroing the scale plane must break the equality."""
+    g = _graph(GD if graph == "rmat" else HUB, cuda, _vdata_f)
+    s = g.s
+    spec = mt.fused_plan(g, _send_f, reduce).kernel
+    x, ev, live = _triplet_inputs(g, 2, seed=13)
+    codec_name, kind = ENCODED[enc]
+    if kind == "int":
+        x = x.mul(1000).round().to(torch.int32)
+    xv = x.reshape(P, s.v_mir, 2)
+    if enc == "e5m2":
+        xv = xv * 50.0
+    xscale = None
+    if codec_name is None:
+        xe = x.to(torch.bfloat16)
+    else:
+        codec = wire_mod.make_codec(codec_name, resident=True)
+        leaf = wire_mod.encode_resident(xv, codec, kind, bound=32767)
+        xe = leaf.payload.reshape(P * s.v_mir, 2)
+        nb = -(-s.v_mir // ref.SCALE_GROUP)
+        xscale = (torch.zeros((P * nb, 2), dtype=torch.int8, device=cuda)
+                  if leaf.scale is None else
+                  leaf.scale.reshape(P * nb, 2).contiguous())
+    dec = ref.dequant_rows(xe, xscale, P)
+    if codec_name is not None:
+        assert torch.equal(dec, leaf.decode().reshape(-1, 2).float())
+    args = (ev, s.src_slot, s.dst_slot, live, s.agg_ptr[to],
+            s.src_perm if to == "src" else None, spec)
+    kw = dict(to=to, reduce=reduce, pieces=s.agg_pieces[to])
+    ops.reset_launch_counts()
+    out, cnt = tri_mod.fused_triplet(xe, *args, xscale=xscale, **kw)
+    out_f, cnt_f = tri_mod.fused_triplet(dec, *args, **kw)
+    exact, _ = ref.ordered_triplet(dec, *args, s.agg_pieces[to],
+                                   reduce=reduce)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts[f"triplet_{tri_mod.variant(xe.dtype, xscale is not None)}"] \
+        == 1 and counts["triplet_f32"] == 1
+    assert torch.equal(out, out_f) and torch.equal(cnt, cnt_f)
+    assert torch.equal(out, exact)
+    if xscale is not None and bool((xscale != 0).any()):
+        bad, _ = tri_mod.fused_triplet(xe, *args, xscale=torch.zeros_like(
+            xscale), **kw)
+        assert not torch.equal(bad, out)
+    with pytest.raises(ValueError):
+        tri_mod.fused_triplet(xe, *args, xscale=torch.zeros(
+            (3, 2), dtype=torch.int8, device=cuda), **kw)
+
+
+@pytest.mark.parametrize("codec", ["int8", "fp8_e4m3", "fp8_e5m2"])
+def test_resident_pagerank_on_card(codec, cuda):
+    """Resident PageRank on the card: the fused plan reads the encoded
+    mirror through the encoded kernel variant every superstep, and equals
+    the unfused plan bit for bit."""
+    g = _graph(GD, cuda)
+    g = g.replace(ex=with_wire(g.ex, codec, resident=True))
+    ops.reset_launch_counts()
+    r = alg.pagerank(g, num_iters=8, track_metrics=True)
+    name = {"int8": "int8", "fp8_e4m3": "e4m3", "fp8_e5m2": "e5m2"}[codec]
+    assert ops.launch_counts()[f"triplet_{name}_scale"] == r.supersteps
+    u = alg.pagerank(g, num_iters=8, kernel_mode="unfused")
+    assert torch.equal(r.graph.vdata["pr"], u.graph.vdata["pr"])
+    assert r.metrics[0]["wire"] == codec
+
+
+def test_resident_cc_on_card(cuda):
+    """CC through an int16-packed resident mirror equals the CPU run."""
+    run = lambda g: alg.connected_components(g.replace(  # noqa: E731
+        ex=with_wire(g.ex, "int8", resident=True)))
+    ops.reset_launch_counts()
+    r, cc = _end_to_end(run, SGD, "cc", cuda)
+    assert ops.launch_counts()["triplet_int16_scale"] == r.supersteps
+    c, cc_c = _end_to_end(run, SGD, "cc", "cpu")
+    assert torch.equal(cc, cc_c) and r.supersteps == c.supersteps
 
 
 @pytest.mark.parametrize("reduce", ["sum", "max"])

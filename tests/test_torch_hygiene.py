@@ -26,7 +26,8 @@ def _modules():
 
 def test_port_imports_neither_jax_nor_reference():
     mods = _modules()
-    for m in ("repro_torch.core.mrtriplets", "repro_torch.kernels.mlstm",
+    for m in ("repro_torch.core.mrtriplets", "repro_torch.core.wire",
+              "repro_torch.kernels.mlstm",
               "repro_torch.kernels.spmv", "repro_torch.models.recurrent",
               "repro_torch.train.optimizer", "repro_torch.train.fault",
               "repro_torch.train.train_loop", "repro_torch.data.tokens",
