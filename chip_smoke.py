@@ -27,16 +27,22 @@ Phases (any failure exits non-zero before the result line):
   4. connected components on symmetrize(rmat(21, 16, seed=1)), P=4: labels
      bit-equal to scipy's min-id labels and to the unfused plan;
   5. the flash attention kernel against its plain version at the serve
-     step's shape (GQA 4, Lk 1664, non-causal), a causal 4096-token prefill
-     and a 512-token chunk over a 4096-token cache (kv_offset 3584), with
-     kernel, plain and scaled_dot_product_attention times and the bound;
+     step's shape (GQA 4, Lk 1664, non-causal; K/V read in place through
+     the strides the cross-attention's einsum leaves, with no copy, and
+     bit-equal to the kernel on contiguous copies), a causal 4096-token
+     prefill and a 512-token chunk over a 4096-token cache (kv_offset
+     3584), with the body, CTAs and splits `plan` chose, kernel, plain and
+     scaled_dot_product_attention times (masked, and is_causal at
+     kv_offset 0; 5 calls as every kernel row, beside them the median of
+     5 runs of 20 calls and the device's own time) and the bound;
   6. serving llama-3.2-vision-11b at its full config (40 layers, random
      weights from a seed): batch 4, prompt 32, 16 generated tokens, every
      cross-attention through the flash kernel (8 layers x 47 steps = 376
-     launches), then the last step again: with the plain attention, whose
-     logits must agree in the mean, and with every flash call held in
-     place against its plain version on the same inputs (a dropped KV
-     tile must fail that check in every layer);
+     launches, no input copied), then the last step again: with the plain
+     attention, whose logits must agree in the mean, and with every flash
+     call held in place against its plain version on the same inputs
+     (dropping any one of `plan`'s key splits must fail that check in
+     every layer);
   7. the mLSTM forward and backward kernels against their plain versions
      at xlstm-350m's shape [8, 4, 1024, 256] chunk 64, SMOKE's heads and
      chunk 128: the forward per element within a limit derived from f32
@@ -83,8 +89,9 @@ PR_SCALE, CC_SCALE, PR_ITERS = 22, 21, 10
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "llama-3.2-vision-11b", 4, 32, 16
 BF16_STEP = 2.0 ** -8          # bf16 unit roundoff: half its 2^-7 spacing
 # mean |kernel - plain| over a serve step's logits: between the largest
-# sound reading (0.00433) and the smallest with one KV tile dropped
-# (0.00767) over weight seeds 0-3, scripts/serve_logit_margin.py on an H100
+# sound reading (0.00427) and the smallest with one of the flash plan's
+# nine key splits dropped (0.00776) over weight seeds 0-3,
+# scripts/serve_logit_margin.py on an NVIDIA H100 80GB HBM3 at 700 W
 SERVE_LOGIT_MEAN_LIMIT = 0.006
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "xlstm-350m", 8, 1024, 3
 # phase 7 shapes (name, B, H, L, Dh, chunk): the slice's, SMOKE's heads, and
@@ -140,6 +147,32 @@ def cuda_ms(fn, n: int = 5) -> float:
     return a.elapsed_time(b) / n
 
 
+def median_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Median over `reps` runs of `cuda_ms(fn, n)`: a call whose host side
+    outlasts its kernels is timed by the host, which the machine shares,
+    and a single run of it swings (kept beside `cuda_ms`, not in its
+    place)."""
+    import statistics
+    return statistics.median(cuda_ms(fn, n) for _ in range(reps))
+
+
+def device_ms(fn, n: int = 20) -> float:
+    """Mean device milliseconds of `fn`'s kernels over n runs after a
+    warm-up (torch.profiler's summed kernel time): the card's share of a
+    call whose host side may set `cuda_ms`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / n / 1e3
+
+
 def bound(nbytes: float, flops: float,
           peak: float = F32_FLOPS) -> tuple[float, str]:
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
@@ -151,7 +184,7 @@ def flash_limit(want):
     sum the same f32 terms in different orders (a few f32 roundings apart)
     and round once to bf16, so they may part by one bf16 spacing of the
     value, at most 2 * BF16_STEP * |value|, plus 1e-6 for values near 0.
-    Dropping one KV tile moves an output by a share of its own size."""
+    Dropping one key split moves an output by a share of its own size."""
     return 2 * BF16_STEP * want.float().abs() + 1e-6
 
 
@@ -335,7 +368,7 @@ def main() -> int:
                ("apply", app_mod.source(a_pr, "sum")),
                ("apply", app_mod.source(a_cc, "min")),
                ("segment_sum", seg_mod.source()),
-               ("flash_attention", flash_mod.source()),
+               ("flash_attention", flash_mod.source(128)),
                ("triplet", tri_mod.source(spmv_mod.linear_message(1), "sum",
                                           "dst", True))]
     resident_x = [wire.make_codec(c).fdtype for c in RESIDENT_CODECS]
@@ -873,15 +906,22 @@ def main() -> int:
         ("causal prefill L 4096", 1, 32, 8, 4096, 4096, True, 0),
         ("chunked prefill Lq 512, Lk 4096, kv_offset 3584", 1, 32, 8, 512,
          4096, True, 3584)]
+    flash = flash_mod.flash_attention
     for name, b, hq, hkv, lq, lk, causal, off in flash_shapes:
         q = torch.randn((b, hq, lq, 128), generator=gen).to(dev, torch.bfloat16)
         if lq == 1:
-            k, v = k_nc.contiguous(), v_nc.contiguous()
+            k, v = k_nc, v_nc       # as the cross-attention passes them
         else:
             k, v = (torch.randn((b, hkv, lk, 128), generator=gen)
                     .to(dev, torch.bfloat16) for _ in range(2))
         kw = dict(causal=causal, kv_offset=off)
-        got = flash_mod.flash_attention(q, k, v, **kw)
+        plan = flash_mod.plan(q.shape, k.shape, q.dtype, **kw,
+                              strides=(q.stride(), k.stride(), v.stride()))
+        copies, ran = flash.copies, flash.bodies[plan.body]
+        got = flash(q, k, v, **kw)
+        if flash.copies != copies or flash.bodies[plan.body] != ran + 1:
+            raise AssertionError(f"flash[{name}]: {flash.copies - copies} "
+                                 f"inputs copied; body {plan.body} not run")
         want = ref.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
@@ -891,6 +931,15 @@ def main() -> int:
                                  f"beyond their limit (max |err| "
                                  f"{float(diff.max())})")
         err = float(diff.max())
+        extra = {}
+        if lq == 1:
+            kc, vc = k.contiguous(), v.contiguous()
+            if not torch.equal(flash(q, kc, vc, **kw), got):
+                raise AssertionError(f"flash[{name}]: strided K/V and their "
+                                     "contiguous copies differ")
+            extra["contiguous_ms"] = cuda_ms(lambda: flash(q, kc, vc, **kw))
+            extra["contiguous_copy_ms"] = copy_ms
+            del kc, vc
         if causal:
             mask = (torch.arange(lq, device=dev)[:, None] + off
                     >= torch.arange(lk, device=dev)[None, :])
@@ -900,23 +949,48 @@ def main() -> int:
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q, k, v, enable_gqa=True)
         lib_err = float((lib().float() - want.float()).abs().max())
+        if causal and off == 0:     # the fastest library call here
+            extra["library_mask_ms"] = cuda_ms(lib)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=True, enable_gqa=True)
+        lib_ms = cuda_ms(lib)
+        kern = lambda: flash(q, k, v, **kw)  # noqa: E731
+        # besides `ms` (5 calls, as every kernel row): the median of 5 runs
+        # of 20 calls, and the device's own time (kernels only)
+        extra["median_ms"] = median_ms(kern)
+        extra["library_median_ms"] = median_ms(lib)
+        extra["device_ms"] = device_ms(kern)
+        extra["library_device_ms"] = device_ms(lib)
         nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * 2
         flops = 4 * b * hq * 128 * visible_pairs(lq, lk, causal, off)
-        variant = (f"{name} (bf16; bound peak {BF16_FLOPS / 1e12:.0f} TFLOP/s "
-                   f"bf16, {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+        variant = (f"{name} (bf16; body {plan.body}, {plan.ctas} CTAs, "
+                   f"{len(plan.splits)} key splits; bound peak "
+                   f"{BF16_FLOPS / 1e12:.0f} TFLOP/s bf16, "
+                   f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
         b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
         row = {"variant": variant, "max_abs_err": err,
                "tol": "per output 2^-7*|plain| + 1e-6 (one bf16 spacing)",
-               "ms": cuda_ms(lambda: flash_mod.flash_attention(q, k, v, **kw)),
+               "ms": cuda_ms(kern),
                "plain_ms": cuda_ms(lambda: ref.flash_attention(q, k, v, **kw)),
-               "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": cuda_ms(lib), "library_max_abs_err": lib_err}
-        log(f"  flash[{name}]: err {err:.3g}, kernel {row['ms']:.4f} ms, "
-            f"plain {row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms "
-            f"(|sdpa - plain| {lib_err:.3g}), bound {b_ms:.4f} ms ({b_by})")
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+               "library_max_abs_err": lib_err, "body": plan.body,
+               "ctas": plan.ctas, "splits": len(plan.splits),
+               "copies": flash.copies - copies, **extra}
+        log(f"  flash[{name}]: body {plan.body}, {plan.ctas} CTAs, "
+            f"{len(plan.splits)} splits, {row['copies']} inputs copied; err "
+            f"{err:.3g}, kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, sdpa {lib_ms:.4f} ms; median of 5 "
+            f"x 20 calls kernel {extra['median_ms']:.4f} ms, sdpa "
+            f"{extra['library_median_ms']:.4f} ms; on the device kernel "
+            f"{extra['device_ms']:.4f} ms, sdpa "
+            f"{extra['library_device_ms']:.4f} ms"
+            + (f" (is_causal; masked {extra['library_mask_ms']:.4f} ms)"
+               if "library_mask_ms" in extra else "")
+            + f" (|sdpa - plain| {lib_err:.3g}), bound {b_ms:.4f} ms ({b_by})"
+            + (f"; on contiguous copies {extra['contiguous_ms']:.4f} ms, "
+               "bit-equal" if lq == 1 else ""))
         results.setdefault("flash_attention", []).append(row)
         del q, k, v, got, want, diff, over
-    results["flash_attention"][0]["contiguous_copy_ms"] = copy_ms
     del ctx, w_kv, k_nc, v_nc
     gc.collect()
     torch.cuda.empty_cache()
@@ -926,6 +1000,7 @@ def main() -> int:
         f"{SERVE_PROMPT}, gen {SERVE_GEN}")
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    copies = flash.copies
     t0 = time.perf_counter()
     run = serve.run(SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
                     gen=SERVE_GEN, kernel_mode="auto", device="cuda")
@@ -938,6 +1013,9 @@ def main() -> int:
     if launches["flash_attention"] != want_launches:
         raise AssertionError(f"flash launches {launches['flash_attention']}, "
                              f"expected {want_launches}")
+    if flash.copies != copies:
+        raise AssertionError(f"serve copied {flash.copies - copies} flash "
+                             "inputs")
     gen_toks = run.generated
     if gen_toks.shape != (SERVE_BATCH, SERVE_GEN) or gen_toks.min() < 0 \
             or gen_toks.max() >= cfg.vocab:
@@ -952,8 +1030,8 @@ def main() -> int:
     # (scripts/serve_logit_margin.py).  (b) Through the kernel with every
     # flash call held in place against the plain version on the same
     # inputs, per output within one bf16 spacing; the plain version with
-    # one of the kernel's KV tiles dropped must break that limit in every
-    # layer, for every tile.
+    # any one of the flash plan's key splits dropped must break that limit
+    # in every layer.
     def last_step(mode):
         return T.decode_step(run.params, run.last_state, run.last_tokens,
                              run.last_pos, cfg, cross_ctx=run.ctx,
@@ -964,10 +1042,11 @@ def main() -> int:
     if float(d_log.mean()) > SERVE_LOGIT_MEAN_LIMIT:
         raise AssertionError(f"kernel step vs plain step logits: mean |diff| "
                              f"{float(d_log.mean())} > {SERVE_LOGIT_MEAN_LIMIT}")
-    bk = 32 * flash_mod.tiling(cfg.n_heads // cfg.n_kv_heads, 1,
-                               cfg.head_dim, 2)[2]
     n_ctx = cfg.n_context_tokens
-    tiles = [(a, min(a + bk, n_ctx)) for a in range(0, n_ctx, bk)]
+    tiles = flash_mod.plan(
+        (SERVE_BATCH, cfg.n_heads, 1, cfg.head_dim),
+        (SERVE_BATCH, cfg.n_kv_heads, n_ctx, cfg.head_dim), torch.bfloat16,
+        causal=False).splits
     in_place = []
     kernel_attention = ops.flash_attention
 
@@ -1004,13 +1083,13 @@ def main() -> int:
         f"{run.decode_s:.3f} s ({run.decode_s / (SERVE_GEN - 1) * 1e3:.2f} ms "
         f"per step, {run.tokens_per_s:.1f} tok/s); whole run incl. init "
         f"{t_serve:.1f} s; peak device memory {peak:.2f} GiB; flash launches "
-        f"{launches['flash_attention']}; sample {gen_toks[0, :8].tolist()}")
+        f"{launches['flash_attention']}, inputs copied 0; sample {gen_toks[0, :8].tolist()}")
     log(f"  last step, kernel vs plain: logits max |diff| "
         f"{float(d_log.max()):.6g}, mean {float(d_log.mean()):.6g} (limit "
         f"{SERVE_LOGIT_MEAN_LIMIT}); flash in place in all {n_cross} layers: "
         f"max |err| {max(in_place):.6g} (limit one bf16 spacing), and "
-        f"dropping any of the {len(tiles)} KV tiles of {bk} keys breaks it "
-        f"in every layer")
+        f"dropping any of plan's {len(tiles)} key splits "
+        f"({tiles[0][1] - tiles[0][0]} keys) breaks it in every layer")
     del run, logits_ref
     log(f"  phases 5-6: {time.perf_counter() - t_phase5:.1f} s")
 

@@ -8,11 +8,12 @@ times five steps untraced, then traces two more with `torch.profiler`
 (CPU + CUDA activities).  Prints, all from this one run: the untraced
 wall time per step, the traced device busy time per step (summed kernel
 time; the port launches on one stream), the idle share of an untraced
-step (1 - busy / untraced wall), the device time by kernel name, and the
-bytes a step moves by the model's own count: every matrix parameter read
-as f32, its bf16 cast written and read again (8 B per parameter; an
-estimate from the parameter count, not a measured byte count).  Needs one
-CUDA card.
+step (1 - busy / untraced wall), the device time by kernel name, the
+flash kernel's share of the busy time and of the untraced wall with the
+inputs it copied (`flash_attention.copies`), and the bytes a step moves by
+the model's own count: every matrix parameter read as f32, its bf16 cast
+written and read again (8 B per parameter; an estimate from the parameter
+count, not a measured byte count).  Needs one CUDA card.
 """
 import sys
 import time
@@ -32,6 +33,7 @@ def main() -> int:
         return 2
     from repro_torch import configs as C
     from repro_torch.core.tree import tree_flatten_with_path
+    from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
 
@@ -53,6 +55,7 @@ def main() -> int:
     t0 = time.perf_counter()
     steps(range(WARM, WARM + TIMED))
     wall = (time.perf_counter() - t0) / TIMED
+    copies = flash_mod.flash_attention.copies
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -78,6 +81,11 @@ def main() -> int:
           f"matrix parameters x 8 B = {nbytes / 1e9:.1f} GB per step, "
           f"{nbytes / wall / 1e12:.2f} TB/s over the untraced wall, "
           f"{nbytes / busy / 1e12:.2f} TB/s over the device busy time")
+    flash = sum(r[1] for r in rows if "flash" in r[0]) / 1e6 / TRACED
+    print(f"flash kernel {flash * 1e3:.3f} ms per step: {flash / busy:.2%} "
+          f"of device busy, {flash / wall:.2%} of the untraced wall; flash "
+          f"inputs copied in the traced steps: "
+          f"{flash_mod.flash_attention.copies - copies}")
     for name, us, k in rows[:15]:
         print(f"  {us / 1e3 / TRACED:9.3f} ms/step  {k // TRACED:5d}x/step"
               f"  {name[:90]}")

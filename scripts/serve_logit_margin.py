@@ -11,9 +11,9 @@ state:
   - through the flash kernel and through the plain attention: the sound
     reading is |kernel - plain| over the logits;
   - through the plain attention over the context with one of the kernel's
-    KV tiles left out, for every tile: what a kernel that drops that tile
-    would give (its online softmax never sees those keys).  The mutant
-    reading is |dropped - plain|.
+    key splits (`flash_attention.plan`) left out, for every split: what a
+    kernel that drops that split would give (its merge never sees those
+    keys).  The mutant reading is |dropped - plain|.
 Each reading is given as the max and the mean over the B x vocab logits.
 The logits are bf16 products, so the max moves in steps of one bf16
 spacing (2^-5 at logits of size 4-8) and the mean separates the two kinds
@@ -42,11 +42,11 @@ def main() -> int:
 
     dev = torch.device("cuda")
     cfg = C.get(ARCH)
-    # the kernel's KV tiles at the serve shape: 32 keys per key split
-    bk = 32 * flash_mod.tiling(cfg.n_heads // cfg.n_kv_heads, 1,
-                               cfg.head_dim, 2)[2]
-    n = cfg.n_context_tokens
-    tiles = [(a, min(a + bk, n)) for a in range(0, n, bk)]
+    # the kernel's key splits at the serve shape
+    tiles = flash_mod.plan(
+        (BATCH, cfg.n_heads, 1, cfg.head_dim),
+        (BATCH, cfg.n_kv_heads, cfg.n_context_tokens, cfg.head_dim),
+        torch.bfloat16, causal=False).splits
     out = []
     for seed in SEEDS:
         params, ctx, prompt = serve.setup(cfg, BATCH, PROMPT, dev, seed)

@@ -344,6 +344,54 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, hq, lq, dh).to(q.dtype)
 
 
+def flash_partial(q, k, v, lo: int, hi: int, *, causal: bool = True,
+                  scale: float | None = None, kv_offset: int = 0):
+    """The softmax state of every query row over the keys [lo, hi) alone,
+    f32: (m [B, Hq, Lq], l [B, Hq, Lq], acc [B, Hq, Lq, Dh]).  m is NEG_BIG
+    and l, acc are 0 where every key of the range is masked (or the range
+    is empty)."""
+    b, hq, lq, dh = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    scale = dh ** -0.5 if scale is None else scale
+    qf = q.float().reshape(b, hkv, g, lq, dh) * scale
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k[:, :, lo:hi].float())
+    mask = torch.ones((lq, hi - lo), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = (torch.arange(lq, device=q.device)[:, None] + kv_offset
+                >= torch.arange(lo, hi, device=q.device)[None, :])
+    s = torch.where(mask, s, NEG_BIG)
+    m = s.amax(-1) if hi > lo else torch.full(s.shape[:-1], NEG_BIG,
+                                              device=q.device)
+    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    acc = torch.einsum("bhgqk,bhkd->bhgqd", p, v[:, :, lo:hi].float())
+    return (m.reshape(b, hq, lq), p.sum(-1).reshape(b, hq, lq),
+            acc.reshape(b, hq, lq, dh))
+
+
+def flash_split_merge(q, k, v, splits, *, causal: bool = True,
+                      scale: float | None = None,
+                      kv_offset: int = 0) -> torch.Tensor:
+    """The split-KV model of the flash kernel: one `flash_partial` per key
+    range of `splits` (the kernel's plan), merged in split order 0..n-1 as
+    the last CTA of a row tile merges them:
+    M = max m_s, L = sum l_s exp(m_s - M), O = sum acc_s exp(m_s - M),
+    out = O / L, and 0 where L is 0.  Output in q's dtype."""
+    parts = [flash_partial(q, k, v, lo, hi, causal=causal, scale=scale,
+                           kv_offset=kv_offset) for lo, hi in splits]
+    mx = parts[0][0]
+    for m, _, _ in parts[1:]:
+        mx = torch.maximum(mx, m)
+    lsum = torch.zeros_like(mx)
+    out = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        f = torch.exp(m - mx)
+        lsum = lsum + l * f
+        out = out + acc * f[..., None]
+    out = out / torch.where(lsum == 0.0, 1.0, lsum)[..., None]
+    return out.to(q.dtype)
+
+
 def mlstm_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 logi: torch.Tensor, logf: torch.Tensor, *, chunk: int = 128):
     """The chunkwise mLSTM scan of `repro/kernels/ref.py:mlstm_chunked`,

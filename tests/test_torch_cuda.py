@@ -536,15 +536,34 @@ FLASH_SHAPES = [
     (1, 2, 2, 40, 72, 128, False, 0),
     (4, 32, 8, 1, 1664, 128, False, 0),       # the serve step's shape
     (1, 8, 2, 300, 700, 128, True, 400),      # chunked prefill, ragged
+    (2, 8, 2, 1, 1000, 128, False, 0),        # decode, ragged last split
+    (1, 4, 2, 1, 20, 64, False, 0),           # Lk below one tile
+    (1, 4, 2, 40, 200, 40, True, 100),        # splits wholly masked per tile
+    (1, 2, 2, 40, 90, 16, True, 0),           # Dh 16
+    (1, 4, 2, 70, 150, 40, True, 10),         # Dh 40: CUDA cores in bf16
+    (1, 8, 2, 4, 700, 64, True, 500),         # decode, causal over splits
+    (1, 2, 2, 64, 200, 128, True, 136),       # one full tensor-core tile
+    (1, 2, 2, 130, 260, 128, True, 130),      # two tiles and 2 rows
 ]
+
+
+def _flash_body(shape, dtype):
+    """The body `plan` documents for a shape (group x Lq query rows)."""
+    b, hq, hkv, lq, lk, dh = shape[:6]
+    if dtype == "bfloat16" and dh % 16 == 0:
+        return "decode" if hq // hkv * lq <= 16 else "tensor_core"
+    return "cuda_core"
 
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
 def test_flash_kernel_matches_plain(shape, dtype, causal, cuda):
-    """Kernel against the plain version on the card, at the CPU sweep's
-    tolerances (3e-5 in f32; 3e-2 in bf16, whose output rounds)."""
+    """Kernel against the plain version on the card, through the body
+    `plan` documents for the shape: 3e-5 in f32; in bf16, whose output
+    rounds, each output within one bf16 spacing of the plain one
+    (2 * 2^-8 * |plain| + 1e-6, chip_smoke.py's `flash_limit`), which a
+    dropped or mis-merged key split breaks."""
     from repro_torch.kernels import flash_attention as flash_mod
     b, hq, hkv, lq, lk, dh, _, off = shape
     rng = np.random.default_rng(lq + lk)
@@ -552,19 +571,30 @@ def test_flash_kernel_matches_plain(shape, dtype, causal, cuda):
     q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
                .to(cuda).to(dt) for s in ((b, hq, lq, dh), (b, hkv, lk, dh),
                                           (b, hkv, lk, dh)))
+    body = _flash_body(shape, dtype)
     before = flash_mod.flash_attention.launches
+    ran = flash_mod.flash_attention.bodies[body]
     got = flash_mod.flash_attention(q, k, v, causal=causal, kv_offset=off)
     want = ref.flash_attention(q, k, v, causal=causal, kv_offset=off)
     torch.cuda.synchronize()
     assert flash_mod.flash_attention.launches == before + 1
+    assert flash_mod.flash_attention.bodies[body] == ran + 1
     assert got.dtype == dt and got.shape == q.shape
-    tol = 3e-5 if dtype == "float32" else 3e-2
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=3e-5, atol=3e-5)
+    else:
+        diff = (got.float() - want.float()).abs()
+        limit = 2 * 2.0 ** -8 * want.float().abs() + 1e-6
+        assert not bool((diff > limit).any()), (
+            f"{int((diff > limit).sum())} outputs beyond one bf16 spacing; "
+            f"max |err| {float(diff.max())}")
 
 
 def test_flash_kernel_dead_rows_and_layouts(cuda):
-    """Rows that see no key write 0; permuted (einsum) inputs are copied
-    to contiguous and give the same result; odd inputs raise."""
+    """Rows that see no key write 0.  Permuted q/k/v as the einsum of the
+    cross-attention leaves them are read in place, without a copy, and give
+    the same bits as contiguous copies, on every body; inputs whose Dh
+    stride is not 1 are copied and still right; odd inputs raise."""
     from repro_torch.kernels import flash_attention as flash_mod
     rng = np.random.default_rng(3)
     q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda)
@@ -573,11 +603,33 @@ def test_flash_kernel_dead_rows_and_layouts(cuda):
     assert torch.all(out[:, :, :3] == 0)
     torch.testing.assert_close(out, ref.flash_attention(
         q, k, v, causal=True, kv_offset=-3), rtol=3e-5, atol=3e-5)
-    qt = q.transpose(1, 2).contiguous().transpose(1, 2)     # non-contiguous
-    assert not qt.is_contiguous()
-    torch.testing.assert_close(flash_mod.flash_attention(qt, k, v),
-                               flash_mod.flash_attention(q, k, v),
-                               rtol=0, atol=0)
+
+    def heads(x, h):                  # [B, L, d] -> [B, h, L, 64], permuted
+        w = torch.from_numpy(rng.normal(size=(x.shape[2], h, 64))
+                             .astype(np.float32) / 16).to(cuda, x.dtype)
+        return torch.einsum("bld,dhk->bhlk", x, w)
+
+    for dtype, lq, causal in ((torch.bfloat16, 1, False),
+                              (torch.bfloat16, 200, True),
+                              (torch.float32, 40, True)):
+        x = torch.from_numpy(rng.normal(size=(2, lq, 96)).astype(np.float32))
+        ctx = torch.from_numpy(rng.normal(size=(2, 300, 96))
+                               .astype(np.float32))
+        x, ctx = x.to(cuda, dtype), ctx.to(cuda, dtype)
+        qp = heads(x, 8)
+        kp = heads(ctx, 2) if not causal else heads(x, 2)
+        vp = heads(ctx, 2) if not causal else heads(x, 2)
+        assert not kp.is_contiguous() and (lq == 1 or not qp.is_contiguous())
+        copies = flash_mod.flash_attention.copies
+        got = flash_mod.flash_attention(qp, kp, vp, causal=causal)
+        assert flash_mod.flash_attention.copies == copies
+        flat = flash_mod.flash_attention(qp.contiguous(), kp.contiguous(),
+                                         vp.contiguous(), causal=causal)
+        assert torch.equal(got, flat)
+        kt = kp.transpose(2, 3).contiguous().transpose(2, 3)   # Dh stride L
+        got = flash_mod.flash_attention(qp, kt, vp, causal=causal)
+        assert flash_mod.flash_attention.copies == copies + 1
+        assert torch.equal(got, flat)
     with pytest.raises(ValueError):
         flash_mod.flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError):

@@ -95,12 +95,18 @@ def test_scale_and_modes():
     (4, 1, 128, 2), (4, 1, 128, 4), (4, 4096, 128, 2), (4, 512, 128, 2),
     (1, 64, 32, 4), (8, 100, 64, 2), (3, 7, 16, 4)])
 def test_kernel_tiling_fits_the_card(group, lq, dh, elem):
-    """The CTA shape the wrapper picks: every (head, position) row of the
-    tile, at most 1024 threads, and shared memory under the H100's 227 KB;
-    a decode step (Lq = 1) keeps at least four warps by splitting the keys."""
-    tq, n_rq, ks = flash_mod.tiling(group, lq, dh, elem)
-    assert 1 <= tq <= lq and n_rq * 4 >= group * tq
-    assert 32 * n_rq * ks <= 1024
-    assert flash_mod.smem_bytes(n_rq * 4, ks, dh, elem) <= flash_mod.SMEM_LIMIT
+    """The CTA shape `plan` picks: every (head, position) row of the
+    group in some tile, 128 threads, and shared memory under the H100's
+    227 KB; a decode step (Lq = 1) has its keys split over at least
+    2 x 132 CTAs, on the decode body in bf16."""
+    dtype = torch.bfloat16 if elem == 2 else torch.float32
+    p = flash_mod.plan((4, 8 * group, lq, dh), (4, 8, 1664, dh), dtype,
+                       causal=False)
+    assert 1 <= p.positions <= lq and 1 <= p.heads <= group
+    assert p.head_tiles * p.heads >= group and p.pos_tiles * p.positions >= lq
+    assert p.threads == 128 and p.rows <= (16 if p.body == "cuda_core"
+                                           else 64)
+    assert p.smem <= flash_mod.SMEM_LIMIT
     if lq == 1 and group == 4:
-        assert (tq, n_rq) == (1, 1) and n_rq * ks >= 4
+        assert p.body == ("decode" if elem == 2 else "cuda_core")
+        assert p.ctas >= 2 * flash_mod.SMS
