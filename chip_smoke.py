@@ -45,11 +45,17 @@ Phases (any failure exits non-zero before the result line):
      every layer);
   7. the mLSTM forward and backward kernels against their plain versions
      at xlstm-350m's shape [8, 4, 1024, 256] chunk 64, SMOKE's heads and
-     chunk 128: the forward per element within a limit derived from f32
-     accumulation, the gradients per input within a relative-norm limit,
-     and the forward against the token-by-token recurrence at L 256
-     (scripts/mlstm_mutants.py dry-runs these checks on the CPU with a
-     dropped inter-chunk term and a cut dC carry, which must fail them);
+     chunk 128, with the body, grids and shared memory `plan` chose (the
+     tensor-core pair at Dh 256, asserted): the forward per element within
+     a limit derived from f32 accumulation, the gradients per input within
+     a relative-norm limit, and the forward against the token-by-token
+     recurrence at L 256 (scripts/mlstm_mutants.py dry-runs these checks
+     on the CPU with a dropped inter-chunk term and a cut dC carry, which
+     must fail them; scripts/mlstm_kernel_sweep.py holds a one-TF32-term
+     mutant to the forward limit on the card); times on the 5-call clock
+     with the median of 5 x 20 calls and the device time beside it, and
+     the bound at the three-term TF32 rate (495 / 3 TFLOP/s) beside the
+     f32 one;
   8. training xlstm-350m at its full config (24 layers, 179 M f32
      parameters, random weights from a seed) through
      `python -m repro_torch.launch.train`'s entry point: batch 8, seq 1024,
@@ -83,6 +89,8 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOPS = 67e12              # H100 SXM f32 rate outside the tensor cores
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core rate
+TF32_FLOPS = 495e12            # H100 SXM dense TF32 tensor-core rate
+TF32_TERMS = 3                 # mLSTM products: hi*hi + hi*lo + lo*hi
 F32_U = 2.0 ** -24             # f32 unit roundoff
 P = 4
 PR_SCALE, CC_SCALE, PR_ITERS = 22, 21, 10
@@ -203,11 +211,17 @@ def ir_flops(ir) -> int:
 
 
 # mLSTM backward vs autograd of the plain version, relative norm per input.
-# Both differentiate the same f32 function with sums in other orders; over
-# nine shapes up to [8, 4, 1024, 256] the kernel read 2e-7 to 4.8e-5 on an
-# NVIDIA H100 80GB HBM3 at 700 W (scripts/mlstm_kernel_sweep.py), so 1e-3
-# leaves a 20x margin, and a dC carry cut at one chunk boundary moves the
-# gradients by more (scripts/mlstm_mutants.py, on the CPU).
+# Both differentiate the same f32 function with sums in other orders, and
+# the gradient is ill-conditioned: against the same scan in float64 the
+# plain version itself errs by up to 7.5e-5 and the tensor-core kernel by
+# up to 7.7e-5 (chunk 128 below), and rows where the normaliser's branch
+# max(|den|, exp(-m)) is ambiguous flip between two valid gradients.  On an
+# NVIDIA H100 80GB HBM3 at 700 W (scripts/mlstm_kernel_sweep.py) the
+# kernel read up to 1.42e-4 against the plain version (eleven shapes and
+# the three below), and the one-TF32-term mutant 6.6e-3 to 0.26 at the
+# three shapes below; 1e-3 sits 7x above the one and 6.6x below the other.
+# A dC carry cut at one chunk boundary moves the gradients by more
+# (scripts/mlstm_mutants.py, on the CPU).
 MLSTM_GRAD_REL_LIMIT = 1e-3
 
 
@@ -382,8 +396,8 @@ def main() -> int:
     k_bf = mt.fused_plan(g_bf_t, alg.pagerank_send, "sum").kernel
     sources += [("triplet", tri_mod.source(k_bf, "sum", "dst", False,
                                            torch.bfloat16, False, 2))]
-    sources += [("mlstm", mlstm_mod.source(min(c, l), mlstm_mod.tiling(
-        min(c, l), dh))) for _, _, _, l, dh, c in MLSTM_SHAPES]
+    sources += [("mlstm", mlstm_mod.plan(min(c, l), dh).source())
+                for _, _, _, l, dh, c in MLSTM_SHAPES]
     t0 = time.perf_counter()
     build.prebuild(sources)
     log(f"kernel build: {len(sources)} sources in "
@@ -435,8 +449,8 @@ def main() -> int:
         return err, f"per slot 2*gamma(n-1)*sum|m|; worst err/limit {worst:.3g}"
 
     def record(kernel, variant, err, tol, ms, plain_ms, nbytes, flops,
-               library_ms=None):
-        b_ms, b_by = bound(nbytes, flops)
+               library_ms=None, peak=F32_FLOPS):
+        b_ms, b_by = bound(nbytes, flops, peak)
         row = {"variant": variant, "max_abs_err": err, "tol": tol, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": library_ms}
@@ -1098,8 +1112,12 @@ def main() -> int:
 
     # ---------------------------------------------------------- phase 7
     t_phase = time.perf_counter()
-    log("phase 7: mLSTM kernels vs plain versions (bound: f32 "
-        f"{F32_FLOPS / 1e12:.0f} TFLOP/s, {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    tc_peak = TF32_FLOPS / TF32_TERMS
+    log("phase 7: mLSTM kernels vs plain versions (bound: the tensor-core "
+        f"body's products at {tc_peak / 1e12:.0f} TFLOP/s (TF32 "
+        f"{TF32_FLOPS / 1e12:.0f} / {TF32_TERMS} terms), the CUDA-core "
+        f"body's at f32 {F32_FLOPS / 1e12:.0f} TFLOP/s; "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
 
     def kernel(q, k, v, logi, logf, chunk):
         return mlstm_mod.mlstm_chunked(q, k, v, logi, logf, chunk=chunk)
@@ -1107,7 +1125,45 @@ def main() -> int:
     for name, b, h, l, dh, chunk in MLSTM_SHAPES:
         q, k, v, logi, logf = mlstm_inputs(b, h, l, dh, gen, dev)
         dout = torch.randn((b, h, l, dh), generator=gen).to(dev)
+        pl = mlstm_mod.plan(min(chunk, l), dh)
+        if dh == 256 and pl.body != "tensor_core":
+            raise AssertionError(f"mlstm[{name}]: plan picks {pl.body}")
+        bodies = (dict(mlstm_mod.forward.bodies),
+                  dict(mlstm_mod.backward.bodies))
         r = mlstm_check(kernel, q, k, v, logi, logf, chunk, dout)
+        ran = (mlstm_mod.forward.bodies[pl.body] - bodies[0].get(pl.body, 0),
+               mlstm_mod.backward.bodies[pl.body]
+               - bodies[1].get(pl.body, 0))
+        if ran != (1, 1):
+            raise AssertionError(f"mlstm[{name}]: body {pl.body} ran {ran}")
+        # two runs bit-equal, forward and gradients (no float atomics)
+        a = [t.clone().requires_grad_() for t in (q, k, v, logi, logf)]
+        runs = []
+        for _ in range(2):
+            o = kernel(*a, chunk)
+            runs.append((o.detach(), *torch.autograd.grad(o, a, dout)))
+            del o
+        if not all(map(torch.equal, *runs)):
+            raise AssertionError(f"mlstm[{name}]: two runs differ")
+        del a, runs
+        if pl.body == "tensor_core":
+            # what the launchers ran, from the library; its shared memory
+            # must be what `plan` decided on
+            lay = mlstm_mod.layout(pl, b * h, l)
+            if lay["smem"] != pl.smem:
+                raise AssertionError(f"mlstm[{name}]: the build lays out "
+                                     f"{lay['smem']}, plan {pl.smem}")
+            shape_msg = (f", scan tile {pl.tk} x {pl.tv}, {pl.stages} ring "
+                         "stages; grids (library) scans "
+                         f"{'x'.join(map(str, lay['grids']['scan']))} of "
+                         f"{lay['threads']['scan']} threads, chunk kernels "
+                         f"{'x'.join(map(str, lay['grids']['chunk']))} of "
+                         f"{lay['threads']['chunk']}; smem "
+                         + ", ".join(f"{k} {n}"
+                                     for k, n in lay["smem"].items()))
+        else:
+            shape_msg = f", value tile {pl.tv}; smem {pl.smem}"
+        log(f"  mlstm[{name}]: body {pl.body}{shape_msg}; two runs bit-equal")
         log(f"  mlstm[{name}] [{b}, {h}, {l}, {dh}] chunk {chunk}: forward "
             f"max |err| {r['max_abs_err']:.3g} (per element <= 2 gamma_n "
             f"(sum|num terms| + |out| sum|den terms|) / g; worst err/limit "
@@ -1129,33 +1185,47 @@ def main() -> int:
         w = min(chunk, l)
         rows, pairs = b * h * (l // w), w * (w + 1) // 2
         bhl, states = b * h * l, b * h * (l // w) * (dh * dh + dh)
-        out, c_st, n_st = mlstm_mod.forward(q, k, v, logi, logf, chunk=chunk,
-                                            states=True)
+        out, saved = mlstm_mod.forward(q, k, v, logi, logf, chunk=chunk,
+                                       states=True)
         pins = [t.clone().requires_grad_() for t in (q, k, v, logi, logf)]
         want = ref.mlstm_chunked(*pins, chunk=chunk)
-        for kname, ms, plain_ms, flops, nbytes, err in (
-                ("mlstm_fwd",
-                 cuda_ms(lambda: mlstm_mod.forward(q, k, v, logi, logf,
-                                                   chunk=chunk, states=True)),
+        peak = tc_peak if pl.body == "tensor_core" else F32_FLOPS
+        fwd = lambda: mlstm_mod.forward(q, k, v, logi, logf,  # noqa: E731
+                                        chunk=chunk, states=True)
+        bwd = lambda: mlstm_mod.backward(  # noqa: E731
+            q, k, v, logi, logf, out, dout, saved, chunk=chunk)
+        for kname, call, plain_ms, flops, nbytes, err in (
+                ("mlstm_fwd", fwd,
                  cuda_ms(lambda: ref.mlstm_chunked(q, k, v, logi, logf,
                                                    chunk=chunk), 3),
                  rows * (4 * pairs * dh + 4 * w * dh * dh + 4 * w * dh),
                  4 * (4 * bhl * dh + 2 * bhl + states), r["max_abs_err"]),
-                ("mlstm_bwd",
-                 cuda_ms(lambda: mlstm_mod.backward(
-                     q, k, v, logi, logf, out, dout, c_st, n_st,
-                     chunk=chunk)),
+                ("mlstm_bwd", bwd,
                  cuda_ms(lambda: torch.autograd.grad(want, pins, dout,
                                                      retain_graph=True), 3),
                  rows * (10 * pairs * dh + 8 * w * dh * dh + 12 * w * dh
                          + 2 * dh * dh),
                  4 * (8 * bhl * dh + 4 * bhl + states),
                  r["grad_max_abs_err"])):
-            record(kname, f"{name}: [{b}, {h}, {l}, {dh}] chunk {chunk}",
+            # besides `ms` (5 calls, as every kernel row): the median of 5
+            # runs of 20 calls and the device's own time, and the bound at
+            # the CUDA cores' f32 rate (the CUDA-core body's bound)
+            b_ms, b_by = bound(nbytes, flops, peak)
+            f32_ms = bound(nbytes, flops)[0]
+            ms, med, dms = cuda_ms(call), median_ms(call), device_ms(call)
+            record(kname, f"{name}: [{b}, {h}, {l}, {dh}] chunk {chunk} "
+                   f"(body {pl.body}; bound peak {peak / 1e12:.0f} TFLOP/s)",
                    err, "forward: per element, derived (see log); backward: "
                    f"relative norm per input <= {MLSTM_GRAD_REL_LIMIT}",
-                   ms, plain_ms, nbytes, flops)
-        del q, k, v, logi, logf, dout, out, c_st, n_st, pins, want
+                   ms, plain_ms, nbytes, flops, peak=peak)
+            results[kname][-1].update(
+                body=pl.body, median_ms=med, device_ms=dms,
+                f32_bound_ms=f32_ms, gflop=flops / 1e9, mbytes=nbytes / 1e6)
+            log(f"    {kname}: median of 5 x 20 calls {med:.4f} ms, device "
+                f"{dms:.4f} ms; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.0f} "
+                f"MB -> bound {b_ms:.4f} ms ({b_by}; at f32 {f32_ms:.4f} ms)"
+                f", {100 * b_ms / ms:.1f}% of it")
+        del q, k, v, logi, logf, dout, out, saved, pins, want, fwd, bwd
         gc.collect()
         torch.cuda.empty_cache()
     b, h, l, dh, chunk = 8, 4, 256, 256, 64
@@ -1286,7 +1356,8 @@ def main() -> int:
                 "mlstm_fwd": "src/repro/kernels/mlstm.py:102",
                 "mlstm_bwd": "src/repro/kernels/mlstm.py:102",
                 "spmv": "src/repro/kernels/spmv.py:59"}
-    csrc = {"mlstm_fwd": "mlstm", "mlstm_bwd": "mlstm", "spmv": "triplet"}
+    csrc = {"mlstm_fwd": "mlstm_tc", "mlstm_bwd": "mlstm_tc",
+            "spmv": "triplet"}
     # the triplet kernel's encoded-row variants: the reference's have_scale
     # body of the same pallas_call (_make_kernel :246, _spread_scale_tile
     # :233), and its bf16 tiles

@@ -12,9 +12,17 @@ Each "kernel" is a copy of the plain chunk scan with one fault switched on:
                   kernel's dC/dn carry cut at one chunk boundary).
 It prints each check's reading and exits non-zero if a mutant passes or the
 sound kernel fails.
+
+`one_term_plan` is the card's mutant: the tensor-core body built from its
+own source with the two lo terms of every three-term TF32 product cut out
+by a text edit (one TF32 term, 2^-11 per operand), which must fail the
+forward's limit where the three-term kernel holds it.  It runs on the card
+from scripts/mlstm_kernel_sweep.py; here the dry run only checks that the
+edit finds its two lines.
 """
 from __future__ import annotations
 
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -25,6 +33,35 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke  # noqa: E402
+from repro_torch.kernels import mlstm  # noqa: E402
+
+LO_TERM = "// lo term"
+
+
+def one_term_source(src: str) -> str:
+    """csrc/mlstm_tc.cu's text with the lines of `mma3` marked as lo terms
+    removed: each product is then hi*hi alone."""
+    lines = src.splitlines(keepends=True)
+    cut = [ln for ln in lines if LO_TERM in ln]
+    if len(cut) != 2:
+        raise AssertionError(f"one-term mutant: {len(cut)} lo-term lines")
+    return "".join(ln for ln in lines if LO_TERM not in ln)
+
+
+class OneTermPlan(mlstm.Plan):
+    """A tensor-core plan whose source is `one_term_source` of its own."""
+
+    def source(self) -> str:
+        return one_term_source(super().source())
+
+
+def one_term_plan(w: int, dh: int) -> OneTermPlan:
+    pl = mlstm.plan(w, dh)
+    if pl.body != "tensor_core":
+        raise ValueError(f"one-term mutant: chunk {w}, Dh {dh} runs "
+                         f"{pl.body}")
+    return OneTermPlan(**{f.name: getattr(pl, f.name)
+                          for f in dataclasses.fields(pl)})
 
 
 def scan(q, k, v, logi, logf, chunk, *, dtype=torch.float32,
@@ -38,9 +75,9 @@ def scan(q, k, v, logi, logf, chunk, *, dtype=torch.float32,
     def chunks(x):
         return x.to(dtype).reshape(b, h, nc, w, *x.shape[3:]).movedim(2, 0)
 
-    tri = torch.ones((w, w), dtype=torch.bool).tril()
-    C = torch.zeros((b, h, dh, dh), dtype=dtype)
-    n = torch.zeros((b, h, dh), dtype=dtype)
+    tri = torch.ones((w, w), dtype=torch.bool, device=q.device).tril()
+    C = torch.zeros((b, h, dh, dh), dtype=dtype, device=q.device)
+    n = torch.zeros((b, h, dh), dtype=dtype, device=q.device)
     outs = []
     for c, (qc, kc, vc, lic, lfc) in enumerate(zip(*map(chunks, (
             q, k, v, logi, logf)))):
@@ -99,6 +136,9 @@ def main() -> int:
                 msg, passed = f"fails: {e}", False
             ok &= passed == want_pass
             print(f"[{b},{h},{l},{dh}] chunk {chunk} {name}: {msg}")
+    cut = (len(mlstm.plan(64, 256).source().splitlines())
+           - len(one_term_plan(64, 256).source().splitlines()))
+    print(f"one-term mutant: {cut} lo-term lines cut (runs on the card)")
     print("OK" if ok else "MUTATION CHECK FAILED")
     return 0 if ok else 1
 

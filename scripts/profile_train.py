@@ -13,8 +13,10 @@ untraced step.  Last come the traced runs (`torch.profiler`, CPU + CUDA
 activities; a trace slows every launch, so nothing is timed after one):
 one training step, for its device busy time (summed kernel time; the port
 launches on one stream), its kernel count, the idle share of an untraced
-step (1 - busy / untraced wall) and the device time by kernel name; and
-one block of each kind, for its kernel count.  Needs one CUDA card.
+step (1 - busy / untraced wall), the device time by kernel name and the
+mLSTM kernels' (`mlstm_*`) share; and one block of each kind, for its
+kernel count.  The peak device memory is that of the timed untraced steps
+(`torch.cuda.max_memory_allocated`).  Needs one CUDA card.
 """
 import sys
 import time
@@ -59,7 +61,9 @@ def main() -> int:
 
     for i in range(WARM):
         run(i)
+    torch.cuda.reset_peak_memory_stats()
     walls = [run(WARM + i) for i in range(TIMED)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
     wall = sum(walls) / TIMED
 
     # the two block kinds alone, forward + backward of one block
@@ -105,7 +109,14 @@ def main() -> int:
           f"{wall:.3f} s per step ({', '.join(f'{w:.3f}' for w in walls)}),"
           f" traced wall {traced:.3f} s; device busy {busy * 1e3:.1f} ms in "
           f"{n_kernels} kernels; idle share of an untraced step "
-          f"{1 - busy / wall:.1%}; {BATCH * SEQ / wall:.0f} tokens/s")
+          f"{1 - busy / wall:.1%}; {BATCH * SEQ / wall:.0f} tokens/s; peak "
+          f"device memory {peak:.2f} GiB")
+    ml = [r for r in rows if r[0].startswith("mlstm_")]
+    ml_ms = sum(r[1] for r in ml) / 1e3
+    print(f"  mLSTM kernels: {ml_ms:.3f} ms in {sum(r[2] for r in ml)} "
+          f"launches, {ml_ms / 1e3 / busy:.1%} of device busy, "
+          f"{ml_ms / 1e3 / wall:.2%} of the untraced wall: "
+          + ", ".join(f"{n} {us / 1e3:.3f} ms" for n, us, _ in ml))
     for name, us, k in rows[:15]:
         print(f"  {us / 1e3:10.3f} ms  {k:7d}x  {name[:90]}")
     for kind, one in fwd_bwd.items():

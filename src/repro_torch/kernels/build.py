@@ -80,8 +80,10 @@ def _finish(job) -> None:
 
 
 def prebuild(sources: list[tuple[str, str]]) -> None:
-    """Compile every (name, source) whose library is missing, in parallel."""
-    jobs = [j for j in (_start(n, s) for n, s in sources) if j is not None]
+    """Compile every (name, source) whose library is missing, in parallel
+    (each distinct source once)."""
+    jobs = [j for j in (_start(n, s) for n, s in dict.fromkeys(sources))
+            if j is not None]
     errors = []
     for job in jobs:
         try:

@@ -443,6 +443,156 @@ def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return num / torch.maximum(den.abs(), torch.exp(-m_row))[..., None]
 
 
+def _mlstm_chunks(w: int, *xs):
+    """[B, H, L, ...] -> [B, H, NC, W, ...] in f32, for each of xs."""
+    return [x.float().reshape(*x.shape[:2], x.shape[2] // w, w,
+                              *x.shape[3:]) for x in xs]
+
+
+def _mlstm_gates(cli, clf):
+    """Per chunk: cum, total [.., 1], the masked exponent dmat - m as P's
+    log (P = 0 above the diagonal), m, dec, wgt."""
+    w = cli.shape[-1]
+    tri = torch.ones((w, w), dtype=torch.bool, device=cli.device).tril()
+    cum = torch.cumsum(clf, -1)
+    total = cum[..., -1:]
+    dmat = cum[..., :, None] - cum[..., None, :] + cli[..., None, :]
+    dmat = torch.where(tri, dmat, float("-inf"))
+    m = torch.maximum(dmat.amax(-1), cum)
+    return (cum, total, torch.exp(dmat - m[..., None]), m,
+            torch.exp(cum - m), torch.exp(total - cum + cli))
+
+
+def mlstm_chunk_states(k: torch.Tensor, v: torch.Tensor, logi: torch.Tensor,
+                       logf: torch.Tensor, *, chunk: int = 128):
+    """The chunk-state scan of the split chunkwise mLSTM: each chunk's
+    entry state (C [B, H, NC, Dh, Dh], n [B, H, NC, Dh]; chunk 0's is 0),
+    by C <- e^total C + (k wgt)^T v and n <- e^total n + sum_s k_s wgt_s."""
+    w = min(chunk, k.shape[2])
+    ck, cv, cli, clf = _mlstm_chunks(w, k, v, logi, logf)
+    _, total, _, _, _, wgt = _mlstm_gates(cli, clf)
+    b, h, nc, _, dh = ck.shape
+    C = k.new_zeros((b, h, dh, dh), dtype=torch.float32)
+    n = k.new_zeros((b, h, dh), dtype=torch.float32)
+    cs, ns = [], []
+    for c in range(nc):
+        cs.append(C)
+        ns.append(n)
+        kw = ck[:, :, c] * wgt[:, :, c, :, None]
+        e = torch.exp(total[:, :, c])
+        C = e[..., None] * C + kw.transpose(-1, -2) @ cv[:, :, c]
+        n = e * n + kw.sum(-2)
+    return torch.stack(cs, 2), torch.stack(ns, 2)
+
+
+def mlstm_chunk_out(q, k, v, logi, logf, C, n, *, chunk: int = 128):
+    """The chunk-parallel half of the split: every chunk's output from its
+    entry state (`mlstm_chunk_states`), all chunks at once.  Returns (out
+    [B, H, L, Dh], den, m [B, H, L])."""
+    b, h, l, dh = q.shape
+    w = min(chunk, l)
+    cq, ck, cv, cli, clf = _mlstm_chunks(w, q, k, v, logi, logf)
+    _, _, P, m, dec, _ = _mlstm_gates(cli, clf)
+    att = (cq @ ck.transpose(-1, -2)) * P
+    qd = cq * dec[..., None]
+    num = att @ cv + qd @ C
+    den = att.sum(-1) + (qd @ n[..., None])[..., 0]
+    out = num / torch.maximum(den.abs(), torch.exp(-m))[..., None]
+    return (out.reshape(b, h, l, dh), den.reshape(b, h, l),
+            m.reshape(b, h, l))
+
+
+def mlstm_dstate_scan(q, logi, logf, out, dout, den, m, *, chunk: int = 128):
+    """The reverse scan of the split's backward: with g = max(|den|,
+    e^-m), dnum = dout / g and dden = -[|den| >= e^-m] sign(den)
+    (dout . out) / g per row (m held constant), the cotangents of the
+    state leaving each chunk, dC [B, H, NC, Dh, Dh] and dn [B, H, NC, Dh]
+    (the last chunk's 0), by dC <- e^total dC + (dec q)^T dnum and
+    dn <- e^total dn + (dec q)^T dden.  Returns (dC, dn, g, dden)."""
+    w = min(chunk, q.shape[2])
+    cq, cli, clf, co, cdo = _mlstm_chunks(w, q, logi, logf, out, dout)
+    cden, cm = _mlstm_chunks(w, den, m)
+    _, total, _, _, _, _ = _mlstm_gates(cli, clf)
+    dec = torch.exp(torch.cumsum(clf, -1) - cm)
+    em = torch.exp(-cm)
+    g = torch.maximum(cden.abs(), em)
+    dden = torch.where(cden.abs() >= em,
+                       -torch.sign(cden) * (cdo * co).sum(-1) / g, 0.0)
+    qd = cq * dec[..., None]
+    dnum = cdo / g[..., None]
+    b, h, nc, _, dh = cq.shape
+    X = q.new_zeros((b, h, dh, dh), dtype=torch.float32)
+    xn = q.new_zeros((b, h, dh), dtype=torch.float32)
+    dcs, dns = [], []
+    for c in reversed(range(nc)):
+        dcs.append(X)
+        dns.append(xn)
+        e = torch.exp(total[:, :, c])
+        X = e[..., None] * X + qd[:, :, c].transpose(-1, -2) @ dnum[:, :, c]
+        xn = e * xn + (qd[:, :, c] * dden[:, :, c, :, None]).sum(-2)
+    return (torch.stack(dcs[::-1], 2), torch.stack(dns[::-1], 2),
+            g.reshape(den.shape), dden.reshape(den.shape))
+
+
+def mlstm_chunk_grads(q, k, v, logi, logf, dout, C, n, dC, dn, g, dden, *,
+                      chunk: int = 128):
+    """The chunk-parallel half of the split's backward: per chunk, from
+    its entry state C, n, the cotangents dC, dn of the state leaving it,
+    and g, dden (`mlstm_dstate_scan`), (dq, dk, dv [B, H, L, Dh], dlogi,
+    dlogf [B, H, L]) -- the formulas of csrc/mlstm_tc.cu:mlstm_bwd_chunk."""
+    b, h, l, dh = q.shape
+    w = min(chunk, l)
+    cq, ck, cv, cdo, cli, clf = _mlstm_chunks(w, q, k, v, dout, logi, logf)
+    cg, cdd = _mlstm_chunks(w, g, dden)
+    _, total, P, _, dec, wgt = _mlstm_gates(cli, clf)
+    tri = torch.ones((w, w), dtype=torch.bool, device=q.device).tril()
+    dnum = cdo / cg[..., None]
+    att = (cq @ ck.transpose(-1, -2)) * P
+    datt = torch.where(tri, dnum @ cv.transpose(-1, -2) + cdd[..., None],
+                       0.0)
+    dS, ddm = datt * P, datt * att
+    E = dnum @ C.transpose(-1, -2)
+    qn = (cq @ n[..., None])[..., 0]
+    ddec = (cq * E).sum(-1) + cdd * qn
+    dq = dec[..., None] * E + (dec * cdd)[..., None] * n[..., None, :] \
+        + dS @ ck
+    F = cv @ dC.transpose(-1, -2) + dn[..., None, :]
+    dwgt = (ck * F).sum(-1)
+    dk = wgt[..., None] * F + dS.transpose(-1, -2) @ cq
+    dv = wgt[..., None] * (ck @ dC) + att.transpose(-1, -2) @ dnum
+    dw = dwgt * wgt
+    coldd, rowdd = ddm.sum(-2), ddm.sum(-1)
+    dlogi = coldd + dw
+    dcum = (rowdd - coldd) + ddec * dec - dw
+    de = (dC * C).sum((-1, -2)) + (dn * n).sum(-1)
+    dtotal = dw.sum(-1) + de * torch.exp(total[..., 0])
+    dcum = torch.cat([dcum[..., :-1], dcum[..., -1:] + dtotal[..., None]], -1)
+    dlogf = torch.flip(torch.cumsum(torch.flip(dcum, [-1]), -1), [-1])
+    return (dq.reshape(b, h, l, dh), dk.reshape(b, h, l, dh),
+            dv.reshape(b, h, l, dh), dlogi.reshape(b, h, l),
+            dlogf.reshape(b, h, l))
+
+
+def mlstm_split(q, k, v, logi, logf, *, chunk: int = 128):
+    """The split chunkwise mLSTM forward (`mlstm_chunk_states`, then
+    `mlstm_chunk_out`): out [B, H, L, Dh] f32, the function of
+    `mlstm_chunked`."""
+    C, n = mlstm_chunk_states(k, v, logi, logf, chunk=chunk)
+    return mlstm_chunk_out(q, k, v, logi, logf, C, n, chunk=chunk)[0]
+
+
+def mlstm_split_backward(q, k, v, logi, logf, dout, *, chunk: int = 128):
+    """The split's gradient of <out, dout> with m held constant: the state
+    scan, the chunk outputs, the reverse dC scan, then the chunk-parallel
+    gradients.  Returns (dq, dk, dv, dlogi, dlogf)."""
+    C, n = mlstm_chunk_states(k, v, logi, logf, chunk=chunk)
+    out, den, m = mlstm_chunk_out(q, k, v, logi, logf, C, n, chunk=chunk)
+    dC, dn, g, dden = mlstm_dstate_scan(q, logi, logf, out, dout, den, m,
+                                        chunk=chunk)
+    return mlstm_chunk_grads(q, k, v, logi, logf, dout, C, n, dC, dn, g,
+                             dden, chunk=chunk)
+
+
 def fused_gather_segment_sum(x: torch.Tensor, w: torch.Tensor,
                              src_slot: torch.Tensor, dst_slot: torch.Tensor,
                              num_segments: int) -> torch.Tensor:
