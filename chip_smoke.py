@@ -7,14 +7,23 @@ Phases (any failure exits non-zero before the result line):
   1. the card's name and power limit (nvidia-smi), and the parallel nvcc
      build of every kernel the main path runs;
   2. each kernel against its plain PyTorch version at the shapes of the
-     PageRank graph: triplet (sum to dst, sum to src, min), apply (sum,
-     min), segment_sum — with kernel, plain and library-call times and the
+     PageRank graph: triplet (sum to dst, sum to src, min), apply (sum),
+     segment_sum — with kernel, plain and library-call times and the
      least time the card's memory rate allows; the triplet kernel (every
      variant), segment_sum and spmv also bit for bit against
      `ref.ordered_segment_reduce`, the model of the summation order they
-     share (`csrc/segorder.cuh`), with the piece tables' sizes logged;
+     share (`csrc/segorder.cuh`), with the piece tables' sizes logged; the
+     apply kernel (min, CC's vprog) also on CC's graph, built here for
+     phase 4: bit-equal, leaves passed through not copied, VB, CTAs and
+     shared memory from `superstep.plan`, the median of 5 x 20 calls and
+     the device time beside the 5-call time, the bound over the
+     function's own bytes beside the earlier inverse-table formula, and a mutant
+     (`apply_rng` with one granule's range of one source partition cut
+     short by one entry at a CTA boundary) that must fail the check;
   3. PageRank (tol 0, 10 supersteps) on rmat(22, 16, seed=0), P=4: fused
      plans, bit-equal to the unfused plan, within 1e-4 of a float64 oracle;
+     then 3 supersteps traced: the home half's launches and device ms a
+     superstep (pregel's apply_home span, `repro_torch.profiling`);
   3b. on the same graph, PageRank over the int8 wire, and with
      narrow-resident int8, fp8_e4m3 and fp8_e5m2 mirrors (the triplet
      kernel reading the encoded rows through their scale plane): fused
@@ -25,7 +34,8 @@ Phases (any failure exits non-zero before the result line):
      one mrTriplets over bf16 vertex properties (the bf16 row variant),
      bit-equal to its unfused plan;
   4. connected components on symmetrize(rmat(21, 16, seed=1)), P=4: labels
-     bit-equal to scipy's min-id labels and to the unfused plan;
+     bit-equal to scipy's min-id labels and to the unfused plan; then a
+     traced run's home half, as in phase 3;
   5. the flash attention kernel against its plain version at the serve
      step's shape (GQA 4, Lk 1664, non-causal; K/V read in place through
      the strides the cross-attention's einsum leaves, with no copy, and
@@ -179,6 +189,27 @@ def device_ms(fn, n: int = 20) -> float:
         torch.cuda.synchronize()
     return sum(e.device_time_total for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA) / n / 1e3
+
+
+def cold_device_ms(fn, kernel: str, n: int = 20) -> float:
+    """Mean device milliseconds of the kernels whose name holds `kernel`,
+    over n runs of fn after a warm-up, with a 128 MB write before each run:
+    fn's inputs out of the card's 50 MB L2, as the rest of a superstep
+    leaves them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    junk = torch.empty(32 * 2**20, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            junk.zero_()
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and kernel in e.key) / n / 1e3
 
 
 def bound(nbytes: float, flops: float,
@@ -339,6 +370,7 @@ def main() -> int:
     from repro_torch.data import rmat, symmetrize
     from repro_torch.kernels import build, ops, ref, segorder
     from repro_torch.kernels import segment_sum as seg_mod
+    from repro_torch.kernels.applyroute import APPLY_GRAN
     from repro_torch.kernels import superstep as app_mod
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import mlstm as mlstm_mod
@@ -350,6 +382,7 @@ def main() -> int:
     from repro_torch.launch import train as train_launch
     from repro_torch.models import transformer as T
     from repro_torch.train import train_loop as tl
+    from repro_torch import profiling as prof_mod
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -619,46 +652,146 @@ def main() -> int:
     check_encoded("bf16", x_bf, None, x_bf.float())
     del x_pr3, x_bf
 
-    send_idx = s.routes["dst"][0]
-    k = send_idx.shape[2]
-    rlive = ((send_idx >= 0) & (torch.rand(send_idx.shape, generator=gen)
-                                < 0.9).to(dev)).reshape(-1).contiguous()
-    vid = s.home_vid.reshape(-1)
-    vmask = g.vmask.reshape(-1).contiguous()
-    inv = s.apply_inv["dst"]
-
-    def check_apply(variant, spec, pay, x, reduce):
+    def check_apply(variant, gg, spec, msgs, xs, reduce):
         """Kernel and plain version combine in the same ascending source
-        partition order and run the same vprog ops: exact, sums included."""
-        call = lambda fn: fn(pay, rlive, inv, x, vid, vmask, spec,  # noqa: E731
-                             reduce=reduce)
-        new_k, chg_k = call(app_mod.fused_apply)
-        new_p, chg_p = call(ref.fused_apply)
-        torch.cuda.synchronize()
-        err, tol = compare(f"apply[{variant}]", new_k, new_p)
-        compare(f"apply[{variant}] changed bits", chg_k, chg_p)
-        # the function's own inputs: one home slot index (4 B) and one live
-        # byte per route entry (the kernel's inverse table when smaller),
-        # the live payload rows, the state, and vid only if the vprog reads it
-        n_route, n_rows = rlive.numel(), int(rlive.sum())
-        reads_vid = any(op.kind == "in" and op.args[0] == "vid"
-                        for op in spec.vprog.ops)
-        nbytes = (min(n_route, inv.numel()) * i32 + n_route
-                  + n_rows * spec.dm * 4 + x.numel() * 4
-                  + reads_vid * vid.numel() * i32 + vmask.numel()
-                  + new_k.numel() * 4 + chg_k.numel() * 4)
-        record("apply", variant, err, tol,
-               cuda_ms(lambda: call(app_mod.fused_apply)),
-               cuda_ms(lambda: call(ref.fused_apply)), nbytes,
-               n_rows * spec.dm + x.shape[0] * (ir_flops(spec.vprog) + spec.dv))
+        partition order and run the same vprog ops: exact, sums included;
+        a passed-through leaf comes back as the same tensor.  A copy of
+        apply_rng with one granule's range of one source partition cut
+        short by one entry, at a CTA boundary (the kernel reads the table
+        there), must fail the check."""
+        st_ = gg.s
+        nl_, v_blk_ = st_.p, st_.v_blk
+        S_ = nl_ * v_blk_
+        send, rng = st_.routes["dst"][0], st_.apply_rng["dst"]
+        flags = (send >= 0) & (torch.rand(tuple(send.shape), generator=gen)
+                               < 0.9).to(dev)
+        vid_, vm_ = st_.home_vid, gg.vmask
 
-    pay_pr = (torch.rand((nl * nl * k, 1), generator=gen) * 3).to(dev)
-    xh_pr = (torch.rand((nl * v_blk, a_pr.dv), generator=gen) * 50 + 1).to(dev)
-    check_apply("sum (pagerank vprog)", a_pr, pay_pr, xh_pr, "sum")
-    pay_cc = torch.randint(0, s.max_vid + 1, (nl * nl * k, 1), generator=gen,
-                           dtype=torch.int32).float().to(dev)
-    xh_cc = vid.float().reshape(-1, 1).clone()
-    check_apply("min (cc vprog)", a_cc, pay_cc, xh_cc, "min")
+        def call(fn, r=rng):
+            return fn(msgs, flags, send, r, xs, vid_, vm_, spec, reduce=reduce)
+
+        def held(name, got):
+            """compare() of the written leaves and the changed bits."""
+            errs = [compare(f"{name} leaf {l}", a, b) for l, (a, b, w) in
+                    enumerate(zip(got[0], new_p, spec.written)) if w]
+            compare(f"{name} changed bits", got[1], chg_p)
+            return max(errs)
+
+        new_p, chg_p = call(ref.fused_apply)
+        got = call(app_mod.fused_apply)
+        torch.cuda.synchronize()
+        err, tol = held(f"apply[{variant}]", got)
+        for l, (a, b, x, w) in enumerate(zip(got[0], new_p, xs,
+                                              spec.written)):
+            if not w and not (a is x and b is x):
+                raise AssertionError(f"apply[{variant}]: leaf {l}, passed "
+                                     f"through, was copied")
+        pl = app_mod.plan(spec.dm, spec.dv)
+        ctas = pl.grid(nl_, v_blk_)
+        # the mutant: the first CTA boundary b (a multiple of VB / GRAN)
+        # where dropping entry rng[q, pe, b] - 1 changes the plain result
+        per, nb = pl.vb // APPLY_GRAN, rng.shape[2] - 1
+        rng_h, flags_h = rng.cpu(), flags.cpu()
+        mutant = None
+        for b in range(per, nb, per):
+            for q, pe in np.ndindex(nl_, nl_):
+                j = int(rng_h[q, pe, b]) - 1
+                if j < int(rng_h[q, pe, b - 1]) or not flags_h[q, pe, j]:
+                    continue
+                bad = rng.clone()
+                bad[q, pe, b] -= 1
+                cut = call(ref.fused_apply, bad)
+                if all(torch.equal(a, c) for a, c in zip(new_p, cut[0])):
+                    continue
+                try:
+                    held(f"apply[{variant}] mutant", call(app_mod.fused_apply,
+                                                          bad))
+                except AssertionError as e:
+                    mutant = (f"range of granule {b - 1}, partition {q}, "
+                              f"source {pe} cut by one entry: fails as it "
+                              f"must ({e})")
+                    break
+                raise AssertionError(f"apply[{variant}]: the cut range "
+                                     f"({q}, {pe}, {b}) passed the check")
+            if mutant is not None:
+                break
+        if mutant is None:
+            raise AssertionError(f"apply[{variant}]: no mutant found")
+        del bad, cut
+        # the function's own bytes: each live route entry (4 B) and its
+        # flag, the live rows, the apply_rng words the CTAs read, the state
+        # columns the vprog or the changed test reads (and vid only if
+        # read), the mask, the columns written (invisible rows copy the
+        # old bits of columns nothing else reads) and a changed byte a slot
+        n_live = int(rng[:, :, -1].sum())
+        n_rows = int((flags & (send >= 0)).sum())
+        row_b = sum(m[0, 0, 0].numel() * m.element_size() for m in msgs)
+        cols = [(x.element_size(), w) for x, w, (_, sh) in
+                zip(xs, spec.written, spec.state)
+                for _ in range(int(np.prod(sh, dtype=np.int64)))]
+        col_b = [b for b, _ in cols]
+        wcols = [c for c, (_, w) in enumerate(cols) if w]
+        hidden = int((~vm_).sum())
+        nbytes = (n_live * (i32 + 1) + n_rows * row_b
+                  + nl_ * nl_ * (ctas[0] + 1) * i32
+                  + S_ * sum(col_b[c] for c in spec.reads)
+                  + spec.reads_vid * S_ * i32 + S_
+                  + S_ * sum(col_b[c] for c in wcols)
+                  + hidden * sum(col_b[c] for c in wcols
+                                 if c not in spec.reads) + S_)
+        # the earlier formula: every route slot's inverse-table word and live
+        # byte, the packed f32 state in and out, and an f32 changed flag
+        n_route = send.numel()
+        old_bytes = (min(n_route, nl_ * v_blk_ * nl_) * i32 + n_route
+                     + n_rows * spec.dm * 4 + S_ * spec.dv * 4
+                     + spec.reads_vid * S_ * i32 + S_ + S_ * spec.dv * 4
+                     + S_ * 4)
+        flops = n_rows * spec.dm + S_ * (ir_flops(spec.vprog) + spec.dv)
+        kernel = lambda: call(app_mod.fused_apply)  # noqa: E731
+        record("apply", variant, err, tol, cuda_ms(kernel),
+               cuda_ms(lambda: call(ref.fused_apply)), nbytes, flops)
+        row = results["apply"][-1]
+        # device_ms: calls back to back, the inputs L2-resident after the
+        # first; l2_cleared_ms: each call after a 128 MB write, as a
+        # superstep sees it (the roofline share is read from this one)
+        row.update(median_ms=median_ms(kernel), device_ms=device_ms(kernel),
+                   l2_cleared_ms=cold_device_ms(kernel, "apply_kernel"),
+                   old_bound_ms=bound(old_bytes, flops)[0], vb=pl.vb,
+                   ctas=ctas[0] * ctas[1], smem=pl.smem, mutant=mutant)
+        log(f"    VB {pl.vb}, CTAs {ctas[0]} x {ctas[1]}, threads "
+            f"{pl.threads}, smem {pl.smem} B; median of 5 x 20 "
+            f"{row['median_ms']:.4f} ms, device {row['device_ms']:.4f} ms "
+            f"(L2-resident), with L2 cleared {row['l2_cleared_ms']:.4f} ms "
+            f"= {row['bound_ms'] / row['l2_cleared_ms']:.0%} of the bound; "
+            f"bound {row['bound_ms']:.4f} ms ({nbytes / 1e6:.2f} MB), old "
+            f"formula {row['old_bound_ms']:.4f} ms ({old_bytes / 1e6:.2f} "
+            f"MB); {n_live} live route entries, {n_rows} live rows; mutant "
+            f"{mutant}")
+
+    k = s.routes["dst"][0].shape[2]
+    xs_pr = [(torch.rand((nl, v_blk), generator=gen) * 50 + 1).to(dev)
+             for _ in a_pr.state]
+    msgs_pr = [(torch.rand((nl, nl, k), generator=gen) * 3).to(dev)]
+    check_apply("sum (pagerank vprog)", g, a_pr, msgs_pr, xs_pr, "sum")
+    del xs_pr, msgs_pr
+    # CC's own structure, built here for the apply check and kept for
+    # phase 4
+    t0 = time.perf_counter()
+    sgd = symmetrize(rmat(CC_SCALE, 16, seed=1))
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sg = Graph.from_edges(sgd.src, sgd.dst, num_partitions=P, device=dev)
+    torch.cuda.synchronize()
+    log(f"  cc graph symmetrize(rmat({CC_SCALE},16)): {sg.s.num_vertices} "
+        f"vertices, {sg.s.num_edges} edges; generate {t_gen:.1f} s, build "
+        f"{time.perf_counter() - t0:.1f} s")
+    kc = sg.s.routes["dst"][0].shape[2]
+    msgs_cc = [torch.randint(0, sg.s.max_vid + 1, (P, P, kc), generator=gen,
+                             dtype=torch.int32).to(dev)]
+    # the home ids, INT_PAD on the padding rows: invisible rows keep them
+    xs_cc = [sg.s.home_vid.clone()]
+    check_apply("min (cc vprog)", sg, a_cc, msgs_cc, xs_cc, "min")
+    del xs_cc, msgs_cc
 
     # the unfused PageRank aggregate: messages in dst CSR order
     msgs = torch.rand((nl, e_blk, 1), generator=gen).to(dev)
@@ -711,7 +844,7 @@ def main() -> int:
            cuda_ms(lambda: spmv_mod.plain(*sp_args)),
            (S + 1) * i32 + n_live * (3 * i32 + 1) + 2 * S * 4, 2 * n_live,
            library_ms=cuda_ms(lambda: torch.sparse.mm(csr, sp_x)))
-    del (x_pr, x_cc, out_k, out_p, out_o, pr_send, pay_pr, pay_cc, sp_src,
+    del (x_pr, x_cc, out_k, out_p, out_o, pr_send, sp_src,
          sp_dst, sp_tiles, sp_x, sp_w, sp_args, keep, perm, csr)
     log(f"  phase 2: {time.perf_counter() - t_phase:.1f} s")
 
@@ -749,6 +882,10 @@ def main() -> int:
         f"fused == unfused bit for bit; max|pr-ref|/max|ref| = {rel:.3g}; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     counts_3 = ops.launch_counts()
+    _, _, trace = prof_mod.traced(lambda: alg.pagerank(g, num_iters=3))
+    log(f"  pagerank traced, 3 supersteps: "
+        f"{prof_mod.home_line(prof_mod.span_stats(trace))}")
+    del trace
     del r_u
     log(f"  phase 3: {time.perf_counter() - t_phase:.1f} s")
 
@@ -859,9 +996,7 @@ def main() -> int:
     from scipy.sparse.csgraph import connected_components as sp_cc
     ops.reset_launch_counts()
     t_phase = time.perf_counter()
-    log("phase 4: connected components")
-    sgd = symmetrize(rmat(CC_SCALE, 16, seed=1))
-    sg = Graph.from_edges(sgd.src, sgd.dst, num_partitions=P, device=dev)
+    log("phase 4: connected components (the graph built in phase 2)")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     c_f = alg.connected_components(sg, track_metrics=True)
@@ -890,6 +1025,9 @@ def main() -> int:
     log(f"  phase 4: {time.perf_counter() - t_phase:.1f} s")
 
     counts_4 = ops.launch_counts()
+    _, _, trace = prof_mod.traced(lambda: alg.connected_components(sg))
+    log(f"  cc traced: {prof_mod.home_line(prof_mod.span_stats(trace))}")
+    del trace
     launches = {k: counts_3.get(k, 0) + counts_4.get(k, 0)
                 for k in set(counts_3) | set(counts_4)}
     launches.update(resident_launches)

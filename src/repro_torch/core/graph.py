@@ -67,7 +67,7 @@ class Structure:
     routes: dict              # need -> (send_idx, recv_slot)
     agg_ptr: dict             # side -> [P, V_mir+1] CSR row pointers
     agg_pieces: dict          # side -> segorder.Pieces of agg_ptr[side]
-    apply_inv: dict           # side -> [P, V_blk, P] inverse routes
+    apply_rng: dict           # side -> [P, P, NB+1] route ranges
     p: int
     e_blk: int
     v_mir: int
@@ -82,12 +82,12 @@ class Structure:
         """From GraphStructure fields (a mapping of numpy arrays and ints);
         the GPU tables are built here when the mapping lacks them."""
         if f.get("agg_ptr") is None or f.get("agg_pieces") is None:
-            agg_ptr, agg_pieces, apply_inv = part_mod.gpu_tables(
+            agg_ptr, agg_pieces, apply_rng = part_mod.gpu_tables(
                 f["src_slot"], f["dst_slot"], f["src_perm"], f["edge_mask"],
                 f["routes"], int(f["v_mir"]), int(f["v_blk"]))
         else:
-            agg_ptr, agg_pieces, apply_inv = (f["agg_ptr"], f["agg_pieces"],
-                                              f["apply_inv"])
+            agg_ptr, agg_pieces, apply_rng = (f["agg_ptr"], f["agg_pieces"],
+                                              f["apply_rng"])
         t = lambda a: _to_device(a, device)      # noqa: E731
         return Structure(
             src_slot=t(f["src_slot"]), dst_slot=t(f["dst_slot"]),
@@ -97,7 +97,7 @@ class Structure:
             routes={k: (t(v[0]), t(v[1])) for k, v in f["routes"].items()},
             agg_ptr={k: t(v) for k, v in agg_ptr.items()},
             agg_pieces={k: type(v)(*map(t, v)) for k, v in agg_pieces.items()},
-            apply_inv={k: t(v) for k, v in apply_inv.items()},
+            apply_rng={k: t(v) for k, v in apply_rng.items()},
             p=int(f["num_partitions"]), e_blk=int(f["e_blk"]),
             v_mir=int(f["v_mir"]), v_blk=int(f["v_blk"]),
             num_vertices=int(f["num_vertices"]),

@@ -40,7 +40,7 @@ from .tree import (ElemSpec, bmask, elem_spec, gather_rows, nbytes_of,
 from ..kernels import ops as kops
 from ..kernels import udf
 from ..kernels.ref import SCALE_GROUP
-from ..kernels.superstep import ApplyUdf
+from ..kernels.superstep import MAX_DM as MAX_APPLY_DM, ApplyUdf
 from ..kernels.triplet import TripletUdf
 
 # min/max fusion width cap, kept from the reference so plan decisions agree
@@ -640,14 +640,18 @@ def _plan_apply(g, vprog: Callable, send_msg: Callable, reduce: str,
                 payload_bound: int | None) -> _ApplyPlan | None:
     """The fused apply plan of a superstep, or None for the unfused apply:
     messages as the triplet plan admits them (floats combine in f32),
-    rank <= 1 f32 or exactly-staged int state (narrower floats would see
-    other vprog arithmetic, as in the reference), static scalar defaults,
-    a vprog whose output specs equal the state's, and a vprog (and
-    changed_fn) the IR covers."""
+    rank <= 1 f32 or exactly-staged int state (read and written in its own
+    dtype; narrower float state plans unfused, as in the reference, whose
+    kernel would run the vprog in f32), static scalar defaults, a vprog
+    whose output specs equal the state's, and a vprog (and changed_fn) the
+    IR covers."""
     s = g.s
     if reduce not in ("sum", "min", "max"):
         return None
     vex, eex = elem_spec(g.vdata), elem_spec(g.edata)
+    if any(l.dtype in (torch.bfloat16, torch.float16)
+           for l in tree_leaves(vex)):
+        return None
     deps = analysis.analyze_message_fn(send_msg, vex, eex, vex)
     if deps.msg_spec is None:
         return None
@@ -657,9 +661,8 @@ def _plan_apply(g, vprog: Callable, send_msg: Callable, reduce: str,
             _fused_leaf_ok(m, bound, reduce, message=True) for m in msg_leaves):
         return None
     vleaves, vdef = tree_flatten(vex)
-    if not vleaves or not all(
-            _fused_leaf_ok(l, bound, reduce) and l.dtype not in
-            (torch.bfloat16, torch.float16) for l in vleaves):
+    if not vleaves or not all(_fused_leaf_ok(l, bound, reduce)
+                              for l in vleaves):
         return None
     mspecs = tuple(ElemSpec(m.shape, torch.float32 if m.dtype.is_floating_point
                             else m.dtype) for m in msg_leaves)
@@ -689,7 +692,7 @@ def _plan_apply(g, vprog: Callable, send_msg: Callable, reduce: str,
             return None
     dm = sum(_width(m) for m in mspecs)
     dv = sum(_width(v) for v in vleaves)
-    if reduce != "sum" and dm > FUSED_MINMAX_MAX_WIDTH:
+    if dm > MAX_APPLY_DM or (reduce != "sum" and dm > FUSED_MINMAX_MAX_WIDTH):
         return None
     # per packed message column: its leaf's dtype and default
     kernel = ApplyUdf(
@@ -697,7 +700,9 @@ def _plan_apply(g, vprog: Callable, send_msg: Callable, reduce: str,
         msg_dtypes=tuple(udf._DTYPES[m.dtype] for m in mspecs
                          for _ in range(_width(m))),
         defaults=tuple(d for m, d in zip(mspecs, defaults)
-                       for _ in range(_width(m))), dm=dm, dv=dv)
+                       for _ in range(_width(m))),
+        msgs=tuple((udf._DTYPES[m.dtype], tuple(m.shape)) for m in msg_leaves),
+        state=tuple((udf._DTYPES[v.dtype], tuple(v.shape)) for v in vleaves))
     return _ApplyPlan(dm=dm, dv=dv, msg_specs=mspecs,
                       msg_treedef=msg_treedef, v_specs=tuple(vleaves),
                       v_treedef=vdef, kernel=kernel)
@@ -705,31 +710,17 @@ def _plan_apply(g, vprog: Callable, send_msg: Callable, reduce: str,
 
 def fused_apply_home(g, recv: Any, rflags: torch.Tensor, to: str,
                      reduce: str, plan: _ApplyPlan, kernel_mode: str):
-    """Home half of the fused superstep: pack the routed aggregate rows and
-    the home state, then combine + vprog + changed in one kernel sweep.
-    Returns (new vdata pytree [nl, V_blk], changed [nl, V_blk] bool)."""
+    """Home half of the fused superstep: one kernel sweep combines the
+    routed aggregate leaves, runs the vprog and derives the changed mask,
+    reading and writing the vertex leaves in place (a leaf the vprog
+    passes through comes back as the same tensor).  Returns (new vdata
+    pytree [nl, V_blk], changed [nl, V_blk] bool)."""
     s = g.s
-    send_idx = s.routes[to][0]
-    nl, p, k = send_idx.shape
-    v_blk = s.v_blk
-    pay = torch.cat([l.reshape(nl, p * k, -1).float()
-                     for l in tree_leaves(recv)], dim=-1)
-    pay = pay.reshape(nl * p * k, plan.dm).contiguous()
-    live = (rflags & (send_idx >= 0)).reshape(-1).contiguous()
-    x = _pack_cols(g.vdata, (True,) * len(plan.v_specs), nl, v_blk,
-                   send_idx.device)
-    x = x.reshape(nl * v_blk, plan.dv).contiguous()
-    new_mat, changed = kops.superstep_apply(
-        pay, live, s.apply_inv[to], x, s.home_vid.reshape(-1),
-        g.vmask.reshape(-1).contiguous(), plan.kernel, reduce=reduce,
-        mode=kernel_mode)
-    # invisible rows keep their own values: an int outside the f32 staging
-    # range (INT_PAD padding ids) must not round-trip through the cast
-    out = [torch.where(bmask(g.vmask, old), new.to(old.dtype), old)
-           for new, old in zip(_split_cols(new_mat, plan.v_specs, (nl, v_blk)),
-                               tree_leaves(g.vdata))]
-    return (tree_unflatten(out, plan.v_treedef),
-            changed.reshape(nl, v_blk) > 0)
+    new, changed = kops.superstep_apply(
+        tree_leaves(recv), rflags, s.routes[to][0], s.apply_rng[to],
+        tree_leaves(g.vdata), s.home_vid, g.vmask, plan.kernel,
+        reduce=reduce, mode=kernel_mode)
+    return tree_unflatten(new, plan.v_treedef), changed
 
 
 def apply_plan_of(g, vprog: Callable, send_msg: Callable, reduce: str = "sum",

@@ -19,10 +19,11 @@ loads and needs only row pointers, so `gpu_tables` builds:
                                       SEG_PIECE edges, the summation order
                                       the triplet and segment_sum kernels
                                       share
-  apply_inv[side] [P, V_blk, P] int32 apply_inv[q, v, pe] = j where
-                                      routes[side][0][q, pe, j] == v, else -1:
-                                      which route entry of source partition pe
-                                      carries home row v's aggregate back
+  apply_rng[side] [P, P, NB+1] int32 the route-range table of the fused
+                                      apply (`kernels/applyroute.py`): where
+                                      each granule of APPLY_GRAN home slots
+                                      begins in the live prefix of
+                                      routes[side][0][q, pe]
 
 Layout of the shared arrays (P = number of partitions):
   src_slot / dst_slot [P, E_blk] int32   mirror slots, edges dst-clustered
@@ -39,7 +40,7 @@ import dataclasses
 
 import numpy as np
 
-from ..kernels import segorder
+from ..kernels import applyroute, segorder
 from .hashing import hash_mod, hash_mod32
 
 INT_PAD = np.int32(2**31 - 1)  # sorts after every real id
@@ -109,7 +110,7 @@ class GraphStructure:
     # GPU tables in place of the Pallas tiles (see module docstring)
     agg_ptr: dict = None          # type: ignore[assignment]
     agg_pieces: dict = None       # type: ignore[assignment]
-    apply_inv: dict = None        # type: ignore[assignment]
+    apply_rng: dict = None        # type: ignore[assignment]
 
     def home_of(self, vids: np.ndarray) -> np.ndarray:
         return hash_mod32(vids, self.num_partitions)
@@ -206,10 +207,11 @@ PARTITIONERS = {
 def gpu_tables(src_slot: np.ndarray, dst_slot: np.ndarray,
                src_perm: np.ndarray, edge_mask: np.ndarray, routes: dict,
                v_mir: int, v_blk: int) -> tuple[dict, dict, dict]:
-    """(agg_ptr, agg_pieces, apply_inv) — the CSR, piece and inverse-route
+    """(agg_ptr, agg_pieces, apply_rng) — the CSR, piece and route-range
     tables the CUDA kernels index (module docstring).  Requires each
-    partition's live edges to be the prefix of its slab, as build_structure
-    lays them out."""
+    partition's live edges to be the prefix of its slab and each route
+    row's live entries to be a strictly increasing prefix, as
+    build_structure lays them out; raises ValueError otherwise."""
     p = src_slot.shape[0]
     n = edge_mask.sum(axis=1)
     if not np.array_equal(edge_mask,
@@ -221,16 +223,11 @@ def gpu_tables(src_slot: np.ndarray, dst_slot: np.ndarray,
     for q in range(p):
         dptr[q] = np.searchsorted(dst_slot[q, :n[q]], slots)
         sptr[q] = np.searchsorted(src_slot[q][src_perm[q]][:n[q]], slots)
-    apply_inv = {}
-    for side in ("dst", "src"):
-        send = routes[side][0]
-        inv = np.full((p, v_blk, p), -1, np.int32)
-        q, pe, j = np.nonzero(send >= 0)
-        inv[q, send[q, pe, j], pe] = j
-        apply_inv[side] = inv
+    apply_rng = {side: applyroute.route_ranges(routes[side][0], v_blk)
+                 for side in ("dst", "src")}
     agg_ptr = {"dst": dptr, "src": sptr}
     agg_pieces = {k: segorder.piece_tables(v) for k, v in agg_ptr.items()}
-    return agg_ptr, agg_pieces, apply_inv
+    return agg_ptr, agg_pieces, apply_rng
 
 
 def build_structure(
@@ -406,7 +403,7 @@ def build_structure(
                      for pe, f in enumerate(flags)])
                 for need, flags in need_flags.items()}
 
-    agg_ptr, agg_pieces, apply_inv = gpu_tables(
+    agg_ptr, agg_pieces, apply_rng = gpu_tables(
         src_slot, dst_slot, src_perm, edge_mask, routes, v_mir, v_blk)
     stats = PartitionStats(
         num_vertices=n_vertices,
@@ -446,5 +443,5 @@ def build_structure(
         max_vid=int(all_vids.max()) if n_vertices else 0,
         agg_ptr=agg_ptr,
         agg_pieces=agg_pieces,
-        apply_inv=apply_inv,
+        apply_rng=apply_rng,
     )

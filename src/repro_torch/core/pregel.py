@@ -45,8 +45,10 @@ def _superstep(g: Graph, *, vprog, send_msg, gather, default_msg, skip_stale,
         return_routed=aplan is not None)
     if aplan is not None:
         # `msgs` is the raw routed aggregate buffer: the kernel combines it
-        new_vdata, changed = fused_apply_home(g, msgs, exists, "dst", gather,
-                                              aplan, kernel_mode)
+        # (the span lets a trace count the home half's launches)
+        with torch.profiler.record_function("apply_home"):
+            new_vdata, changed = fused_apply_home(g, msgs, exists, "dst",
+                                                  gather, aplan, kernel_mode)
         msg_elem = tree_unflatten(list(aplan.msg_specs), aplan.msg_treedef)
     else:
         msgs_or_default = tree_where(exists, msgs, tree_map(

@@ -49,11 +49,12 @@ def triplet(x, ev, src_slot, dst_slot, live, ptr, perm, spec, *,
                                   xscale=xscale)
 
 
-def superstep_apply(pay, live, inv, x, vid, vmask, spec, *,
+def superstep_apply(msgs, rflags, send, rng, xs, vid, vmask, spec, *,
                     reduce: str = "sum", mode: str = "auto"):
-    """Fused combine + vprog + changed; (new state [S, dv], changed [S])."""
+    """Fused combine + vprog + changed over the routed message leaves and
+    the vertex leaves; (new vertex leaves, changed [nl, V_blk] bool)."""
     fn = ref.fused_apply if _plain(mode) else _superstep.fused_apply
-    return fn(pay, live, inv, x, vid, vmask, spec, reduce=reduce)
+    return fn(msgs, rflags, send, rng, xs, vid, vmask, spec, reduce=reduce)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

@@ -15,10 +15,13 @@ the CPU.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 from . import segorder, udf
+from .applyroute import APPLY_GRAN
 
 # Finite reduce identities (f32 extremes, not ±inf), as in the reference.
 REDUCE_IDENTITY = {
@@ -248,65 +251,85 @@ def sum_tol(agg, msgs, n_slots: int):
     return 2 * gamma[:, None] * absum
 
 
-def fused_apply(pay, live, inv, x, vid, vmask, spec, *, reduce: str = "sum"):
-    """Combine + vprog + changed mask at the vertex homes.
+def fused_apply(msgs, rflags, send, rng, xs, vid, vmask, spec, *,
+                reduce: str = "sum"):
+    """Combine + vprog + changed at the vertex homes.
 
-    pay [nl*P*K, dm] f32 routed aggregate rows, live [nl*P*K] bool, inv
-    [nl, V_blk, P] int32 (kernels.superstep docstring), x [S, dv] f32
-    packed home state (S = nl*V_blk), vid [S] int32, vmask [S] bool, spec a
-    kernels.superstep.ApplyUdf.  Sums combine in ascending source partition
-    order.  Returns (new packed state [S, dv] f32, changed [S] f32 0/1)."""
-    nl, v_blk, p = inv.shape
-    s = nl * v_blk
-    k = pay.shape[0] // max(nl * p, 1)
-    dev = x.device
-    ident = REDUCE_IDENTITY[reduce]
-    acc = torch.full((s, spec.dm), ident, dtype=torch.float32, device=dev)
-    cnt = torch.zeros(s, dtype=torch.int32, device=dev)
-    q = torch.arange(nl, device=dev).repeat_interleave(v_blk)
-    inv2 = inv.reshape(s, p).long()
+    msgs: the routed message leaves [nl, P, K, ...] in their own dtypes;
+    rflags [nl, P, K] bool; send [nl, P, K] int32, the route's home slot of
+    each entry; rng [nl, P, NB+1] int32, its apply_rng
+    (`kernels/applyroute.py`); xs: the vertex leaves [nl, V_blk, ...];
+    vid [nl, V_blk] int32; vmask [nl, V_blk] bool; spec a
+    kernels.superstep.ApplyUdf.  An entry j of route row (q, pe) counts
+    where its flag is set and the granule range of rng that holds j is its
+    home slot's granule; each slot combines its entries in ascending source
+    partition (sums in f32).  Returns (new leaves, changed [nl, V_blk]
+    bool): a leaf the vprog passes through is the old tensor itself, a
+    written one a new tensor of its dtype whose invisible rows keep their
+    old bits."""
+    nl, p, k = send.shape
+    v_blk = vid.shape[1]
+    dev = vid.device
+    pay = torch.cat([m.reshape(nl, p, k, -1).float() for m in msgs], -1)
+    acc = torch.full((nl, v_blk + 1, pay.shape[-1]), REDUCE_IDENTITY[reduce],
+                     dtype=torch.float32, device=dev)
+    hit = torch.zeros((nl, v_blk + 1), dtype=torch.bool, device=dev)
+    rows = torch.arange(nl, device=dev)[:, None]
+    j = torch.arange(k, dtype=rng.dtype, device=dev).expand(nl, k).contiguous()
     for pe in range(p):
-        j = inv2[:, pe]
-        r = (q * p + pe) * k + j.clamp(min=0)
-        ok = (j >= 0) & live[r]
-        row = pay[r]
+        slot = send[:, pe].long()
+        gran = torch.searchsorted(rng[:, pe, 1:].contiguous(), j, right=True)
+        ok = rflags[:, pe] & (slot >= 0) & (gran == slot // APPLY_GRAN)
+        slot = torch.where(ok, slot, v_blk)   # the spare column swallows
+        cur, row = acc[rows, slot], pay[:, pe]
         if reduce == "sum":
-            acc = acc + torch.where(ok[:, None], row, 0.0)
+            red = cur + row
         else:
-            red = torch.minimum if reduce == "min" else torch.maximum
-            acc = torch.where(ok[:, None], red(acc, row), acc)
-        cnt += ok
-    exists = cnt > 0
-    return apply_home(spec, acc, exists, x, vid, vmask)
+            red = (torch.minimum if reduce == "min" else torch.maximum)(cur, row)
+        acc[rows, slot] = torch.where(ok[..., None], red, cur)
+        hit[rows, slot] = hit[rows, slot] | ok
+    return apply_home(spec, acc[:, :v_blk].reshape(nl * v_blk, -1),
+                      hit[:, :v_blk].reshape(-1), xs, vid, vmask)
 
 
-def apply_home(spec, acc, exists, x, vid, vmask):
-    """The apply half shared by the plain combine: default substitution in
-    each message leaf's dtype, vprog, visibility select, changed bit."""
+def apply_home(spec, acc, exists, xs, vid, vmask):
+    """The apply half after the combine: default substitution in each
+    message leaf's dtype, vprog on the f32-staged state, changed bit,
+    invisible rows kept, passed-through leaves returned as they are."""
+    nl, v_blk = vid.shape
+    n = nl * v_blk
     msgs = []
     for l, (dt, dflt) in enumerate(zip(spec.msg_dtypes, spec.defaults)):
         tdt = udf.TORCH_DTYPE[dt]
         m = torch.where(exists, acc[:, l], 0.0).to(tdt)
         msgs.append(torch.where(exists, m, torch.tensor(dflt, dtype=tdt,
-                                                       device=x.device)))
+                                                       device=vid.device)))
+    x = torch.cat([leaf.reshape(n, -1).float() for leaf in xs], 1)
 
     def load_vp(arr, col, dt):
-        return {"vid": lambda: vid, "x": lambda: x[:, col],
+        return {"vid": lambda: vid.reshape(-1), "x": lambda: x[:, col],
                 "m": lambda: msgs[col]}[arr]().to(dt)
 
-    n = x.shape[0]
-    new = torch.stack([o.to(torch.float32).expand(n)
-                       for o in udf.evaluate(spec.vprog, load_vp, x.device)], 1)
-    vm = vmask.bool()
-    new = torch.where(vm[:, None], new, x)
+    new = torch.stack([o.to(torch.float32).expand(n) for o in udf.evaluate(
+        spec.vprog, load_vp, vid.device)], 1)
+    vm = vmask.reshape(-1)
     if spec.changed is None:
         chg = (new != x).any(dim=1)
     else:
         def load_ch(arr, col, dt):
             return (x if arr == "x" else new)[:, col].to(dt)
-        (chg,) = udf.evaluate(spec.changed, load_ch, x.device)
+        (chg,) = udf.evaluate(spec.changed, load_ch, vid.device)
         chg = chg.expand(n)
-    return new, (chg & vm).to(torch.float32)
+    out, col = [], 0
+    for leaf, written in zip(xs, spec.written):
+        w = math.prod(leaf.shape[2:])
+        if written:
+            val = new[:, col:col + w].to(leaf.dtype).reshape(leaf.shape)
+            keep = vmask.reshape(vmask.shape + (1,) * (leaf.dim() - 2))
+            leaf = torch.where(keep, val, leaf)
+        out.append(leaf)
+        col += w
+    return out, (chg & vm).reshape(nl, v_blk)
 
 
 # The Pallas flash kernel's finite mask value (-0.7 * f32 max).

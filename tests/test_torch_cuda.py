@@ -294,33 +294,141 @@ def _cc_vprog(vid, v, msg):
     return {"c": torch.minimum(v["c"], msg["m"])}
 
 
+def _vdata_nan(g):
+    v = _vdata_f(g)
+    v["b"].reshape(-1)[::7] = np.nan
+    return v
+
+
+def _vdata_pad(g):
+    return {"c": g.s.home_vid.cpu().numpy().copy()}
+
+
+def _vdata_bf16(g):
+    rng = np.random.default_rng(2)
+    shape = tuple(g.s.home_vid.shape)
+    return {"a": rng.normal(size=shape).astype(np.float32),
+            "w": rng.uniform(0.5, 2.0, shape).astype(np.float32)}
+
+
+def _vdata_w2(g):
+    rng = np.random.default_rng(3)
+    shape = tuple(g.s.home_vid.shape)
+    return {"a": rng.normal(size=shape + (2,)).astype(np.float32),
+            "b": rng.normal(size=shape).astype(np.float32)}
+
+
+def _vdata_delta(g):
+    rng = np.random.default_rng(4)
+    shape = tuple(g.s.home_vid.shape)
+    return {"deg": rng.integers(1, 9, shape).astype(np.float32),
+            "delta": rng.uniform(0.0, 0.5, shape).astype(np.float32),
+            "pr": rng.uniform(0.15, 2.0, shape).astype(np.float32)}
+
+
+def _bf_send(sv, ev, dv):
+    """A bf16 message: routed in bf16, combined in f32."""
+    return {"m": (sv["a"] * ev["w"]).to(torch.bfloat16)}
+
+
+def _bf_vprog(vid, v, msg):
+    return {"a": 0.15 + 0.85 * msg["m"] * v["w"], "w": v["w"]}
+
+
+def _w2_send(sv, ev, dv):
+    return {"m": sv["a"] * 2.0}
+
+
+def _w2_vprog(vid, v, msg):
+    return {"a": 0.5 * v["a"] + msg["m"], "b": v["b"]}
+
+
+def _vdata_w120(g):
+    rng = np.random.default_rng(6)
+    shape = tuple(g.s.home_vid.shape)
+    return {"a": rng.normal(size=shape + (120,)).astype(np.float32),
+            "b": rng.normal(size=shape).astype(np.float32)}
+
+
+def _vdata_a(g):
+    rng = np.random.default_rng(7)
+    return {"a": rng.normal(size=tuple(g.s.home_vid.shape)).astype(
+        np.float32)}
+
+
+def _w60_send(sv, ev, dv):
+    return {"m": sv["a"] * torch.ones(60)}
+
+
+def _w60_vprog(vid, v, msg):
+    return {"a": 0.5 * v["a"] + msg["m"][0] + msg["m"][31] + msg["m"][59]}
+
+
+_DELTA_VPROG, _DELTA_CHG = alg.delta_pagerank_fns(0.15, 1e-3)
+
 APPLY_CASES = {
-    # name: (vdata, send, vprog, reduce, changed_fn, default)
-    "sum": (_vdata_f, _send_f, _pr_vprog, "sum", None, 0.0),
-    "sum_changed_fn": (_vdata_f, _send_f, _pr_vprog, "sum", _chg, 0.0),
-    "max": (_vdata_f, _mx_send, _mx_vprog, "max", None, -1.0),
-    "min_int": (_vdata_i, _send_i, _cc_vprog, "min", None, 2**31 - 1),
+    # name: (vdata, send, vprog, reduce, changed_fn, default, partitions)
+    "sum": (_vdata_f, _send_f, _pr_vprog, "sum", None, 0.0, P),
+    "sum_changed_fn": (_vdata_f, _send_f, _pr_vprog, "sum", _chg, 0.0, P),
+    "max": (_vdata_f, _mx_send, _mx_vprog, "max", None, -1.0, P),
+    "min_int": (_vdata_i, _send_i, _cc_vprog, "min", None, 2**31 - 1, P),
+    "bf16_message": (_vdata_bf16, _bf_send, _bf_vprog, "sum", None, 0.0, P),
+    "width2_leaf": (_vdata_w2, _w2_send, _w2_vprog, "sum", None, 0.0, P),
+    "int_pad_invisible": (_vdata_pad, _send_i, _cc_vprog, "min", None,
+                          2**31 - 1, P),
+    "nan_passthrough": (_vdata_nan, _send_f, _pr_vprog, "sum", None, 0.0, P),
+    "delta_changed_fn": (_vdata_delta, alg.delta_pagerank_send, _DELTA_VPROG,
+                         "sum", _DELTA_CHG, 0.0, P),
+    "sum_p1": (_vdata_f, _send_f, _pr_vprog, "sum", None, 0.0, 1),
+    "min_int_p3": (_vdata_i, _send_i, _cc_vprog, "min", None, 2**31 - 1, 3),
+    # CTAs of VB 768 (dm 60) and 256 (dm 120) slots, rounded to whole
+    # threads by the plan, on partitions wider than one CTA
+    "wide_msg60_p1": (_vdata_a, _w60_send, _w60_vprog, "sum", None, 0.0, 1),
+    "wide_leaf120_p2": (_vdata_w120, _w2_send, _w2_vprog, "sum", None, 0.0,
+                         2),
 }
+
+
+def _same_bits(a, b):
+    """Bit equality (NaNs included)."""
+    if a.dtype.is_floating_point:
+        bits = {4: torch.int32, 2: torch.int16}[a.element_size()]
+        a, b = a.view(bits), b.view(bits)
+    return torch.equal(a, b)
 
 
 @pytest.mark.parametrize("case", sorted(APPLY_CASES))
 def test_apply_kernel_matches_plain(case, cuda):
     """Both combine in ascending source partition and run the same IR, so
-    they agree exactly, sums included."""
-    vdata, send, vprog, reduce, chg, dflt = APPLY_CASES[case]
-    g = _graph(GD, cuda, vdata)
-    is_int = case == "min_int"
+    they agree exactly, sums included (NaNs bit for bit); invisible rows
+    keep their old bits and a leaf the vprog passes through is the old
+    tensor."""
+    vdata, send, vprog, reduce, chg, dflt, p = APPLY_CASES[case]
+    gd = rmat(10, 8, seed=42)
+    g = Graph.from_edges(gd.src, gd.dst, num_partitions=p, device=cuda)
+    g = g.replace(vdata={k: torch.from_numpy(v).to(cuda)
+                         for k, v in vdata(g).items()})
+    if case == "int_pad_invisible":
+        vm = g.vmask.clone()
+        vm.reshape(-1)[::5] = False
+        g = g.replace(vmask=vm, vmask_full=False)
+    is_int = isinstance(dflt, int)
     dtype = torch.int32 if is_int else torch.float32
     plan = mt._plan_apply(g, vprog, send, reduce, chg,
                           {"m": torch.tensor(dflt, dtype=dtype)}, None)
     assert plan is not None
+    pl = app_mod.plan(plan.dm, plan.dv)
+    if case.startswith("wide_"):         # slots past the first VB / THREADS
+        assert g.s.v_blk > pl.threads and pl.vb % pl.threads == 0
     send_idx = g.s.routes["dst"][0]
     rng = np.random.default_rng(11)
-    shape = tuple(send_idx.shape)
+    shape = tuple(send_idx.shape) + tuple(plan.msg_specs[0].shape)
     recv = (rng.integers(0, 5000, shape).astype(np.int32) if is_int
             else rng.normal(size=shape).astype(np.float32))
-    recv = {"m": torch.from_numpy(recv).to(cuda)}
-    rflags = (send_idx >= 0) & torch.from_numpy(rng.random(shape) < 0.8).to(cuda)
+    recv = {"m": torch.from_numpy(recv).to(
+        cuda, udf.TORCH_DTYPE[plan.kernel.msgs[0][0]])}
+    rflags = (send_idx >= 0) & torch.from_numpy(
+        rng.random(tuple(send_idx.shape)) < 0.8).to(cuda)
     before = app_mod.fused_apply.launches
     new, changed = mt.fused_apply_home(g, recv, rflags, "dst", reduce, plan,
                                        "auto")
@@ -329,9 +437,14 @@ def test_apply_kernel_matches_plain(case, cuda):
     torch.cuda.synchronize()
     assert app_mod.fused_apply.launches == before + 1
     assert torch.equal(changed, wchanged)
+    written = dict(zip(sorted(g.vdata), plan.kernel.written))
     for k in want:
-        assert new[k].dtype == want[k].dtype
-        assert torch.equal(new[k], want[k]), k
+        assert new[k].dtype == want[k].dtype == g.vdata[k].dtype
+        assert _same_bits(new[k], want[k]), k
+        assert _same_bits(new[k][~g.vmask], g.vdata[k][~g.vmask]), k
+        assert (new[k] is g.vdata[k]) == (not written[k]), k
+    if case == "nan_passthrough":
+        assert bool((changed & torch.isnan(g.vdata["b"])).any())
 
 
 @pytest.mark.parametrize("graph", ["rmat", "hub"])

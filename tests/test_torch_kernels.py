@@ -39,10 +39,10 @@ F32, I32 = ElemSpec((), torch.float32), ElemSpec((), torch.int32)
 
 
 @functools.lru_cache(maxsize=None)
-def _graphs(vdata, seed=3):
+def _graphs(vdata, seed=3, p=P):
     gd = rmat(7, 4, seed=seed)
-    g = Graph.from_edges(gd.src, gd.dst, num_partitions=P, device="cpu")
-    rg = RefGraph.from_edges(gd.src, gd.dst, num_partitions=P)
+    g = Graph.from_edges(gd.src, gd.dst, num_partitions=p, device="cpu")
+    rg = RefGraph.from_edges(gd.src, gd.dst, num_partitions=p)
     g = g.replace(vdata={k: torch.from_numpy(v) for k, v in vdata(g).items()})
     rg = rg.replace(vdata={k: jnp.asarray(v) for k, v in vdata(g).items()})
     return g, rg
@@ -169,51 +169,229 @@ def _cc_vprog(vid, v, msg):
     return {"c": torch.minimum(v["c"], msg["m"])}
 
 
+def _vdata_nan(g):
+    """_vdata_f with NaN in the passed-through leaf b at every 7th row."""
+    v = _vdata_f(g)
+    v["b"].reshape(-1)[::7] = np.nan
+    return v
+
+
+def _vdata_pad(g):
+    """CC's int32 state: the home ids, INT_PAD on the padding rows."""
+    return {"c": g.s.home_vid.numpy().copy()}
+
+
+def _vdata_bf16(g):
+    rng = np.random.default_rng(2)
+    shape = tuple(g.s.home_vid.shape)
+    return {"a": rng.normal(size=shape).astype(np.float32),
+            "w": rng.uniform(0.5, 2.0, shape).astype(np.float32)}
+
+
+def _vdata_w2(g):
+    rng = np.random.default_rng(3)
+    shape = tuple(g.s.home_vid.shape)
+    return {"a": rng.normal(size=shape + (2,)).astype(np.float32),
+            "b": rng.normal(size=shape).astype(np.float32)}
+
+
+def _vdata_delta(g):
+    rng = np.random.default_rng(4)
+    shape = tuple(g.s.home_vid.shape)
+    return {"deg": rng.integers(1, 9, shape).astype(np.float32),
+            "delta": rng.uniform(0.0, 0.5, shape).astype(np.float32),
+            "pr": rng.uniform(0.15, 2.0, shape).astype(np.float32)}
+
+
+def _bf_send(sv, ev, dv):
+    """A bf16 message: routed in bf16, combined in f32."""
+    return {"m": (sv["a"] * ev["w"]).to(torch.bfloat16)}
+
+
+def _bf_vprog(vid, v, msg):
+    return {"a": 0.15 + 0.85 * msg["m"] * v["w"], "w": v["w"]}
+
+
+def _bf_vprog_j(vid, v, msg):
+    return {"a": 0.15 + 0.85 * msg["m"] * v["w"], "w": v["w"]}
+
+
+def _w2_send(sv, ev, dv):
+    return {"m": sv["a"] * 2.0}
+
+
+def _w2_vprog(vid, v, msg):
+    return {"a": 0.5 * v["a"] + msg["m"], "b": v["b"]}
+
+
+def _w2_vprog_j(vid, v, msg):
+    return {"a": 0.5 * v["a"] + msg["m"], "b": v["b"]}
+
+
+def _vdata_w120(g):
+    rng = np.random.default_rng(6)
+    shape = tuple(g.s.home_vid.shape)
+    return {"a": rng.normal(size=shape + (120,)).astype(np.float32),
+            "b": rng.normal(size=shape).astype(np.float32)}
+
+
+def _vdata_a(g):
+    rng = np.random.default_rng(7)
+    return {"a": rng.normal(size=tuple(g.s.home_vid.shape)).astype(
+        np.float32)}
+
+
+def _w60_send(sv, ev, dv):
+    return {"m": sv["a"] * torch.ones(60)}
+
+
+def _w60_vprog(vid, v, msg):
+    return {"a": 0.5 * v["a"] + msg["m"][0] + msg["m"][31] + msg["m"][59]}
+
+
+def _w60_vprog_j(vid, v, msg):
+    return {"a": 0.5 * v["a"] + msg["m"][0] + msg["m"][31] + msg["m"][59]}
+
+
+_DELTA_VPROG, _DELTA_CHG = alg.delta_pagerank_fns(0.15, 1e-3)
+
+
+def _delta_vprog_j(vid, v, msg):
+    new_pr = v["pr"] + (1.0 - 0.15) * msg["m"]
+    return {**v, "pr": new_pr, "delta": new_pr - v["pr"]}
+
+
+def _delta_chg_j(old, new):
+    return jnp.abs(new["pr"] - old["pr"]) > 1e-3
+
+
 APPLY_CASES = {
-    # name: (vdata, send, vprog, ref vprog, reduce, changed, ref changed, default)
-    "sum": (_vdata_f, _send_f, _pr_vprog, _pr_vprog_j, "sum", None, None, 0.0),
+    # name: (vdata, send, vprog, ref vprog, reduce, changed, ref changed,
+    #        default, partitions)
+    "sum": (_vdata_f, _send_f, _pr_vprog, _pr_vprog_j, "sum", None, None, 0.0,
+            P),
     "sum_changed_fn": (_vdata_f, _send_f, _pr_vprog, _pr_vprog_j, "sum",
-                       _chg, _chg_j, 0.0),
+                       _chg, _chg_j, 0.0, P),
     "max": (_vdata_f, _mx_send, _mx_vprog, _mx_vprog_j, "max", None, None,
-            -1.0),
+            -1.0, P),
     "min_int": (_vdata_i, _send_i, _cc_vprog, _cc_vprog_j, "min", None, None,
-                2**31 - 1),
+                2**31 - 1, P),
+    "bf16_message": (_vdata_bf16, _bf_send, _bf_vprog, _bf_vprog_j, "sum",
+                     None, None, 0.0, P),
+    "width2_leaf": (_vdata_w2, _w2_send, _w2_vprog, _w2_vprog_j, "sum", None,
+                    None, 0.0, P),
+    "int_pad_invisible": (_vdata_pad, _send_i, _cc_vprog, _cc_vprog_j, "min",
+                          None, None, 2**31 - 1, P),
+    "nan_passthrough": (_vdata_nan, _send_f, _pr_vprog, _pr_vprog_j, "sum",
+                        None, None, 0.0, P),
+    "delta_changed_fn": (_vdata_delta, alg.delta_pagerank_send, _DELTA_VPROG,
+                         _delta_vprog_j, "sum", _DELTA_CHG, _delta_chg_j, 0.0,
+                         P),
+    "sum_p1": (_vdata_f, _send_f, _pr_vprog, _pr_vprog_j, "sum", None, None,
+               0.0, 1),
+    "min_int_p3": (_vdata_i, _send_i, _cc_vprog, _cc_vprog_j, "min", None,
+                   None, 2**31 - 1, 3),
+    # message widths whose CTA the plan rounds to whole threads (VB 768 at
+    # dm 60, 256 at dm 120; the card's cases run on partitions wider than
+    # the CTA)
+    "wide_msg60_p1": (_vdata_a, _w60_send, _w60_vprog, _w60_vprog_j, "sum",
+                       None, None, 0.0, 1),
+    "wide_leaf120_p2": (_vdata_w120, _w2_send, _w2_vprog, _w2_vprog_j,
+                         "sum", None, None, 0.0, 2),
 }
+
+
+def _apply_case(case):
+    """(g, rg, port plan, reference plan) of an APPLY_CASES case;
+    int_pad_invisible also hides every 5th real vertex."""
+    vdata, send, vprog, vprog_j, reduce, chg, chg_j, dflt, p = \
+        APPLY_CASES[case]
+    g, rg = _graphs(vdata, p=p)
+    if case == "int_pad_invisible":
+        vm = g.vmask.numpy().copy()
+        vm.reshape(-1)[::5] = False
+        g = g.replace(vmask=torch.from_numpy(vm), vmask_full=False)
+        rg = rg.replace(vmask=jnp.asarray(vm), vmask_full=False)
+    is_int = isinstance(dflt, int)
+    d_t = {"m": torch.tensor(dflt, dtype=torch.int32 if is_int
+                             else torch.float32)}
+    d_j = {"m": jnp.int32(dflt) if is_int else jnp.float32(dflt)}
+    plan = mt._plan_apply(g, vprog, send, reduce, chg, d_t, None)
+    rplan = ref_mt._plan_apply(rg, vprog_j, send_j(send), reduce, chg_j, d_j,
+                               None)
+    return g, rg, plan, rplan
+
+
+def _apply_inputs(g, plan, seed=11):
+    """Routed messages (numpy, exact in the message leaf's dtype) and
+    flags for the route to dst."""
+    send_idx = g.s.routes["dst"][0].numpy()
+    rng = np.random.default_rng(seed)
+    shape = send_idx.shape + tuple(plan.msg_specs[0].shape)
+    if plan.msg_specs[0].dtype == torch.int32:
+        recv = rng.integers(0, 5000, shape).astype(np.int32)
+    else:
+        recv = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+            udf.TORCH_DTYPE[plan.kernel.msgs[0][0]]).float().numpy()
+    rflags = (send_idx >= 0) & (rng.random(send_idx.shape) < 0.8)
+    return recv, rflags
+
+
+def _same_bits(a, b):
+    """Bit equality (NaNs included)."""
+    if a.dtype.is_floating_point:
+        bits = {4: torch.int32, 2: torch.int16}[a.element_size()]
+        a, b = a.view(bits), b.view(bits)
+    return torch.equal(a, b)
 
 
 @pytest.mark.parametrize("mode", ["ref", "interpret"])
 @pytest.mark.parametrize("case", sorted(APPLY_CASES))
 def test_apply_plain_matches_reference(case, mode):
-    vdata, send, vprog, vprog_j, reduce, chg, chg_j, dflt = APPLY_CASES[case]
-    g, rg = _graphs(vdata)
-    is_int = case == "min_int"
-    d_t = {"m": torch.tensor(dflt, dtype=torch.int32 if is_int else torch.float32)}
-    d_j = {"m": jnp.int32(dflt) if is_int else jnp.float32(dflt)}
-    plan = mt._plan_apply(g, vprog, send, reduce, chg, d_t, None)
-    rplan = ref_mt._plan_apply(rg, vprog_j, send_j(send), reduce, chg_j, d_j,
-                               None)
+    """The port's plain apply against the reference's fused_apply_home on
+    the visible rows (sums within rtol = atol = 1e-6, the rest exact, the
+    changed bits exact); the port's invisible rows keep their old bits and
+    a passed-through leaf comes back as the same tensor."""
+    reduce = APPLY_CASES[case][4]
+    g, rg, plan, rplan = _apply_case(case)
     assert plan is not None and rplan is not None
-    send_idx = g.s.routes["dst"][0].numpy()
-    rng = np.random.default_rng(11)
-    if is_int:
-        recv = rng.integers(0, 5000, send_idx.shape).astype(np.int32)
-    else:
-        recv = rng.normal(size=send_idx.shape).astype(np.float32)
-    rflags = (send_idx >= 0) & (rng.random(send_idx.shape) < 0.8)
+    recv, rflags = _apply_inputs(g, plan)
+    mdt = udf.TORCH_DTYPE[plan.kernel.msgs[0][0]]    # the routed leaf's
     new, changed = mt.fused_apply_home(
-        g, {"m": torch.from_numpy(recv)}, torch.from_numpy(rflags), "dst",
-        reduce, plan, "ref")
+        g, {"m": torch.from_numpy(recv).to(mdt)}, torch.from_numpy(rflags),
+        "dst", reduce, plan, "ref")
+    vprog_j, chg_j = APPLY_CASES[case][3], APPLY_CASES[case][6]
     rnew, rchanged = ref_mt.fused_apply_home(
-        rg, {"m": jnp.asarray(recv)}, jnp.asarray(rflags), "dst", reduce,
-        rplan, vprog_j, chg_j, mode)
+        rg, {"m": jnp.asarray(recv).astype(str(mdt).removeprefix("torch."))},
+        jnp.asarray(rflags), "dst", reduce, rplan, vprog_j, chg_j, mode)
     np.testing.assert_array_equal(changed.numpy(), np.asarray(rchanged))
     vm = g.vmask.numpy()
+    written = dict(zip(sorted(g.vdata), plan.kernel.written))  # leaf order
     for k in new:
-        got, want = new[k].numpy()[vm], np.asarray(rnew[k])[vm]
+        assert new[k].dtype == g.vdata[k].dtype
+        got, want = new[k].float().numpy()[vm], np.asarray(rnew[k])[vm]
         if reduce == "sum":
             np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
         else:
             np.testing.assert_array_equal(got, want)
+        assert _same_bits(new[k][~g.vmask], g.vdata[k][~g.vmask])
+        if not written[k]:
+            assert new[k] is g.vdata[k]
+    if case == "nan_passthrough":
+        nan = np.isnan(g.vdata["b"].numpy()) & vm
+        assert nan.any() and changed.numpy()[nan].all()
+
+
+@pytest.mark.parametrize("case", sorted(APPLY_CASES))
+def test_apply_source_generates(case):
+    """The kernel's source is generated here for every case (the card only
+    compiles it): every marker filled, the CTA's defines from `plan`."""
+    _, _, plan, _ = _apply_case(case)
+    src = app_mod.source(plan.kernel, APPLY_CASES[case][4])
+    pl = app_mod.plan(plan.dm, plan.dv)
+    assert "//@" not in src
+    assert f"#define VB {pl.vb}\n" in src
+    assert f"#define THREADS {pl.threads}\n" in src
 
 
 def send_j(send):
@@ -221,7 +399,13 @@ def send_j(send):
     return {_send_f: lambda sv, ev, dv: {"m": jnp.maximum(sv["a"], dv["b"])
                                          * ev["w"]},
             _send_i: lambda sv, ev, dv: {"m": sv["c"]},
-            _mx_send: lambda sv, ev, dv: {"m": sv["a"]}}[send]
+            _mx_send: lambda sv, ev, dv: {"m": sv["a"]},
+            _w2_send: lambda sv, ev, dv: {"m": sv["a"] * 2.0},
+            _w60_send: lambda sv, ev, dv: {"m": sv["a"] * jnp.ones(60)},
+            _bf_send: lambda sv, ev, dv: {
+                "m": (sv["a"] * ev["w"]).astype(jnp.bfloat16)},
+            alg.delta_pagerank_send: lambda sv, ev, dv: {
+                "m": sv["delta"] / sv["deg"] * ev["w"]}}[send]
 
 
 def _csr_case(rng, nl, e, v):

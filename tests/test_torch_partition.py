@@ -3,8 +3,8 @@
 Every GraphStructure field except the Pallas `tiles` must be byte-identical
 to the reference's, for every partitioner, with and without a broadcast
 set.  The GPU tables that replace `tiles` are checked for meaning: each
-live edge sits once in its slot's CSR range, in edge order, and apply_inv
-inverts the routes.
+live edge sits once in its slot's CSR range, in edge order, and every
+live route entry lies in its home slot's granule range of apply_rng.
 """
 import dataclasses
 
@@ -17,6 +17,7 @@ from repro.core import hashing as ref_hashing  # noqa: E402
 from repro.core import partition as ref_part  # noqa: E402
 from repro.data import graphs as ref_graphs  # noqa: E402
 from repro_torch.core import hashing, partition  # noqa: E402
+from repro_torch.kernels import applyroute  # noqa: E402
 from repro_torch.data import graphs  # noqa: E402
 
 
@@ -87,10 +88,12 @@ def test_gpu_tables_meaning(kind):
                 assert seen == s.src_perm[q][:n].tolist()
     for side in ("dst", "src"):
         send = s.routes[side][0]
-        inv = s.apply_inv[side]
+        rng = s.apply_rng[side]
         q, pe, j = np.nonzero(send >= 0)
-        assert np.array_equal(inv[q, send[q, pe, j], pe], j)
-        assert int((inv >= 0).sum()) == q.size
+        # each live route entry lies in its home slot's granule range
+        b = send[q, pe, j] // applyroute.APPLY_GRAN
+        assert np.all((rng[q, pe, b] <= j) & (j < rng[q, pe, b + 1]))
+        assert np.array_equal(rng[:, :, -1], (send >= 0).sum(axis=2))
 
 
 def test_gpu_tables_need_live_prefix():
