@@ -36,6 +36,27 @@ Phases (any failure exits non-zero before the result line):
   4. connected components on symmetrize(rmat(21, 16, seed=1)), P=4: labels
      bit-equal to scipy's min-id labels and to the unfused plan; then a
      traced run's home half, as in phase 3;
+  4b. the rest of the main path, each main-path run counted alone (the
+     launch counts set to 0 just before it and read just after; the
+     kernels its plans run must each launch, and the triangle count
+     launches segment_sum and neither triplet nor apply; the unfused
+     comparison runs are not counted):
+     on CC's graph (edge weights w ~ U(0.5, 3) from default_rng(1)),
+     SSSP from vertex 0 (fused send and apply, fused == unfused, INF32
+     exactly where scipy's dijkstra gives inf, the rest within 1e-5
+     relative), label propagation (k 16, labels vid % 16, 10 iterations:
+     the 16-column send and apply fused; fused == unfused ==
+     a host vote), subgraph(vid % 3 != 0) (the structure shared, the edge
+     mask == both endpoints visible, CC on it == scipy on the induced
+     subgraph), coarsen (Listing 7, domains vid // 16: pages preserved,
+     edges == a host oracle, PageRank on the result fused == unfused);
+     the transpose of phase 3's graph (in-degrees == out-degrees bit for
+     bit through the permuted "dst" walk; PageRank fused == unfused,
+     within 1e-4 of the oracle on (dst, src)); the triangle count on
+     symmetrize(rmat(15, 16, seed=1)) (per-vertex counts == scipy's
+     exactly, peak device memory logged); and
+     examples/torch_quickstart.py, whose lines must equal the JAX
+     quickstart's;
   5. the flash attention kernel against its plain version at the serve
      step's shape (GQA 4, Lk 1664, non-causal; K/V read in place through
      the strides the cross-attention's einsum leaves, with no copy, and
@@ -174,10 +195,34 @@ def median_ms(fn, n: int = 20, reps: int = 5) -> float:
     return statistics.median(cuda_ms(fn, n) for _ in range(reps))
 
 
-def device_ms(fn, n: int = 20) -> float:
+def queued_ms(fn, n: int = 20) -> float | None:
+    """Device milliseconds a call of `fn` over n calls back to back, timed
+    by CUDA events with the stream held by a sleep kernel until the host
+    has queued all n, so no host time enters (no profiler); None if the
+    sleep ended first."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(1_000_000_000)        # ~0.5 s at the H100's clock
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    ahead = not a.query()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n if ahead else None
+
+
+def device_ms(fn, n: int = 20) -> tuple[float | None, str]:
     """Mean device milliseconds of `fn`'s kernels over n runs after a
     warm-up (torch.profiler's summed kernel time): the card's share of a
-    call whose host side may set `cuda_ms`."""
+    call whose host side may set `cuda_ms`; and how it was read.  Each
+    call launches the same kernels, so each kernel's record count is a
+    multiple of n; where it is not, or the profiler returned no kernel
+    record, records were lost (seen with torch 2.11) and the time is
+    `queued_ms` instead, as the second value says (None: not measured)."""
+    import collections
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -187,15 +232,26 @@ def device_ms(fn, n: int = 20) -> float:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / n / 1e3
+    recs = collections.Counter()
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            recs[e.key] += e.count
+            total += e.device_time_total
+    if recs and all(c % n == 0 for c in recs.values()):
+        return total / n / 1e3, "profiler"
+    got = ", ".join(f"{k[:40]} {c}" for k, c in recs.items()) or "none"
+    ms = queued_ms(fn, n)
+    return ms, (f"{'queued events' if ms is not None else 'not measured'} "
+                f"(the profiler returned kernel records {got} for {n} calls)")
 
 
-def cold_device_ms(fn, kernel: str, n: int = 20) -> float:
-    """Mean device milliseconds of the kernels whose name holds `kernel`,
-    over n runs of fn after a warm-up, with a 128 MB write before each run:
-    fn's inputs out of the card's 50 MB L2, as the rest of a superstep
-    leaves them."""
+def cold_device_ms(fn, kernel: str, n: int = 20) -> float | None:
+    """Mean device milliseconds of the one kernel a call of fn launches
+    whose name holds `kernel`, over n runs of fn after a warm-up, with a
+    128 MB write before each run: fn's inputs out of the card's 50 MB L2,
+    as the rest of a superstep leaves them.  The mean is over the records
+    the profiler returned (it may lose some); None if it returned none."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -207,9 +263,18 @@ def cold_device_ms(fn, kernel: str, n: int = 20) -> float:
             junk.zero_()
             fn()
         torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and kernel in e.key) / n / 1e3
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and kernel in e.key]
+    count = sum(e.count for e in evs)
+    if count != n:
+        log(f"    cold_device_ms: {count} records of {kernel} for {n} "
+            "calls; the mean is over those")
+    return sum(e.device_time_total for e in evs) / count / 1e3 if count \
+        else None
+
+
+def ms_str(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def bound(nbytes: float, flops: float,
@@ -356,6 +421,324 @@ def mlstm_inputs(b, h, l, dh, gen, device):
     return [t.to(device) for t in (q, k, v, logi, logf)]
 
 
+LP_LABELS, LP_ITERS = 16, 10          # phase 4b label propagation
+TRI_SCALE = 15                         # phase 4b triangle count graph
+# what examples/quickstart.py prints (the JAX reference, on the CPU)
+QUICKSTART_LINES = [
+    "graph: 1024 vertices, 6716 edges",
+    "vertices over 40: 583",
+    "mrTriplets join arity after elimination: 3 (UDF reads both endpoints "
+    "-> 3-way)",
+    "subgraph shares structure with parent: True",
+    "top-5 by PageRank: [0, 1, 256, 128, 2]",
+    "connected components: 1 (in 4 supersteps)",
+    "triangles: 24411"]
+
+
+def load_example(name: str):
+    """examples/<name>.py as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _lp_init(vid, v):
+    return {"label": vid % LP_LABELS}
+
+
+def _third_visible(vid, v):
+    return vid % 3 != 0
+
+
+def _coarse_init(vid, v):
+    import torch
+    return {"pages": torch.tensor(1.0), "dom": vid // 16}
+
+
+def _same_domain(sv, ev, dv):
+    return sv["dom"] == dv["dom"]
+
+
+def min_id_labels(n, src, dst, ids):
+    """Each vertex id of `ids` -> the least id of its component in the
+    undirected graph (src, dst) over n ids (scipy)."""
+    import numpy as np
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components as sp_cc
+    adj = csr_matrix((np.ones(len(src), np.int8), (src, dst)), shape=(n, n))
+    _, lab = sp_cc(adj, directed=False)
+    minid = np.full(lab.max() + 1, n, np.int64)
+    np.minimum.at(minid, lab[ids], ids)
+    return minid[lab[ids]]
+
+
+def main_path_run(tally, label, fn, launched=(), idle=()):
+    """One main-path call of phase 4b, counted alone: the launch counts set
+    to 0 just before `fn` and read just after.  Each kernel of `launched`
+    must have launched in it and none of `idle`; its counts go into
+    tally[label] (the unfused comparison runs and the checks stay
+    outside)."""
+    import torch
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for k in launched:
+        if counts.get(k, 0) <= 0:
+            raise AssertionError(f"{label}: kernel {k} never launched")
+    for k in idle:
+        if counts.get(k, 0):
+            raise AssertionError(f"{label}: kernel {k} launched {counts[k]} "
+                                 "times; its plans run no such kernel")
+    tally[label] = {k: n for k, n in counts.items() if n}
+    return out
+
+
+def check_plans(label, r, want=("fused", "fused_apply")):
+    m0 = r.metrics[0]
+    if (m0["plan"], m0["apply_plan"]) != want:
+        raise AssertionError(f"{label} plans {m0['plan']}, "
+                             f"{m0['apply_plan']}; want {want}")
+
+
+def phase_4b_graphs(g, gd, sg, sgd, w_cc, tally):
+    """SSSP, label propagation, subgraph + CC and coarsen on CC's graph,
+    and the transpose of PageRank's graph (phase 4b; see the docstring).
+    The launches of each main-path run go into `tally`."""
+    import numpy as np
+    import torch
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import mrtriplets as mt
+
+    n = sgd.num_vertices
+    ids_np = sg.vertices_to_numpy()[0]
+
+    # --- weighted SSSP from vertex 0
+    g_dist = sg.mapV(lambda vid, v: {"dist": torch.tensor(0.0)})
+    if mt.plan_of(g_dist, alg.sssp_send, "min") != "fused" or \
+            mt.apply_plan_of(g_dist, alg.sssp_vprog, alg.sssp_send, "min",
+                             default_msg={"m": torch.tensor(alg.INF32)}) \
+            != "fused_apply":
+        raise AssertionError("sssp plans: want fused, fused_apply")
+    del g_dist
+    t0 = time.perf_counter()
+    s_f = main_path_run(tally, "sssp", lambda: alg.sssp(sg, 0),
+                        ("triplet", "apply"))
+    t_f = time.perf_counter() - t0
+    s_u = alg.sssp(sg, 0, kernel_mode="unfused")
+    if not torch.equal(s_f.graph.vdata["dist"], s_u.graph.vdata["dist"]) \
+            or s_f.supersteps != s_u.supersteps:
+        raise AssertionError("sssp: fused != unfused")
+    _, vals = s_f.graph.vertices_to_numpy()
+    dist = vals["dist"]
+    adj_w = csr_matrix((w_cc.astype(np.float64), (sgd.src, sgd.dst)),
+                       shape=(n, n))
+    want = dijkstra(adj_w, directed=True, indices=0)[ids_np]
+    unreached = np.isinf(want)
+    if not np.array_equal(dist == alg.INF32, unreached):
+        raise AssertionError("sssp: unreached vertices differ from scipy's")
+    rel = np.abs(dist[~unreached] - want[~unreached]) / np.maximum(
+        want[~unreached], 1e-30)
+    if not rel.max() <= 1e-5:
+        raise AssertionError(f"sssp vs scipy dijkstra: {rel.max()}")
+    log(f"  sssp from 0: {s_f.supersteps} supersteps, fused {t_f:.3f} s; "
+        f"plans fused, fused_apply; fused == unfused bit for bit; "
+        f"{int((~unreached).sum())} reached, {int(unreached.sum())} at "
+        f"INF32 where dijkstra gives inf; max rel err {rel.max():.3g} vs "
+        f"scipy dijkstra (f64)")
+    del s_f, s_u, adj_w, want, dist
+
+    # --- label propagation, k = 16, labels vid % 16
+    sgl = sg.mapV(_lp_init)
+    send, vprog = alg.label_propagation_fns(LP_LABELS)
+    if mt.plan_of(sgl, send, "sum") != "fused" or mt.apply_plan_of(
+            sgl, vprog, send, "sum",
+            default_msg={"votes": torch.zeros(LP_LABELS)}) != "fused_apply":
+        raise AssertionError("label propagation plans: want fused, "
+                             "fused_apply")
+    t0 = time.perf_counter()
+    l_f = main_path_run(tally, "label propagation", lambda: (
+        alg.label_propagation(sgl, LP_LABELS, num_iters=LP_ITERS)),
+        ("triplet", "apply"))
+    t_f = time.perf_counter() - t0
+    l_u = alg.label_propagation(sgl, LP_LABELS, num_iters=LP_ITERS,
+                                kernel_mode="unfused")
+    if not torch.equal(l_f.graph.vdata["label"], l_u.graph.vdata["label"]) \
+            or l_f.supersteps != l_u.supersteps:
+        raise AssertionError("label propagation: fused != unfused")
+    lids, lvals = l_f.graph.vertices_to_numpy()
+    want = alg.label_propagation_reference(
+        sgd.src, sgd.dst, np.arange(n) % LP_LABELS, LP_LABELS, LP_ITERS)
+    if not np.array_equal(lvals["label"], want[lids]):
+        raise AssertionError("label propagation differs from the host vote")
+    log(f"  label propagation k={LP_LABELS}: {l_f.supersteps} supersteps, "
+        f"fused send and apply (dm {LP_LABELS}) {t_f:.3f} s; fused == "
+        f"unfused, labels == the host vote")
+    del sgl, l_f, l_u, want
+
+    # --- subgraph: every third id hidden; CC on it
+    sub = sg.subgraph(vpred=_third_visible)
+    if sub.s is not sg.s:
+        raise AssertionError("subgraph rebuilt the structure")
+    svid, dvid, _, emask = sg.edges()
+    es, ed = svid.cpu().numpy(), dvid.cpu().numpy()
+    host = emask.cpu().numpy() & (es % 3 != 0) & (ed % 3 != 0)
+    if not np.array_equal(sub.emask.cpu().numpy(), host):
+        raise AssertionError("subgraph emask != both endpoints visible")
+    c_f = main_path_run(tally, "cc on the subgraph", lambda: (
+        alg.connected_components(sub, track_metrics=True)),
+        ("triplet", "apply"))
+    check_plans("cc on the subgraph", c_f)
+    c_u = alg.connected_components(sub, kernel_mode="unfused")
+    if not torch.equal(c_f.graph.vdata["cc"], c_u.graph.vdata["cc"]) \
+            or c_f.supersteps != c_u.supersteps:
+        raise AssertionError("cc on the subgraph: fused != unfused")
+    cids, cvals = c_f.graph.vertices_to_numpy()
+    keep = host[emask.cpu().numpy()]
+    es_l, ed_l = es[emask.cpu().numpy()], ed[emask.cpu().numpy()]
+    if not np.array_equal(cvals["cc"], min_id_labels(
+            n, es_l[keep], ed_l[keep], cids)):
+        raise AssertionError("cc on the subgraph != scipy on the induced "
+                             "subgraph")
+    log(f"  subgraph(vid % 3 != 0): shares the structure, {int(host.sum())} "
+        f"of {int(emask.sum())} edges kept == host mask; cc on it "
+        f"{c_f.supersteps} supersteps, fused == unfused, labels == scipy")
+    del sub, c_f, c_u, svid, dvid, es, ed, host, keep, es_l, ed_l
+
+    # --- reverse PageRank's graph: the "dst" side walks the old src order
+    gr = g.reverse()
+    din, _ = main_path_run(tally, "reverse: in-degrees",
+                           lambda: gr.degrees("in"), ("triplet",))
+    dout, _ = g.degrees("out")
+    if not torch.equal(din, dout):
+        raise AssertionError("reverse().degrees('in') != degrees('out')")
+    t0 = time.perf_counter()
+    p_f = main_path_run(tally, "pagerank on the transpose", lambda: (
+        alg.pagerank(gr, num_iters=PR_ITERS, track_metrics=True)),
+        ("triplet", "apply"))
+    t_f = time.perf_counter() - t0
+    check_plans("pagerank on the transpose", p_f)
+    p_u = alg.pagerank(gr, num_iters=PR_ITERS, kernel_mode="unfused")
+    if not torch.equal(p_f.graph.vdata["pr"], p_u.graph.vdata["pr"]):
+        raise AssertionError("pagerank on the transpose: fused != unfused")
+    pids, pvals = p_f.graph.vertices_to_numpy()
+    want = alg.pagerank_reference(gd.dst, gd.src, gd.num_vertices,
+                                  PR_ITERS)[pids]
+    rel = float(np.max(np.abs(pvals["pr"] - want)) / np.max(np.abs(want)))
+    if not rel <= 1e-4:
+        raise AssertionError(f"pagerank on the transpose vs oracle: {rel}")
+    log(f"  reverse of rmat({PR_SCALE},16): in-degrees == the original's "
+        f"out-degrees bit for bit; pagerank {PR_ITERS} supersteps fused "
+        f"{t_f:.3f} s, fused == unfused, max|pr-ref|/max|ref| = {rel:.3g}")
+    del gr, din, dout, p_f, p_u, want
+
+    # --- coarsen (Listing 7) on CC's graph: domains vid // 16, pages summed
+    cgd, cg = sgd, sg
+    t0 = time.perf_counter()
+    coarse = main_path_run(tally, "coarsen", lambda: alg.coarsen(
+        cg.mapV(_coarse_init), _same_domain, "sum"), ("triplet", "apply"))
+    t_c = time.perf_counter() - t0
+    vids_c = cg.vertices_to_numpy()[0]
+    intra = cgd.src // 16 == cgd.dst // 16
+    comp = np.zeros(cgd.num_vertices, np.int64)
+    comp[vids_c] = min_id_labels(cgd.num_vertices, cgd.src[intra],
+                                 cgd.dst[intra], vids_c)
+    kids, kvals = coarse.vertices_to_numpy()
+    sizes = np.bincount(comp[vids_c], minlength=cgd.num_vertices)
+    if not (np.array_equal(np.sort(kids), np.unique(comp[vids_c]))
+            and np.array_equal(kvals["pages"], sizes[kids].astype(np.float32))
+            and float(kvals["pages"].sum()) == len(vids_c)):
+        raise AssertionError("coarsen: super-vertices or pages differ")
+    pair = lambda a, b: (a.astype(np.int64) << 32) | b  # noqa: E731
+    ces, ced, _ = coarse.edges_to_numpy()
+    cs, cd = comp[cgd.src[~intra]], comp[cgd.dst[~intra]]
+    want = np.sort(pair(cs[cs != cd], cd[cs != cd]))
+    if not np.array_equal(np.sort(pair(ces, ced)), want):
+        raise AssertionError("coarsen: edge set differs from the host oracle")
+    k_f = main_path_run(tally, "pagerank on the coarse graph", lambda: (
+        alg.pagerank(coarse, num_iters=10, track_metrics=True)),
+        ("triplet", "apply"))
+    check_plans("pagerank on the coarse graph", k_f)
+    k_u = alg.pagerank(coarse, num_iters=10, kernel_mode="unfused")
+    if not torch.equal(k_f.graph.vdata["pr"], k_u.graph.vdata["pr"]):
+        raise AssertionError("pagerank on the coarse graph: fused != unfused")
+    log(f"  coarsen of {cg.s.num_vertices} pages, {cg.s.num_edges} links: "
+        f"{coarse.s.num_vertices} super-vertices, {coarse.s.num_edges} "
+        f"links in {t_c:.1f} s (host rebuild included); pages preserved, "
+        f"edges == host oracle; pagerank 10 supersteps fused == unfused")
+
+
+def phase_4b_triangles(dev, tally):
+    """Triangle count on symmetrize(rmat(TRI_SCALE, 16, seed=1)): per-vertex
+    counts == scipy's exactly, their f64 sum / 3 == scipy's total."""
+    import numpy as np
+    import torch
+    from scipy.sparse import csr_matrix
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core.graph import Graph
+    from repro_torch.data import rmat, symmetrize
+
+    tgd = symmetrize(rmat(TRI_SCALE, 16, seed=1))
+    n = tgd.num_vertices
+    tg = Graph.from_edges(tgd.src, tgd.dst, num_partitions=P, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    # both phases plan unfused: phase 2's f32 sums go through segment_sum
+    per, total, m = main_path_run(
+        tally, "triangle count", lambda: alg.triangle_count(tg, n_ids=n),
+        ("segment_sum",), ("triplet", "apply"))
+    t_t = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if (m["phase1"]["plan"], m["phase2"]["plan"]) != ("unfused", "unfused"):
+        raise AssertionError(f"triangle count plans {m['phase1']['plan']}, "
+                             f"{m['phase2']['plan']}")
+    ids = tg.vertices_to_numpy()[0]
+    got = per[tg.vmask].cpu().numpy()
+    adj = csr_matrix((np.ones(tgd.num_edges, np.int64), (tgd.src, tgd.dst)),
+                     shape=(n, n))
+    t_v = np.asarray(adj.dot(adj).multiply(adj).sum(axis=1)).ravel() // 2
+    if not np.array_equal(got.astype(np.int64), t_v[ids]) or \
+            not np.array_equal(got, t_v[ids].astype(np.float32)):
+        raise AssertionError("triangle count: per-vertex counts != scipy's")
+    exact = float(got.astype(np.float64).sum()) / 3
+    if exact != t_v.sum() / 3:
+        raise AssertionError(f"triangle count total {exact} != scipy's "
+                             f"{t_v.sum() / 3}")
+    log(f"  triangles on symmetrize(rmat({TRI_SCALE},16)): {n} ids, "
+        f"{tgd.num_edges} edges, {int(exact)} triangles (f64 sum of the "
+        f"per-vertex counts / 3 == scipy), per-vertex counts == scipy; f32 "
+        f"total {float(total):.1f} (the per-vertex sum "
+        f"{float(got.sum(dtype=np.float32)):.1f} against 2^24 = {2**24}); "
+        f"{t_t:.2f} s, peak device memory "
+        f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB above the "
+        f"graph)")
+
+
+def phase_4b_quickstart(qs_mod, dev, tally):
+    """examples/torch_quickstart.py on the card prints the JAX quickstart's
+    lines."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        main_path_run(tally, "torch quickstart", lambda: qs_mod.main(
+            device=dev), ("triplet", "apply", "segment_sum"))
+    got = buf.getvalue().splitlines()
+    if got != QUICKSTART_LINES:
+        raise AssertionError(f"torch quickstart printed {got}")
+    log(f"  torch quickstart on the card: {time.perf_counter() - t0:.1f} s, "
+        f"its 7 lines == the JAX quickstart's")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -431,6 +814,37 @@ def main() -> int:
                                            torch.bfloat16, False, 2))]
     sources += [("mlstm", mlstm_mod.plan(min(c, l), dh).source())
                 for _, _, _, l, dh, c in MLSTM_SHAPES]
+    # phase 4b's UDFs: SSSP's send and apply, label propagation's dm-16
+    # send and apply, the quickstart's 3-way more_senior, the transpose's walks (its
+    # "dst" side through the old src order, its "src" side in stored
+    # order), and the apply layouts of PageRank on the quickstart's and the
+    # coarse graph's vertex properties
+    qs_mod = load_example("torch_quickstart")
+    g_sp_t = gt.mapV(lambda vid, v: {"dist": torch.tensor(0.0)})
+    inf_msg = {"m": torch.tensor(alg.INF32)}
+    k_sp = mt.fused_plan(g_sp_t, alg.sssp_send, "min").kernel
+    a_sp = mt._plan_apply(g_sp_t, alg.sssp_vprog, alg.sssp_send, "min", None,
+                          inf_msg, None).kernel
+    lp_send, lp_vprog = alg.label_propagation_fns(LP_LABELS)
+    k_lp = mt.fused_plan(gt.mapV(_lp_init), lp_send, "sum").kernel
+    a_lp = mt._plan_apply(gt.mapV(_lp_init), lp_vprog, lp_send, "sum", None,
+                          {"votes": torch.zeros(LP_LABELS)}, None).kernel
+    k_sen = mt.fused_plan(gt.mapV(lambda vid, v: {"age": vid.float()}),
+                          qs_mod.more_senior, "sum").kernel
+    sources += [("triplet", tri_mod.source(k_sp, "min", "dst")),
+                ("apply", app_mod.source(a_sp, "min")),
+                ("triplet", tri_mod.source(k_lp, "sum", "dst")),
+                ("apply", app_mod.source(a_lp, "sum")),
+                ("triplet", tri_mod.source(k_sen, "sum", "dst")),
+                ("triplet", tri_mod.source(k_deg, "sum", "dst", True)),
+                ("triplet", tri_mod.source(k_deg, "sum", "src", False)),
+                ("triplet", tri_mod.source(k_pr, "sum", "dst", True))]
+    for extra in (lambda vid, v: {"age": vid.float()},
+                  lambda vid, v: {"pages": vid.float(), "dom": vid}):
+        g_x = alg.attach_out_degree(gt.mapV(extra), kernel_mode="ref")
+        sources.append(("apply", app_mod.source(mt._plan_apply(
+            g_x.mapV(alg._pr_init), pr_vprog, alg.pagerank_send, "sum", None,
+            zero_msg, None).kernel, "sum")))
     t0 = time.perf_counter()
     build.prebuild(sources)
     log(f"kernel build: {len(sources)} sources in "
@@ -754,15 +1168,19 @@ def main() -> int:
         # device_ms: calls back to back, the inputs L2-resident after the
         # first; l2_cleared_ms: each call after a 128 MB write, as a
         # superstep sees it (the roofline share is read from this one)
-        row.update(median_ms=median_ms(kernel), device_ms=device_ms(kernel),
+        dms, dms_by = device_ms(kernel)
+        row.update(median_ms=median_ms(kernel), device_ms=dms,
+                   device_ms_by=dms_by,
                    l2_cleared_ms=cold_device_ms(kernel, "apply_kernel"),
                    old_bound_ms=bound(old_bytes, flops)[0], vb=pl.vb,
                    ctas=ctas[0] * ctas[1], smem=pl.smem, mutant=mutant)
         log(f"    VB {pl.vb}, CTAs {ctas[0]} x {ctas[1]}, threads "
             f"{pl.threads}, smem {pl.smem} B; median of 5 x 20 "
-            f"{row['median_ms']:.4f} ms, device {row['device_ms']:.4f} ms "
-            f"(L2-resident), with L2 cleared {row['l2_cleared_ms']:.4f} ms "
-            f"= {row['bound_ms'] / row['l2_cleared_ms']:.0%} of the bound; "
+            f"{row['median_ms']:.4f} ms, device {ms_str(dms)} "
+            f"(L2-resident; {dms_by}), with L2 cleared "
+            f"{ms_str(row['l2_cleared_ms'])}"
+            + (f" = {row['bound_ms'] / row['l2_cleared_ms']:.0%} of the bound"
+               if row["l2_cleared_ms"] else "") + "; "
             f"bound {row['bound_ms']:.4f} ms ({nbytes / 1e6:.2f} MB), old "
             f"formula {row['old_bound_ms']:.4f} ms ({old_bytes / 1e6:.2f} "
             f"MB); {n_live} live route entries, {n_rows} live rows; mutant "
@@ -778,9 +1196,13 @@ def main() -> int:
     # phase 4
     t0 = time.perf_counter()
     sgd = symmetrize(rmat(CC_SCALE, 16, seed=1))
+    # SSSP's edge weights (phase 4b); CC reads no edge property
+    w_cc = np.random.default_rng(1).uniform(0.5, 3, sgd.num_edges).astype(
+        np.float32)
     t_gen = time.perf_counter() - t0
     t0 = time.perf_counter()
-    sg = Graph.from_edges(sgd.src, sgd.dst, num_partitions=P, device=dev)
+    sg = Graph.from_edges(sgd.src, sgd.dst, edge_values={"w": w_cc},
+                          num_partitions=P, device=dev)
     torch.cuda.synchronize()
     log(f"  cc graph symmetrize(rmat({CC_SCALE},16)): {sg.s.num_vertices} "
         f"vertices, {sg.s.num_edges} edges; generate {t_gen:.1f} s, build "
@@ -986,7 +1408,7 @@ def main() -> int:
     if not (torch.equal(vb["m"], vu["m"]) and torch.equal(eb, eu)):
         raise AssertionError("bf16 send: fused != unfused")
     log(f"  bf16 send as one mrTriplets: fused == unfused bit for bit")
-    del gb, vb, eb, vu, eu, r8w, r_f, g, gd
+    del gb, vb, eb, vu, eu, r8w, r_f      # g and gd stay for phase 4b
     log(f"  ms per superstep (incl. the degree pass): " + ", ".join(
         f"{k} {v:.2f}" for k, v in per_step.items()))
     log(f"  phase 3b: {time.perf_counter() - t_phase:.1f} s")
@@ -1034,7 +1456,28 @@ def main() -> int:
     for name in ("triplet", "apply", "segment_sum", *resident_launches):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
-    del sg, sgd, c_f, c_u, adj, lab, minid, ids_np, vals
+    del c_f, c_u, adj, lab, minid, ids_np, vals
+
+    # ---------------------------------------------------------- phase 4b
+    t_phase = time.perf_counter()
+    log("phase 4b: the rest of the main path (sssp, label propagation, "
+        "subgraph, reverse, coarsen, triangle count, the torch quickstart)")
+    tally_4b = {}        # main-path run -> its launches, each counted alone
+    phase_4b_graphs(g, gd, sg, sgd, w_cc, tally_4b)
+    del g, gd, sg, sgd, w_cc
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_4b_triangles(dev, tally_4b)
+    phase_4b_quickstart(qs_mod, dev, tally_4b)
+    log("  phase 4b launches, each main-path run counted alone (the unfused "
+        "comparison runs and the checks not counted):")
+    for label, counts in tally_4b.items():
+        log(f"    {label}: " + ", ".join(
+            f"{k} {counts.get(k, 0)}"
+            for k in ("triplet", "apply", "segment_sum")))
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+    log(f"  phase 4b: {time.perf_counter() - t_phase:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1111,8 +1554,9 @@ def main() -> int:
         # of 20 calls, and the device's own time (kernels only)
         extra["median_ms"] = median_ms(kern)
         extra["library_median_ms"] = median_ms(lib)
-        extra["device_ms"] = device_ms(kern)
-        extra["library_device_ms"] = device_ms(lib)
+        extra["device_ms"], extra["device_ms_by"] = device_ms(kern)
+        extra["library_device_ms"], extra["library_device_ms_by"] = \
+            device_ms(lib)
         nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * 2
         flops = 4 * b * hq * 128 * visible_pairs(lq, lk, causal, off)
         variant = (f"{name} (bf16; body {plan.body}, {plan.ctas} CTAs, "
@@ -1134,8 +1578,9 @@ def main() -> int:
             f"{row['plain_ms']:.4f} ms, sdpa {lib_ms:.4f} ms; median of 5 "
             f"x 20 calls kernel {extra['median_ms']:.4f} ms, sdpa "
             f"{extra['library_median_ms']:.4f} ms; on the device kernel "
-            f"{extra['device_ms']:.4f} ms, sdpa "
-            f"{extra['library_device_ms']:.4f} ms"
+            f"{ms_str(extra['device_ms'])} ({extra['device_ms_by']}), sdpa "
+            f"{ms_str(extra['library_device_ms'])} "
+            f"({extra['library_device_ms_by']})"
             + (f" (is_causal; masked {extra['library_mask_ms']:.4f} ms)"
                if "library_mask_ms" in extra else "")
             + f" (|sdpa - plain| {lib_err:.3g}), bound {b_ms:.4f} ms ({b_by})"
@@ -1350,7 +1795,8 @@ def main() -> int:
             # the CUDA cores' f32 rate (the CUDA-core body's bound)
             b_ms, b_by = bound(nbytes, flops, peak)
             f32_ms = bound(nbytes, flops)[0]
-            ms, med, dms = cuda_ms(call), median_ms(call), device_ms(call)
+            ms, med = cuda_ms(call), median_ms(call)
+            dms, dms_by = device_ms(call)
             record(kname, f"{name}: [{b}, {h}, {l}, {dh}] chunk {chunk} "
                    f"(body {pl.body}; bound peak {peak / 1e12:.0f} TFLOP/s)",
                    err, "forward: per element, derived (see log); backward: "
@@ -1358,9 +1804,10 @@ def main() -> int:
                    ms, plain_ms, nbytes, flops, peak=peak)
             results[kname][-1].update(
                 body=pl.body, median_ms=med, device_ms=dms,
+                device_ms_by=dms_by,
                 f32_bound_ms=f32_ms, gflop=flops / 1e9, mbytes=nbytes / 1e6)
             log(f"    {kname}: median of 5 x 20 calls {med:.4f} ms, device "
-                f"{dms:.4f} ms; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.0f} "
+                f"{ms_str(dms)} ({dms_by}); {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.0f} "
                 f"MB -> bound {b_ms:.4f} ms ({b_by}; at f32 {f32_ms:.4f} ms)"
                 f", {100 * b_ms / ms:.1f}% of it")
         del q, k, v, logi, logf, dout, out, saved, pins, want, fwd, bwd

@@ -110,7 +110,7 @@ def main() -> int:
                 raise AssertionError(f"{name} VB {vb}: differs from the "
                                      f"plain version")
             ms, med, dms, cold = (cs.cuda_ms(fn), cs.median_ms(fn),
-                                  cs.device_ms(fn),
+                                  cs.device_ms(fn)[0],
                                   cs.cold_device_ms(fn, "apply_kernel"))
             print(f"apply[{name}] VB {vb} EPT {ept}: {pl.grid(nl, v_blk)[0]}"
                   f" x {nl} CTAs of {pl.threads} threads, smem {pl.smem} B;"

@@ -357,8 +357,8 @@ def main() -> int:
             nograd = cs.cuda_ms(lambda: mlstm.forward(*ins, chunk=64,
                                                       states=False))
             extra = (f"; default plan: fwd median {cs.median_ms(fwd):.4f} "
-                     f"device {cs.device_ms(fwd):.4f}, bwd median "
-                     f"{cs.median_ms(bwd):.4f} device {cs.device_ms(bwd):.4f}"
+                     f"device {cs.device_ms(fwd)[0]:.4f}, bwd median "
+                     f"{cs.median_ms(bwd):.4f} device {cs.device_ms(bwd)[0]:.4f}"
                      f"; no-grad fwd {nograd:.4f}")
         print(f"[8, 4, 1024, 256] chunk 64, scan tile {pl.tk}x{pl.tv}, "
               f"stages {pl.stages}: fwd {f_ms:.4f} ms, bwd {b_ms:.4f} ms"

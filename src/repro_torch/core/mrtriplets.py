@@ -19,9 +19,14 @@ map(triplets); result = reduceByKey(messages).  Physical plan, as in
      ascending source-partition order, or handed raw to the fused Pregel
      apply (kernels/superstep.py).
 
-Scope: dense transport, no pushed-down subgraph predicate; the fused plans
-take leaves of rank <= 1, with f16 staged through f32 and bf16 mirrors
-staged as bf16 when every used leaf is bf16.
+Each aggregation side walks the edges in its own order, `s.agg_perm[to]`
+(None for the stored, dst-sorted order; `src_perm` for "src" on a built
+graph; `reverse()` swaps the two), so the CSR tables `agg_ptr[to]` and the
+messages both plans reduce agree on a transposed graph too.
+
+Scope: dense transport; the fused plans take leaves of rank <= 1, with f16
+staged through f32 and bf16 mirrors staged as bf16 when every used leaf is
+bf16.
 """
 from __future__ import annotations
 
@@ -153,7 +158,8 @@ def ship_to_mirrors(s, values: Any, need: str, ex, *,
 
     flags = valid if active is None else valid & _take_rows(active, safe_idx)
     sendbuf = tree_map(lambda v: _take_rows(v, safe_idx), values)
-    sendbuf = tree_map(lambda b: torch.where(bmask(flags, b), b, 0), sendbuf)
+    # (masked_fill keeps a bool leaf, the visibility mask, bool on the wire)
+    sendbuf = tree_map(lambda b: b.masked_fill(~bmask(flags, b), 0), sendbuf)
 
     # full ship: the receiver knows the flags from the route's structure
     structural = (recv_slot < s.v_mir) if active is None else None
@@ -467,9 +473,8 @@ def _fused_aggregate(g, mirror_tree, live, to, reduce, kernel_mode,
     ev = ev.reshape(nl * s.e_blk, ev.shape[-1])
     out, cnt = kops.triplet(
         x, ev, s.src_slot, s.dst_slot, live.contiguous(), s.agg_ptr[to],
-        s.src_perm if to == "src" else None, plan.kernel, to=to,
-        reduce=reduce, mode=kernel_mode, pieces=s.agg_pieces[to],
-        xscale=xscale)
+        s.agg_perm[to], plan.kernel, to=to, reduce=reduce, mode=kernel_mode,
+        pieces=s.agg_pieces[to], xscale=xscale)
     out = out.reshape(nl, s.v_mir, plan.dm)
     had_msg = cnt.reshape(nl, s.v_mir) > 0
     leaves = []
@@ -485,17 +490,59 @@ def _fused_aggregate(g, mirror_tree, live, to, reduce, kernel_mode,
     return tree_unflatten(leaves, plan.msg_treedef), had_msg
 
 
+def _union_need(a: str | None, b: str | None) -> str | None:
+    """Union of two need sets (one ship covers both UDFs' reads)."""
+    if a is None:
+        return b
+    if b is None or a == b:
+        return a
+    return "both"
+
+
+def endpoint_rows(s, mirror: Any, vdata: Any, lead: tuple,
+                  uses_src: bool, uses_dst: bool):
+    """Each edge's source and destination rows of the mirror, decoded;
+    zeros of vdata's element shapes under `lead` on a side not read."""
+    zeros = tree_zeros_like_elem(vdata, lead)
+    dec = wire_mod.decode_tree(mirror) if uses_src or uses_dst else None
+    return (gather_rows(dec, s.src_slot) if uses_src else zeros,
+            gather_rows(dec, s.dst_slot) if uses_dst else zeros)
+
+
+def edge_mask(s, emask: torch.Tensor, *, vis: torch.Tensor | None = None,
+              epred: Callable | None = None, mirror: Any = None,
+              vdata: Any = None, edata: Any = None,
+              uses: tuple[bool, bool] = (True, True)) -> torch.Tensor:
+    """`emask` restricted to the edges whose endpoints are both set in the
+    visibility mirror `vis` (when given) and that satisfy `epred` over the
+    decoded mirror rows (when given): the one place a subgraph's
+    visibility and edge predicate mask an edge."""
+    if vis is not None:
+        emask = (emask & gather_rows(vis, s.src_slot)
+                 & gather_rows(vis, s.dst_slot))
+    if epred is not None:
+        sv, dv = endpoint_rows(s, mirror, vdata, tuple(emask.shape), *uses)
+        emask = emask & vmap2(epred)(sv, edata, dv)
+    return emask
+
+
 def mr_triplets(g, map_fn: Callable, reduce: str = "sum", *, to: str = "dst",
                 skip_stale: str | None = None, kernel_mode: str = "auto",
                 force_need: str | None = None,
                 payload_bound: int | None = None, transport: Any = None,
-                return_routed: bool = False):
+                epred: Callable | None = None, return_routed: bool = False):
     """Execute one mrTriplets.  Returns (values, exists, view, metrics).
 
     values [P, V_blk, ...] aggregated at the homes, exists [P, V_blk] bool,
     view the refreshed graph-resident GraphView.  return_routed=True stops
     after the aggregate return: values/exists are then the routed buffer
     and its flags, for the fused apply.
+
+    epred: a `subgraph(epred=...)` predicate pushed below this mrTriplets
+    (§4.4).  Its vertex reads join this call's ship (on a restricted graph
+    the visibility mirror rides the same refresh), and it masks the live
+    edges before the sweep; the combined edge mask (visibility and epred,
+    before skip_stale) comes back as metrics["emask_pushed"].
 
     kernel_mode: "auto" (fused when eligible: the CUDA kernel on CUDA
     tensors, its plain version on CPU tensors), "ref" (fused when eligible,
@@ -522,12 +569,20 @@ def mr_triplets(g, map_fn: Callable, reduce: str = "sum", *, to: str = "dst",
     else:
         uses_src, uses_dst = deps.uses_src, deps.uses_dst
         arity = deps.n_way
+    edeps = (analysis.analyze_message_fn(epred, vex, eex, vex)
+             if epred is not None else None)
+    if edeps is not None:
+        need = _union_need(need, _derive_need(edeps, None))
     metrics: dict[str, Any] = {"join_arity": arity, "need": need or "none"}
 
-    # property-level join elimination: ship only the leaves the UDF reads
+    # property-level join elimination: ship only the leaves the UDFs read
     flat_vals = tree_leaves(g.vdata)
     leaf_mask = (None if force_need is not None
                  else deps.read_leaf_mask(len(flat_vals)))
+    if edeps is not None and leaf_mask is not None:
+        em = edeps.read_leaf_mask(len(flat_vals))
+        leaf_mask = (None if em is None else
+                     tuple(a or b for a, b in zip(leaf_mask, em)))
     if leaf_mask is not None and (all(leaf_mask) or not any(leaf_mask)):
         leaf_mask = None
     metrics["shipped_leaves"] = (0 if need is None else
@@ -539,10 +594,18 @@ def mr_triplets(g, map_fn: Callable, reduce: str = "sum", *, to: str = "dst",
     if not view_mod.compatible(graph_view, g.vdata, nl, s.v_mir):
         graph_view = None
     ships_fwd = 0
-    if need is not None:
+    # a pushed-down epred on a restricted graph folds the visibility ship
+    # into this refresh
+    with_vis = epred is not None and not g.vmask_full
+    if need is not None or with_vis:
+        lm = leaf_mask if need is not None else (False,) * len(flat_vals)
         view, mirror_tree, m_fwd, ships_fwd = view_mod.refresh_view(
-            g, need, leaf_mask=leaf_mask, bound=bound)
+            g, need or "both", leaf_mask=lm, with_vis=with_vis, bound=bound)
         metrics["fwd"] = m_fwd
+        if need is None:
+            # no vertex property read: no freshness information
+            view = view.replace(active=torch.ones(
+                (nl, s.v_mir), dtype=torch.bool, device=g.vmask.device))
     else:
         mirror_tree = None
         # no vertex data read: no delta information, every slot is fresh
@@ -554,6 +617,11 @@ def mr_triplets(g, map_fn: Callable, reduce: str = "sum", *, to: str = "dst",
 
     # skipStale (§3.2/§4.6): drop edges whose relevant endpoint is stale
     live = g.emask
+    if epred is not None:
+        live = edge_mask(s, live, vis=view.vis if with_vis else None,
+                         epred=epred, mirror=mirror_tree, vdata=g.vdata,
+                         edata=g.edata, uses=(edeps.uses_src, edeps.uses_dst))
+        metrics["emask_pushed"] = live
     if skip_stale is not None:
         src_fresh = gather_rows(view.active, s.src_slot)
         dst_fresh = gather_rows(view.active, s.dst_slot)
@@ -574,18 +642,19 @@ def mr_triplets(g, map_fn: Callable, reduce: str = "sum", *, to: str = "dst",
         partial, had_msg = _fused_aggregate(g, mirror_tree, live, to, reduce,
                                             kernel_mode, plan)
     else:
-        zeros_elem = tree_zeros_like_elem(g.vdata, (nl, s.e_blk))
-        mirror_tree = wire_mod.decode_tree(mirror_tree)
-        svals = gather_rows(mirror_tree, s.src_slot) if uses_src else zeros_elem
-        dvals = gather_rows(mirror_tree, s.dst_slot) if uses_dst else zeros_elem
+        svals, dvals = endpoint_rows(s, mirror_tree, g.vdata, (nl, s.e_blk),
+                                     uses_src, uses_dst)
         msgs = vmap2(map_fn)(svals, g.edata, dvals)
         sub_mode = "auto" if kernel_mode == "unfused" else kernel_mode
-        if to == "dst":
-            ids, agg_msgs, agg_valid = s.dst_slot, msgs, live
-        else:        # the stable src sort keeps segment ids ascending
-            perm = s.src_perm.long()
+        # messages in the aggregation side's own edge order, where its CSR
+        # tables delimit each slot's run
+        ids = s.dst_slot if to == "dst" else s.src_slot
+        agg_msgs, agg_valid = msgs, live
+        perm = s.agg_perm[to]
+        if perm is not None:
+            perm = perm.long()
             agg_msgs = tree_map(lambda m: gather_rows(m, perm), msgs)
-            ids = gather_rows(s.src_slot, perm)
+            ids = gather_rows(ids, perm)
             agg_valid = gather_rows(live, perm)
         partial, had_msg = _segment_aggregate(agg_msgs, ids, agg_valid,
                                               s.agg_ptr[to], s.agg_pieces[to],
@@ -624,14 +693,21 @@ class _ApplyPlan:
     kernel: ApplyUdf
 
 
-def _static_scalar(d):
-    """Python value of a static scalar default, or None."""
+def _static_default(d, spec: ElemSpec) -> tuple | None:
+    """Per packed column of a message leaf, the python value of its static
+    default: a scalar spreads over the leaf's columns, an array of the
+    leaf's shape gives one value a column; None for anything else."""
     if isinstance(d, (bool, int, float)):
-        return d
-    if isinstance(d, torch.Tensor) and d.dim() == 0:
-        return d.item()
-    if isinstance(d, np.ndarray) and d.ndim == 0 or isinstance(d, np.generic):
-        return np.asarray(d).item()
+        return (d,) * _width(spec)
+    if isinstance(d, torch.Tensor):
+        d = d.detach().cpu().numpy()
+    if not isinstance(d, (np.ndarray, np.generic)):
+        return None
+    arr = np.asarray(d)
+    if arr.ndim == 0:
+        return (arr.item(),) * _width(spec)
+    if tuple(arr.shape) == tuple(spec.shape):
+        return tuple(arr.reshape(-1).tolist())
     return None
 
 
@@ -642,7 +718,9 @@ def _plan_apply(g, vprog: Callable, send_msg: Callable, reduce: str,
     messages as the triplet plan admits them (floats combine in f32),
     rank <= 1 f32 or exactly-staged int state (read and written in its own
     dtype; narrower float state plans unfused, as in the reference, whose
-    kernel would run the vprog in f32), static scalar defaults, a vprog
+    kernel would run the vprog in f32), static defaults (a scalar or an
+    array of the leaf's shape: one value a column; the reference takes
+    scalars only, so label propagation's [k] zeros fuse here), a vprog
     whose output specs equal the state's, and a vprog (and changed_fn) the
     IR covers."""
     s = g.s
@@ -667,8 +745,10 @@ def _plan_apply(g, vprog: Callable, send_msg: Callable, reduce: str,
     mspecs = tuple(ElemSpec(m.shape, torch.float32 if m.dtype.is_floating_point
                             else m.dtype) for m in msg_leaves)
     dleaves, _ = tree_flatten(default_msg)
-    defaults = tuple(_static_scalar(d) for d in dleaves)
-    if len(defaults) != len(msg_leaves) or any(d is None for d in defaults):
+    if len(dleaves) != len(msg_leaves):
+        return None
+    defaults = [_static_default(d, m) for d, m in zip(dleaves, mspecs)]
+    if any(d is None for d in defaults):
         return None
     vid_spec = ElemSpec((), s.home_vid.dtype)
     tr = analysis.trace_udf(vprog, vid_spec, vex,
@@ -699,8 +779,7 @@ def _plan_apply(g, vprog: Callable, send_msg: Callable, reduce: str,
         vprog=vp_ir, changed=ch_ir,
         msg_dtypes=tuple(udf._DTYPES[m.dtype] for m in mspecs
                          for _ in range(_width(m))),
-        defaults=tuple(d for m, d in zip(mspecs, defaults)
-                       for _ in range(_width(m))),
+        defaults=tuple(v for d in defaults for v in d),
         msgs=tuple((udf._DTYPES[m.dtype], tuple(m.shape)) for m in msg_leaves),
         state=tuple((udf._DTYPES[v.dtype], tuple(v.shape)) for v in vleaves))
     return _ApplyPlan(dm=dm, dv=dv, msg_specs=mspecs,

@@ -13,6 +13,11 @@ loads and needs only row pointers, so `gpu_tables` builds:
                                       "dst" over dst_slot (edges are stored
                                       dst-sorted), "src" over
                                       src_slot[src_perm] (the stable src sort)
+  agg_perm[side]  [P, E_blk] int32    the edge order agg_ptr[side] walks:
+                                      None for "dst" (the stored order),
+                                      src_perm for "src"; reverse() swaps
+                                      the sides, so a transposed graph's
+                                      "dst" walks the old src_perm
   agg_pieces[side]                    the piece tables of agg_ptr[side]
                                       (`kernels/segorder.py`): each slot's
                                       CSR range cut into pieces of at most
@@ -110,6 +115,8 @@ class GraphStructure:
     # GPU tables in place of the Pallas tiles (see module docstring)
     agg_ptr: dict = None          # type: ignore[assignment]
     agg_pieces: dict = None       # type: ignore[assignment]
+    # None on a built structure: {"dst": None, "src": src_perm}
+    agg_perm: dict = None         # type: ignore[assignment]
     apply_rng: dict = None        # type: ignore[assignment]
 
     def home_of(self, vids: np.ndarray) -> np.ndarray:
@@ -208,15 +215,19 @@ def gpu_tables(src_slot: np.ndarray, dst_slot: np.ndarray,
                src_perm: np.ndarray, edge_mask: np.ndarray, routes: dict,
                v_mir: int, v_blk: int) -> tuple[dict, dict, dict]:
     """(agg_ptr, agg_pieces, apply_rng) — the CSR, piece and route-range
-    tables the CUDA kernels index (module docstring).  Requires each
-    partition's live edges to be the prefix of its slab and each route
-    row's live entries to be a strictly increasing prefix, as
-    build_structure lays them out; raises ValueError otherwise."""
+    tables the CUDA kernels index (module docstring), "dst" over the stored
+    order and "src" over src_perm's.  Requires each partition's live edges
+    to be the dst-sorted prefix of its slab and each route row's live
+    entries to be a strictly increasing prefix, as build_structure lays
+    them out (a transposed structure carries its swapped tables instead);
+    raises ValueError otherwise."""
     p = src_slot.shape[0]
     n = edge_mask.sum(axis=1)
     if not np.array_equal(edge_mask,
                           np.arange(edge_mask.shape[1])[None, :] < n[:, None]):
         raise ValueError("edge_mask must mark a prefix of each edge slab")
+    if any(np.any(np.diff(dst_slot[q, :n[q]]) < 0) for q in range(p)):
+        raise ValueError("the live edges must be sorted by dst_slot")
     slots = np.arange(v_mir + 1)
     dptr = np.zeros((p, v_mir + 1), np.int32)
     sptr = np.zeros((p, v_mir + 1), np.int32)

@@ -52,7 +52,7 @@ def _superstep(g: Graph, *, vprog, send_msg, gather, default_msg, skip_stale,
         msg_elem = tree_unflatten(list(aplan.msg_specs), aplan.msg_treedef)
     else:
         msgs_or_default = tree_where(exists, msgs, tree_map(
-            lambda d, m: torch.full_like(m, torch.as_tensor(d).item()),
+            lambda d, m: torch.as_tensor(d).to(m.device, m.dtype).expand_as(m),
             default_msg, msgs))
         new_vdata = vmap2(vprog)(g.s.home_vid, g.vdata, msgs_or_default)
         new_vdata = tree_where(g.vmask, new_vdata, g.vdata)

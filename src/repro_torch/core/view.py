@@ -15,7 +15,14 @@ a cold ship would rematerialise.  Under a `resident=True` wire codec the
 eligible mirror leaves are `wire.ResidentLeaf`s, encoded in device memory
 (§2.4); the unfused plan decodes the mirror on read and the fused triplet
 plan reads the encoded one (the host pays the decode only where a consumer
-reads values).  The visibility mirror waits for a later slice.
+reads values).
+
+The visibility mask has a mirror of its own (`vis`, with `vis_dirty`,
+`vis_dirs` and `vis_stale` kept as for a leaf): `subgraph` marks only the
+rows whose bit flipped, `refresh_view(..., with_vis=True)` ships it in the
+same routed collective as the property leaves that resolve alike (the
+subgraph visibility + `epred` property ship folds into one), and
+`reverse()` remaps the direction labels instead of dropping the view.
 """
 from __future__ import annotations
 
@@ -53,14 +60,37 @@ class GraphView:
 
     mirror: Any               # pytree == vdata, leaves [nl, V_mir, ...]
     #                           (tensors or wire.ResidentLeaf)
+    vis: torch.Tensor         # [nl, V_mir] bool — visibility mirror
     filled: torch.Tensor      # [nl, V_mir] bool — slot ever shipped
     active: torch.Tensor      # [nl, V_mir] bool — slots of the latest refresh
     dirty: Any                # pytree == vdata, leaves [nl, 2, V_blk] bool
+    vis_dirty: torch.Tensor   # [nl, 2, V_blk] bool
     dirs: tuple = ()          # per flat leaf: filled directions
+    vis_dirs: str = ""
     stale: tuple = ()         # per flat leaf: maybe-dirty directions
+    vis_stale: str = ""
 
     def replace(self, **kw) -> "GraphView":
         return dataclasses.replace(self, **kw)
+
+    def mark_vis(self, rows: torch.Tensor) -> "GraphView":
+        """Visibility changed at `rows` [nl, V_blk] (a subgraph
+        restriction): those rows go dirty in both directions."""
+        return self.replace(vis_dirty=self.vis_dirty | rows[:, None],
+                            vis_stale=self.vis_dirs)
+
+    def remap_reverse(self) -> "GraphView":
+        """`reverse()` swaps the src/dst roles of the routing tables; the
+        mirror values stay, so the direction labels and the per-direction
+        dirty rows swap with them."""
+        swap = {"": "", "s": "d", "d": "s", "sd": "sd"}
+        flip = lambda m: m.flip(1)      # noqa: E731
+        return self.replace(dirs=tuple(swap[d] for d in self.dirs),
+                            vis_dirs=swap[self.vis_dirs],
+                            stale=tuple(swap[st] for st in self.stale),
+                            vis_stale=swap[self.vis_stale],
+                            dirty=tree_map(flip, self.dirty),
+                            vis_dirty=flip(self.vis_dirty))
 
 
 def empty_view(s, vdata, nl: int, codec=None,
@@ -82,7 +112,10 @@ def empty_view(s, vdata, nl: int, codec=None,
                                            device=dev), vdata)
     n = len(tree_leaves(vdata))
     zslot = torch.zeros((nl, s.v_mir), dtype=torch.bool, device=dev)
-    return GraphView(mirror=mirror, filled=zslot, active=zslot, dirty=dirty,
+    return GraphView(mirror=mirror, vis=zslot, filled=zslot, active=zslot,
+                     dirty=dirty,
+                     vis_dirty=torch.zeros((nl, 2, v_blk), dtype=torch.bool,
+                                           device=dev),
                      dirs=("",) * n, stale=("",) * n)
 
 
@@ -114,7 +147,8 @@ def _plan_leaf(dirs: str, stale: str, need_d: str):
     return plans
 
 
-def refresh_view(g, need: str, *, leaf_mask=None, bound: int | None = None):
+def refresh_view(g, need: str, *, leaf_mask=None, with_vis: bool = False,
+                 bound: int | None = None):
     """Materialise the replicated view for one consumer through the cache.
 
     Returns (view', mirror_tree, merged ShipMetrics, n_ships): mirror_tree
@@ -122,7 +156,9 @@ def refresh_view(g, need: str, *, leaf_mask=None, bound: int | None = None):
     consumer that reads values decodes it, `wire.decode_tree`), n_ships
     the number of routed collectives this refresh ran (0 for a clean
     view); leaves the consumer does not read keep whatever the view holds.
-    bound: |value| bound of lossless int narrowing on the wire."""
+    with_vis: also bring the visibility mirror `view'.vis` up to date over
+    both directions, in the same collective as the leaves that resolve
+    alike.  bound: |value| bound of lossless int narrowing on the wire."""
     s, ex = g.s, g.ex
     nl = g.vmask.shape[0]
     flat_vals, treedef = tree_flatten(g.vdata)
@@ -133,26 +169,34 @@ def refresh_view(g, need: str, *, leaf_mask=None, bound: int | None = None):
     mir_l = list(tree_leaves(view.mirror))
     dirty_l = list(tree_leaves(view.dirty))
     dirs_l, stale_l = list(view.dirs), list(view.stale)
+    vis_mir, vis_dirty = view.vis, view.vis_dirty
+    vis_dirs, vis_stale = view.vis_dirs, view.vis_stale
     required = tuple(leaf_mask) if leaf_mask is not None else (True,) * n
     need_d = _DIR[need]
 
     entries = [(i, kind, route_d) for i in range(n) if required[i]
                for kind, route_d in _plan_leaf(dirs_l[i], stale_l[i], need_d)]
+    if with_vis:
+        entries += [("vis", kind, route_d) for kind, route_d in
+                    _plan_leaf(vis_dirs, vis_stale, "sd")]
     groups: dict = {}
     for e in entries:
         groups.setdefault((e[1], e[2]), []).append(e[0])
+
+    def key(slot):
+        return "vis" if slot == "vis" else f"l{slot}"
 
     filled = view.filled
     shipped_any = torch.zeros((nl, s.v_mir), dtype=torch.bool,
                               device=filled.device)
     merged, n_ships = None, 0
     for (kind, route_d), slots in groups.items():
-        vals = {f"l{i}": flat_vals[i] for i in slots}
-        prev = {f"l{i}": mir_l[i] for i in slots}
+        vals = {key(i): g.vmask if i == "vis" else flat_vals[i] for i in slots}
+        prev = {key(i): vis_mir if i == "vis" else mir_l[i] for i in slots}
         act = None
         if kind == "delta":
             for i in slots:
-                d = _dir_rows(dirty_l[i], route_d)
+                d = _dir_rows(vis_dirty if i == "vis" else dirty_l[i], route_d)
                 act = d if act is None else (act | d)
         sub, m = ship_to_mirrors(
             s, vals, _NEED[route_d], ex, active=act,
@@ -163,11 +207,19 @@ def refresh_view(g, need: str, *, leaf_mask=None, bound: int | None = None):
         filled = sub.filled
         shipped_any = shipped_any | sub.active
         for i in slots:
-            mir_l[i] = sub.mirror[f"l{i}"]
+            if i == "vis":
+                vis_mir = sub.mirror["vis"]
+            else:
+                mir_l[i] = sub.mirror[key(i)]
 
     if not entries:
         # nothing to track: no delta information, every slot counts fresh
         shipped_any = torch.ones_like(shipped_any)
+
+    def clear_rows(mask, dirs):
+        mask = mask.clone()
+        mask[:, [_DIRROW[c] for c in dirs]] = False
+        return mask
 
     shipped_dirs: dict = {}
     for i, _kind, route_d in entries:
@@ -177,16 +229,21 @@ def refresh_view(g, need: str, *, leaf_mask=None, bound: int | None = None):
             continue
         sd = shipped_dirs.get(i, "")
         if sd:
-            d = dirty_l[i].clone()
-            d[:, [_DIRROW[c] for c in sd]] = False
-            dirty_l[i] = d
+            dirty_l[i] = clear_rows(dirty_l[i], sd)
         stale_l[i] = _dirs_minus(stale_l[i], sd)
         dirs_l[i] = _dirs_union(dirs_l[i], need_d)
+    if with_vis:
+        sd = shipped_dirs.get("vis", "")
+        if sd:
+            vis_dirty = clear_rows(vis_dirty, sd)
+        vis_stale = _dirs_minus(vis_stale, sd)
+        vis_dirs = "sd"
 
     view2 = GraphView(
-        mirror=tree_unflatten(mir_l, treedef), filled=filled,
+        mirror=tree_unflatten(mir_l, treedef), vis=vis_mir, filled=filled,
         active=shipped_any, dirty=tree_unflatten(dirty_l, treedef),
-        dirs=tuple(dirs_l), stale=tuple(stale_l))
+        vis_dirty=vis_dirty, dirs=tuple(dirs_l), vis_dirs=vis_dirs,
+        stale=tuple(stale_l), vis_stale=vis_stale)
     return (view2, view2.mirror,
             merged if merged is not None else ShipMetrics.zero(filled.device),
             n_ships)

@@ -13,6 +13,8 @@ The Pallas kernels trace the user's UDF into their body (`tile_fn`,
      kernels use it, and the tests hold it against the UDF itself.
 
 Supported: elementwise add/sub/mul/div/neg/abs/minimum/maximum/where,
+integer remainder (floor semantics, the sign of the divisor, as torch and
+`jnp` `%` compute it; the emitted C corrects C's truncating `%`),
 comparisons, logical ops, casts (`_to_copy`), constants, the float math
 ops exp/log/log1p/expm1/sqrt/rsqrt/reciprocal/tanh/sigmoid/sin/cos/atan/
 atan2/floor/ceil/sign, pow with a scalar exponent, clamp/clamp_min/
@@ -22,7 +24,9 @@ cat, stack and broadcasting pick and spread them), so the IR itself stays
 scalar and a rank-1 leaf is one packed column per element.  Reductions over
 a rank-1 value lower where the result does not depend on the order of the
 terms: amax/amin (and max/min's values) to a chain of max/min ops, an
-integer or bool sum to a chain of integer adds.  A float sum, dot or matmul
+integer or bool sum to a chain of integer adds, argmax to a chain of
+strict comparisons (the first largest index, a NaN first, as torch
+picks).  A float sum, dot or matmul
 inside a UDF stays outside the IR on purpose: the unfused plan adds its
 terms in an order torch does not pin, so the fused plan could not equal it
 bit for bit.  Anything outside the IR makes `lower` return None and the
@@ -68,6 +72,7 @@ _BINARY = {
     aten.mul.Tensor: "mul", aten.mul.Scalar: "mul",
     aten.div.Tensor: "div", aten.div.Scalar: "div",
     aten.minimum.default: "min", aten.maximum.default: "max",
+    aten.remainder.Tensor: "rem", aten.remainder.Scalar: "rem",
 }
 _COMPARE = {
     aten.gt.Tensor: ">", aten.gt.Scalar: ">", aten.ge.Tensor: ">=",
@@ -112,6 +117,7 @@ class Op:
       const   (value,)            python value, already rounded to dtype
       cast    (a,)
       add|sub|mul|div|min|max (a, b)   computed in this op's dtype
+      rem     (a, b)              integer remainder, floor semantics
       cmp     (symbol, a, b)      operands already cast to the promoted type
       logic   (symbol, a, b)      on bools
       neg|abs|not|sign (a,)
@@ -275,8 +281,9 @@ def _lower(tr, inputs: list) -> IR:
             kind = _BINARY[t]
             x, y = (a[1], a[0]) if kind == "rsub" else (a[0], a[1])
             kind = "sub" if kind == "rsub" else kind
-            if kind == "div" and out_dt not in FLOATS:
-                raise _Unsupported(node)
+            if (kind == "div" and out_dt not in FLOATS) or (
+                    kind == "rem" and out_dt in FLOATS + ("bool",)):
+                raise _Unsupported(node)    # int div, float remainder
             r = [add(kind, (i, j), out_dt) for i, j in zip(
                 operand(x, out_dt, width), operand(y, out_dt, width))]
         elif t in _COMPARE:
@@ -323,6 +330,30 @@ def _lower(tr, inputs: list) -> IR:
             for j in terms[1:]:
                 acc = add(kind, (acc, j), out_dt)
             r = [acc]
+        elif t is aten.argmax.default:
+            src_val = a[0].meta["val"]
+            d = a[1] if len(a) > 1 else kw.get("dim")
+            sdt = dt_str(src_val.dtype)
+            if src_val.dim() != 2 or d is None or d % 2 != 1 or \
+                    (a[2] if len(a) > 2 else kw.get("keepdim", False)) or \
+                    sdt == "bool":
+                raise _Unsupported(node)
+            # a chain over the k terms: a later term wins only when strictly
+            # greater, so the first largest index stays; a float NaN beats
+            # any number and the first NaN stays, as torch decides
+            terms = index[a[0]]
+            best, at = terms[0], add("const", (0,), out_dt)
+            for j, x in enumerate(terms[1:], 1):
+                win = add("cmp", (">", x, best), "bool")
+                if sdt in FLOATS:
+                    nan_over_num = add("logic", (
+                        "&&", add("cmp", ("!=", x, x), "bool"),
+                        add("cmp", ("==", best, best), "bool")), "bool")
+                    win = add("logic", ("||", win, nan_over_num), "bool")
+                best = add("where", (win, x, best), sdt)
+                at = add("where", (win, add("const", (j,), out_dt), at),
+                         out_dt)
+            r = [at]
         elif t is aten.pow.Tensor_Scalar:
             if out_dt not in FLOATS or not isinstance(a[1], (int, float)) \
                     or (out_dt in NARROW and float(a[1]) not in POW_SPECIAL):
@@ -455,6 +486,12 @@ def emit(ir: IR, load: Callable[[str, int, str], str],
         elif op.kind in ("add", "sub", "mul", "div"):
             sym = {"add": "+", "sub": "-", "mul": "*", "div": "/"}[op.kind]
             e = f"({v[a[0]]} {sym} {v[a[1]]})"
+        elif op.kind == "rem":
+            # C's % truncates; floor semantics add the divisor to a nonzero
+            # remainder whose sign differs from it
+            x, y = v[a[0]], v[a[1]]
+            e = (f"({ct})((({x} % {y}) != 0 && ((({x} % {y}) < 0) != "
+                 f"({y} < 0))) ? ({x} % {y}) + {y} : ({x} % {y}))")
         elif op.kind in ("min", "max"):
             if dt in FLOATS:
                 fn = f"udf_{op.kind}{'d' if dt == 'f64' else 'f'}"
@@ -517,10 +554,12 @@ def evaluate(ir: IR, load: Callable[[str, int, torch.dtype], torch.Tensor],
             r = torch.tensor(a[0], dtype=dt, device=device)
         elif op.kind == "cast":
             r = v[a[0]].to(dt)
-        elif op.kind in ("add", "sub", "mul", "div", "min", "max", "atan2"):
+        elif op.kind in ("add", "sub", "mul", "div", "min", "max", "atan2",
+                         "rem"):
             fn = {"add": torch.add, "sub": torch.sub, "mul": torch.mul,
                   "div": torch.div, "min": torch.minimum,
-                  "max": torch.maximum, "atan2": torch.atan2}[op.kind]
+                  "max": torch.maximum, "atan2": torch.atan2,
+                  "rem": torch.remainder}[op.kind]
             r = fn(v[a[0]], v[a[1]])
         elif op.kind == "cmp":
             r = {">": torch.gt, ">=": torch.ge, "<": torch.lt, "<=": torch.le,

@@ -113,7 +113,7 @@ def _triplet_inputs(g, dx, seed):
 def _check_triplet(g, spec, x, ev, live, to, reduce):
     s = g.s
     args = (x, ev, s.src_slot, s.dst_slot, live, s.agg_ptr[to],
-            s.src_perm if to == "src" else None, spec)
+            s.agg_perm[to], spec)
     before = tri_mod.fused_triplet.launches
     out, cnt = tri_mod.fused_triplet(*args, to=to, reduce=reduce,
                                      pieces=s.agg_pieces[to])
@@ -127,6 +127,7 @@ def _check_triplet(g, spec, x, ev, live, to, reduce):
         torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
     else:
         assert torch.equal(out, want)
+    return out, want
 
 
 def _longest_slot(g, to):
@@ -169,6 +170,110 @@ def test_triplet_kernel_on_hub_graph(reduce, dm, to, cuda):
     assert spec.dm == dm
     x, ev, live = _triplet_inputs(g, 2 if dm == 1 else 3, seed=9)
     _check_triplet(g, spec, x, ev, live, to, reduce)
+
+
+@pytest.mark.parametrize("graph", ["rmat", "hub"])
+@pytest.mark.parametrize("reduce", ["sum", "max"])
+def test_triplet_kernel_on_reversed_graph(reduce, graph, cuda):
+    """The transpose's "dst" side walks the old src order (agg_perm["dst"]
+    is the original src_perm): bit-equal to the ordered model.  The kernel
+    with agg_perm dropped on that side (the stored order under the old src
+    side's row pointers) must fail the check."""
+    g = _graph(GD if graph == "rmat" else HUB, cuda, _vdata_f).reverse()
+    s = g.s
+    assert s.agg_perm["dst"] is not None and s.agg_perm["src"] is None
+    spec = mt.fused_plan(g, _send_f, reduce).kernel
+    x, ev, live = _triplet_inputs(g, 2, seed=13)
+    _check_triplet(g, spec, x, ev, live, "dst", reduce)
+    args = (x, ev, s.src_slot, s.dst_slot, live, s.agg_ptr["dst"])
+    bad, _ = tri_mod.fused_triplet(*args, None, spec, to="dst", reduce=reduce,
+                                   pieces=s.agg_pieces["dst"])
+    exact, _ = ref.ordered_triplet(*args, s.agg_perm["dst"], spec,
+                                   s.agg_pieces["dst"], reduce=reduce)
+    torch.cuda.synchronize()
+    assert not torch.equal(bad, exact)
+
+
+def test_reverse_on_card(cuda):
+    """Degrees and PageRank of the transpose on the card: in-degrees ==
+    the original's out-degrees, fused == unfused, CPU ranks within rtol
+    1e-5."""
+    g = _graph(GD, cuda)
+    r = g.reverse()
+    assert torch.equal(r.degrees("in")[0], g.degrees("out")[0])
+    assert torch.equal(r.degrees("out")[0], g.degrees("in")[0])
+    a = alg.pagerank(r, num_iters=8)
+    b = alg.pagerank(r, num_iters=8, kernel_mode="unfused")
+    assert torch.equal(a.graph.vdata["pr"], b.graph.vdata["pr"])
+    c = alg.pagerank(_graph(GD, "cpu").reverse(), num_iters=8)
+    torch.testing.assert_close(a.graph.vdata["pr"].cpu(), c.graph.vdata["pr"],
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_label_send_dm16_on_card(cuda):
+    """Label propagation's send, a 16-column message (integer remainder,
+    16 comparisons), on labels of both signs: bit-equal to the plain
+    version and the ordered model (integer-valued sums)."""
+    g = _graph(SGD, cuda).mapV(lambda vid, v: {"label": vid % 16})
+    send, _ = alg.label_propagation_fns(16)
+    spec = mt.fused_plan(g, send, "sum").kernel
+    assert spec.dm == 16
+    _, ev, live = _triplet_inputs(g, 1, seed=17)
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randint(-40, 40, (P * g.s.v_mir, 1), generator=gen).float()
+    out, want = _check_triplet(g, spec, x.to(cuda), ev, live, "dst", "sum")
+    assert torch.equal(out, want)
+
+
+def test_label_apply_dm16_on_card(cuda):
+    """Label propagation's apply, a 16-column message through an amax and
+    a first-argmax chain: bit-equal to the plain version, with ties and
+    vertices without votes."""
+    g = _graph(GD, cuda).mapV(lambda vid, v: {"label": vid % 16})
+    send, vprog = alg.label_propagation_fns(16)
+    plan = mt._plan_apply(g, vprog, send, "sum", None,
+                          {"votes": torch.zeros(16)}, None)
+    assert plan is not None and plan.dm == 16
+    send_idx = g.s.routes["dst"][0]
+    rng = np.random.default_rng(11)
+    votes = rng.integers(0, 3, tuple(send_idx.shape) + (16,)).astype(
+        np.float32)
+    votes[rng.random(tuple(send_idx.shape)) < 0.3] = 0
+    recv = {"votes": torch.from_numpy(votes).to(cuda)}
+    rflags = (send_idx >= 0) & torch.from_numpy(
+        rng.random(tuple(send_idx.shape)) < 0.8).to(cuda)
+    before = app_mod.fused_apply.launches
+    new, changed = mt.fused_apply_home(g, recv, rflags, "dst", "sum", plan,
+                                       "auto")
+    want, wchanged = mt.fused_apply_home(g, recv, rflags, "dst", "sum", plan,
+                                         "ref")
+    torch.cuda.synchronize()
+    assert app_mod.fused_apply.launches == before + 1
+    assert torch.equal(changed, wchanged)
+    assert torch.equal(new["label"], want["label"])
+    assert bool(changed.any()) and not bool(changed.all())
+
+
+def test_sssp_label_propagation_triangles_on_card(cuda):
+    """The slice's algorithms on the card: fused == unfused, and equal to
+    the CPU run (SSSP, labels and triangle counts exactly)."""
+    rng = np.random.default_rng(1)
+    w = rng.uniform(0.5, 3, SGD.num_edges).astype(np.float32)
+    out = {}
+    for dev in (cuda, "cpu"):
+        g = Graph.from_edges(SGD.src, SGD.dst, edge_values={"w": w},
+                             num_partitions=P, device=dev)
+        s_f, s_u = (alg.sssp(g, 0, kernel_mode=m) for m in ("auto", "unfused"))
+        assert torch.equal(s_f.graph.vdata["dist"], s_u.graph.vdata["dist"])
+        gl = g.mapV(lambda vid, v: {"label": vid % 16})
+        l_f, l_u = (alg.label_propagation(gl, 16, num_iters=6, kernel_mode=m)
+                    for m in ("auto", "unfused"))
+        assert torch.equal(l_f.graph.vdata["label"], l_u.graph.vdata["label"])
+        per, total, _ = alg.triangle_count(g, n_ids=SGD.num_vertices)
+        out[str(dev)] = (s_f.graph.vdata["dist"], l_f.graph.vdata["label"],
+                         per, total)
+    for a, b in zip(out[str(cuda)], out["cpu"]):
+        assert torch.equal(a.cpu(), b)
 
 
 ENCODED = {"int8": ("int8", "scaled"), "e4m3": ("fp8_e4m3", "scaled"),

@@ -1,8 +1,8 @@
 """Import hygiene and device rules of the PyTorch port.
 
-The port and chip_smoke.py import neither jax nor the reference package,
-and the engine never quietly runs on the CPU: without a CUDA device a
-graph built with no explicit device is an error.
+The port, chip_smoke.py and the torch examples import neither jax nor the
+reference package, and the engine never quietly runs on the CPU: without a
+CUDA device a graph built with no explicit device is an error.
 """
 import pkgutil
 import re
@@ -48,7 +48,9 @@ def test_port_imports_neither_jax_nor_reference():
 
 
 @pytest.mark.parametrize("path", sorted(
-    [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")] + ["chip_smoke.py"]))
+    [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")] + ["chip_smoke.py"]
+    + [str(p.relative_to(ROOT))
+       for p in (ROOT / "examples").glob("torch_*.py")]))
 def test_sources_do_not_name_jax_or_reference(path):
     text = (ROOT / path).read_text()
     for pat in (r"\bimport jax\b", r"\bfrom jax\b", r"\bfrom repro\.",
