@@ -23,7 +23,8 @@ Phases (any failure exits non-zero before the result line):
   3. PageRank (tol 0, 10 supersteps) on rmat(22, 16, seed=0), P=4: fused
      plans, bit-equal to the unfused plan, within 1e-4 of a float64 oracle;
      then 3 supersteps traced: the home half's launches and device ms a
-     superstep (pregel's apply_home span, `repro_torch.profiling`);
+     superstep (pregel's apply_home span in the eager superstep 1, the same
+     kernels by name in the replayed graphs, `repro_torch.profiling`);
   3b. on the same graph, PageRank over the int8 wire, and with
      narrow-resident int8, fp8_e4m3 and fp8_e5m2 mirrors (the triplet
      kernel reading the encoded rows through their scale plane): fused
@@ -36,6 +37,23 @@ Phases (any failure exits non-zero before the result line):
   4. connected components on symmetrize(rmat(21, 16, seed=1)), P=4: labels
      bit-equal to scipy's min-id labels and to the unfused plan; then a
      traced run's home half, as in phase 3;
+  4a. the Pregel drivers on the same graphs: static PageRank (tol 0, 10
+     supersteps) and delta PageRank (tol 1e-3, which halts) on phase 3's
+     graph, CC and SSSP from vertex 0 (w ~ U(0.5, 3)) on phase 4's, each
+     through the eager loop (`core.pregel._superstep` called superstep by
+     superstep, written out here), the captured `pregel` (supersteps 2..
+     replay one CUDA graph) and `pregel_fused` (blocks of FUSED_BLOCK
+     masked supersteps replayed, one halt flag a block; 10 supersteps
+     leave masked ones in the last block): bit-equal state, view and wire
+     log, equal superstep counts, one capture each, CC's labels == scipy's;
+     two mutants of pregel_fused that must fail (the max_supersteps mask
+     dropped: other ranks; the counter deaf to the mask: another count);
+     for each driver (the faster of two runs) ms a superstep, capture and
+     release ms, peak device memory (graph pools included), launches a
+     superstep (replays add what their capture recorded), the ms of the
+     supersteps after the second, traced 3-superstep PageRank's device busy
+     ms and idle share, and the same for 3 supersteps after the first,
+     eager and replayed (the steady state);
   4b. the rest of the main path, each main-path run counted alone (the
      launch counts set to 0 just before it and read just after; the
      kernels its plans run must each launch, and the triangle count
@@ -422,6 +440,9 @@ def mlstm_inputs(b, h, l, dh, gen, device):
 
 
 LP_LABELS, LP_ITERS = 16, 10          # phase 4b label propagation
+# phase 4a: delta PageRank's tolerance and a max_supersteps it halts well
+# before; the supersteps of the traced runs
+DELTA_TOL, DELTA_MAX, TRACE_STEPS = 1e-3, 100, 3
 TRI_SCALE = 15                         # phase 4b triangle count graph
 # what examples/quickstart.py prints (the JAX reference, on the CPU)
 QUICKSTART_LINES = [
@@ -496,6 +517,259 @@ def main_path_run(tally, label, fn, launched=(), idle=()):
                                  "times; its plans run no such kernel")
     tally[label] = {k: n for k, n in counts.items() if n}
     return out
+
+
+def pregel_mutant(old: str, new: str):
+    """core/pregel.py with one line edited, loaded as a module of the
+    port's package (phase 4a's mutants of pregel_fused)."""
+    import importlib
+    import types
+    pm = importlib.import_module("repro_torch.core.pregel")
+    src = Path(pm.__file__).read_text()
+    if src.count(old) != 1:
+        raise AssertionError(f"mutant: {old!r} is not in core/pregel.py "
+                             "exactly once")
+    mod = types.ModuleType("repro_torch.core._pregel_mutant")
+    mod.__package__ = "repro_torch.core"
+    sys.modules[mod.__name__] = mod     # dataclasses look their module up
+    try:
+        exec(compile(src.replace(old, new), pm.__file__, "exec"),
+             mod.__dict__)
+    finally:
+        del sys.modules[mod.__name__]
+    return mod
+
+
+def eager_pregel(g, vprog, send, gather, *, default_msg, max_supersteps,
+                 skip_stale, changed_fn=None):
+    """The loop the drivers replace, written out here: core.pregel's
+    `_superstep` called superstep by superstep, eagerly, reading the live
+    count after each.  Returns (graph, supersteps)."""
+    import importlib
+    import torch
+    from repro_torch.core import mrtriplets as mt
+    from repro_torch.core.tree import tree_map
+    pm = importlib.import_module("repro_torch.core.pregel")
+    aplan = mt._plan_apply(g, vprog, send, gather, changed_fn, default_msg,
+                           None)
+    dmsg = tree_map(lambda d: torch.as_tensor(d).to(g.device), default_msg)
+    steps = 0
+    for _ in range(max_supersteps):
+        g, live, _ = pm._superstep(
+            g, vprog=vprog, send_msg=send, gather=gather, default_msg=dmsg,
+            skip_stale=skip_stale, changed_fn=changed_fn, kernel_mode="auto",
+            use_cache=True, payload_bound=None, aplan=aplan)
+        steps += 1
+        if int(live) == 0:
+            break
+    return g, steps
+
+
+def phase_4a_drivers(g, sg, cc_ids, cc_want):
+    """The three Pregel drivers on the main path's graphs (phase 4a; see
+    the docstring): the eager loop, the captured `pregel` and
+    `pregel_fused`, bit-equal with equal superstep counts; two mutants of
+    `pregel_fused`; times, captures, memory, launches and traces."""
+    import importlib
+    import numpy as np
+    import torch
+    from repro_torch import profiling as prof_mod
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import capture, pregel, pregel_fused
+    from repro_torch.kernels import ops
+    pm = importlib.import_module("repro_torch.core.pregel")
+    k = pm.FUSED_BLOCK
+    if (PR_ITERS - 1) % k == 0:
+        raise AssertionError(f"{PR_ITERS} supersteps fill blocks of {k}: "
+                             "no masked superstep would run")
+    zero = {"m": torch.tensor(0.0)}
+    g_deg = alg.attach_out_degree(g)
+    dvp, dch = alg.delta_pagerank_fns(0.15, DELTA_TOL)
+    pr_args = (g_deg.mapV(alg._pr_init), alg.pagerank_vprog(0.15),
+               alg.pagerank_send, "sum")
+    pr_kw = dict(default_msg=zero, max_supersteps=PR_ITERS, skip_stale=None)
+    runs = [
+        (f"pagerank tol 0, {PR_ITERS} supersteps", pr_args, pr_kw),
+        (f"delta pagerank tol {DELTA_TOL}",
+         (g_deg.mapV(lambda vid, v: {**v, "pr": torch.tensor(0.15),
+                                     "delta": torch.tensor(0.15)}),
+          dvp, alg.delta_pagerank_send, "sum"),
+         dict(default_msg=zero, max_supersteps=DELTA_MAX, skip_stale="out",
+              changed_fn=dch)),
+        (f"cc on symmetrize(rmat({CC_SCALE},16))",
+         (sg.mapV(alg._cc_init), alg.cc_vprog, alg.cc_send, "min"),
+         dict(default_msg={"m": torch.tensor(alg.IMAX, dtype=torch.int32)},
+              max_supersteps=100, skip_stale="out")),
+        ("sssp from 0, w ~ U(0.5, 3)",
+         (sg.mapV(lambda vid, v: {"dist": torch.where(
+             vid == 0, torch.tensor(0.0), torch.tensor(alg.INF32))}),
+          alg.sssp_vprog, alg.sssp_send, "min"),
+         dict(default_msg={"m": torch.tensor(alg.INF32)},
+              max_supersteps=100, skip_stale="out"))]
+
+    def carry(gr):
+        return capture.flatten(pm._carry(gr))
+
+    def check_same(label, got, want):
+        (ta, sa), (tb, sb) = carry(got), carry(want)
+        if sa != sb or not all(torch.equal(x, y) for x, y in zip(ta, tb)):
+            raise AssertionError(f"{label} differs from the eager loop")
+
+    def drive_once(fn):
+        ops.reset_launch_counts()
+        capture.reset_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gr, n = fn()
+        torch.cuda.synchronize()
+        st = {"ms": (time.perf_counter() - t0) * 1e3,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "captures": capture.stats["captures"],
+              "capture_ms": capture.stats["capture_s"] * 1e3,
+              "release_ms": capture.stats["release_s"] * 1e3,
+              **ops.launch_counts()}
+        return gr, n, st
+
+    def drive(fn):
+        """(graph, supersteps, stats) of the faster of two runs of one
+        driver, its launches and captures counted alone (the host clock
+        of a single run swings on the shared host)."""
+        first, second = drive_once(fn), drive_once(fn)
+        if first[1] != second[1]:
+            raise AssertionError("two runs of one driver ran "
+                                 f"{first[1]} and {second[1]} supersteps")
+        return min(first, second, key=lambda r: r[2]["ms"])
+
+    def drivers(args, kw):
+        return {
+            "eager loop": lambda: eager_pregel(*args, **kw),
+            "pregel (captured)": lambda: (lambda r: (r.graph, r.supersteps))(
+                pregel(*args, **kw)),
+            f"pregel_fused (K {k})": lambda: (lambda o: (o[0], int(o[1])))(
+                pregel_fused(*args, **kw))}
+
+    table = {}
+    for label, args, kw in runs:
+        out = {}
+        for dname, fn in drivers(args, kw).items():
+            out[dname] = drive(fn)
+        want, n, _ = out["eager loop"]
+        for dname, (gr, m, st) in out.items():
+            if m != n:
+                raise AssertionError(f"{label}: {dname} ran {m} supersteps, "
+                                     f"the eager loop {n}")
+            check_same(f"{label}: {dname}", gr, want)
+            if dname != "eager loop" and n > 1 and st["captures"] != 1:
+                raise AssertionError(f"{label}: {dname} made "
+                                     f"{st['captures']} captures")
+        if label.startswith("delta") and not n < DELTA_MAX:
+            raise AssertionError(f"{label}: {n} supersteps did not halt")
+        if label.startswith("cc"):
+            ids, vals = want.vertices_to_numpy()
+            if not (np.array_equal(ids, cc_ids)
+                    and np.array_equal(vals["cc"], cc_want)):
+                raise AssertionError("cc labels differ from scipy's")
+        log(f"  {label}: {n} supersteps, the three drivers bit-equal (state, "
+            f"view, wire log)" + (", labels == scipy" if label.startswith("cc")
+                                  else ""))
+        for dname, (_, _, st) in out.items():
+            launched = st["triplet"] + st["apply"] + st["segment_sum"]
+            log(f"    {dname}: {st['ms']:.2f} ms, {st['ms'] / n:.3f} ms a "
+                f"superstep; capture {st['capture_ms']:.1f} ms, release "
+                f"{st['release_ms']:.1f} ms; peak "
+                f"{st['peak_gib']:.2f} GiB; launches a superstep "
+                f"{launched / n:.2f} (triplet {st['triplet']}, apply "
+                f"{st['apply']})")
+        table[label] = {d: dict(st, supersteps=n) for d, (_, _, st)
+                        in out.items()}
+        del out, want
+
+    # the supersteps after the second: a 10-superstep run less a
+    # 2-superstep one (each less its own capture and release), over the 8
+    # supersteps between
+    short = dict(pr_kw, max_supersteps=2)
+
+    def net_ms(fn):
+        st = drive_once(fn)[2]
+        return st["ms"] - st["capture_ms"] - st["release_ms"]
+
+    per = {}
+    for dname, fn in drivers(pr_args, short).items():
+        t2 = min(net_ms(fn) for _ in range(3))
+        t10 = min(net_ms(drivers(pr_args, pr_kw)[dname]) for _ in range(3))
+        per[dname] = (t10 - t2) / (PR_ITERS - 2)
+    log("  pagerank ms a superstep after the second (10-superstep run less a "
+        "2-superstep one, each less its capture and release, best of 3): "
+        + ", ".join(f"{d} {v:.3f}" for d, v in per.items()))
+
+    # mutants: the max_supersteps mask dropped; the counter deaf to `run`
+    want, steps = pregel_fused(*pr_args, **pr_kw)
+    no_cap = pregel_mutant("run = (live > 0) & (i < max_supersteps)",
+                           "run = live > 0")
+    got, _ = no_cap.pregel_fused(*pr_args, **pr_kw)
+    if torch.equal(got.vdata["pr"], want.vdata["pr"]):
+        raise AssertionError("pregel_fused without its max_supersteps mask "
+                             "gave the same static pagerank")
+    loose = pregel_mutant("i = i + run.to(i.dtype)", "i = i + 1")
+    _, got_steps = loose.pregel_fused(*pr_args, **pr_kw)
+    if int(got_steps) == int(steps):
+        raise AssertionError("pregel_fused counting masked supersteps gave "
+                             "the same superstep count")
+    log(f"  mutants fail as they must: no max_supersteps mask -> other "
+        f"ranks; counter deaf to the mask -> {int(got_steps)} supersteps, "
+        f"not {int(steps)}")
+    del want, got, no_cap, loose
+
+    # traced TRACE_STEPS-superstep pagerank: device busy and idle share
+    tr_kw = dict(pr_kw, max_supersteps=TRACE_STEPS)
+    for dname, fn in drivers(pr_args, tr_kw).items():
+        fn()
+        (_, n), wall, trace = prof_mod.traced(fn)
+        busy_ms, kernels = prof_mod.busy(trace)
+        home = prof_mod.home_line(prof_mod.span_stats(trace), n)
+        log(f"  traced pagerank, {n} supersteps, {dname}: wall "
+            f"{wall * 1e3:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
+            f"{1 - busy_ms / 1e3 / wall:.1%}, {kernels} device events; "
+            f"{home}")
+        table.setdefault("traced", {})[dname] = {
+            "wall_ms": wall * 1e3, "busy_ms": busy_ms, "kernels": kernels}
+        del trace
+
+    # the steady state: TRACE_STEPS supersteps after the first, each run
+    # eagerly or replayed from one capture, the live count read after each
+    step = pm._step_fn(*pr_args, default_msg=zero, skip_stale=None,
+                       changed_fn=None, kernel_mode="auto", incremental=True,
+                       payload_bound=None, fuse_apply="auto")
+    g1, _, _ = step(pr_args[0])
+
+    def eager_steps():
+        gi = g1
+        for _ in range(TRACE_STEPS):
+            gi, live, _ = step(gi)
+            int(live)
+
+    def replayed(c):
+        g2, live, _ = step(g1.replace(**c))
+        return pm._carry(g2), live
+
+    with capture.Replay(replayed, pm._carry(g1), capture=True) as rep:
+        def replay_steps():
+            for _ in range(TRACE_STEPS):
+                int(rep.run())
+        for dname, fn in (("eager", eager_steps), ("replayed", replay_steps)):
+            fn()
+            _, wall, trace = prof_mod.traced(fn)
+            busy_ms, kernels = prof_mod.busy(trace)
+            log(f"  traced pagerank, {TRACE_STEPS} supersteps after the "
+                f"first, {dname}: wall {wall * 1e3:.2f} ms, device busy "
+                f"{busy_ms:.2f} ms, idle share {1 - busy_ms / 1e3 / wall:.1%}"
+                f", {kernels} device events")
+            table["traced"][f"steady {dname}"] = {
+                "wall_ms": wall * 1e3, "busy_ms": busy_ms,
+                "kernels": kernels}
+            del trace
+    return table
 
 
 def check_plans(label, r, want=("fused", "fused_apply")):
@@ -839,6 +1113,17 @@ def main() -> int:
                 ("triplet", tri_mod.source(k_deg, "sum", "dst", True)),
                 ("triplet", tri_mod.source(k_deg, "sum", "src", False)),
                 ("triplet", tri_mod.source(k_pr, "sum", "dst", True))]
+    # phase 4a's delta PageRank: its send and its apply with changed_fn
+    g_dl_t = alg.attach_out_degree(gt, kernel_mode="ref").mapV(
+        lambda vid, v: {**v, "pr": torch.tensor(0.15),
+                        "delta": torch.tensor(0.15)})
+    dvp, dch = alg.delta_pagerank_fns(0.15, DELTA_TOL)
+    sources += [
+        ("triplet", tri_mod.source(mt.fused_plan(
+            g_dl_t, alg.delta_pagerank_send, "sum").kernel, "sum", "dst")),
+        ("apply", app_mod.source(mt._plan_apply(
+            g_dl_t, dvp, alg.delta_pagerank_send, "sum", dch, zero_msg,
+            None).kernel, "sum"))]
     for extra in (lambda vid, v: {"age": vid.float()},
                   lambda vid, v: {"pages": vid.float(), "dom": vid}):
         g_x = alg.attach_out_degree(gt.mapV(extra), kernel_mode="ref")
@@ -1304,9 +1589,9 @@ def main() -> int:
         f"fused == unfused bit for bit; max|pr-ref|/max|ref| = {rel:.3g}; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     counts_3 = ops.launch_counts()
-    _, _, trace = prof_mod.traced(lambda: alg.pagerank(g, num_iters=3))
+    r3, _, trace = prof_mod.traced(lambda: alg.pagerank(g, num_iters=3))
     log(f"  pagerank traced, 3 supersteps: "
-        f"{prof_mod.home_line(prof_mod.span_stats(trace))}")
+        f"{prof_mod.home_line(prof_mod.span_stats(trace), r3.supersteps)}")
     del trace
     del r_u
     log(f"  phase 3: {time.perf_counter() - t_phase:.1f} s")
@@ -1447,8 +1732,9 @@ def main() -> int:
     log(f"  phase 4: {time.perf_counter() - t_phase:.1f} s")
 
     counts_4 = ops.launch_counts()
-    _, _, trace = prof_mod.traced(lambda: alg.connected_components(sg))
-    log(f"  cc traced: {prof_mod.home_line(prof_mod.span_stats(trace))}")
+    r4, _, trace = prof_mod.traced(lambda: alg.connected_components(sg))
+    log(f"  cc traced: "
+        f"{prof_mod.home_line(prof_mod.span_stats(trace), r4.supersteps)}")
     del trace
     launches = {k: counts_3.get(k, 0) + counts_4.get(k, 0)
                 for k in set(counts_3) | set(counts_4)}
@@ -1456,7 +1742,19 @@ def main() -> int:
     for name in ("triplet", "apply", "segment_sum", *resident_launches):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
-    del c_f, c_u, adj, lab, minid, ids_np, vals
+    cc_want = minid[lab[ids_np]]
+    del c_f, c_u, adj, lab, minid, vals, r4
+
+    # ---------------------------------------------------------- phase 4a
+    t_phase = time.perf_counter()
+    log("phase 4a: the Pregel drivers (eager loop, captured pregel, "
+        "pregel_fused) on the graphs of phases 2 and 4")
+    log("  phase 4a drivers: " + json.dumps(
+        phase_4a_drivers(g, sg, ids_np, cc_want)))
+    del ids_np, cc_want
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 4a: {time.perf_counter() - t_phase:.1f} s")
 
     # ---------------------------------------------------------- phase 4b
     t_phase = time.perf_counter()

@@ -14,8 +14,10 @@ superstep, the device time by kernel name, the traced wall time, the
 device busy share (summed device kernel time over wall time; concurrent
 kernels would count twice, the port launches on one stream), and the home
 half of each superstep: the device launches under the Pregel loop's
-`record_function("apply_home")` span around `fused_apply_home`
-(`repro_torch.profiling.span_stats`), and their device time.  With
+`record_function("apply_home")` span around `fused_apply_home` in the
+eager superstep 1, and the same kernels, by name, in the replays of the
+captured superstep (`repro_torch.profiling.span_stats`), and their device
+time.  With
 `--cc`, connected components on symmetrize(rmat(scale - 1, 16, seed=1))
 the same way: the untraced seconds to convergence, then a traced run's
 home half.  Needs one CUDA card.
@@ -43,7 +45,7 @@ def main() -> int:
     from repro_torch.core import Graph, with_wire
     from repro_torch.core import algorithms as alg
     from repro_torch.data import rmat, symmetrize
-    from repro_torch.profiling import home_line, span_stats, traced
+    from repro_torch.profiling import busy, home_line, span_stats, traced
 
     gd = rmat(args.scale, 16, seed=0)
     g0 = Graph.from_edges(gd.src, gd.dst, num_partitions=4)
@@ -65,14 +67,14 @@ def main() -> int:
                 if e.device_type == DeviceType.CUDA
                 and e.device_time_total > 0 and e.key != "apply_home"]
         rows.sort(key=lambda r: -r[1])
-        busy = sum(r[1] for r in rows) / 1e6
+        busy_ms, n_events = busy(prof)
         print(f"pagerank rmat({args.scale},16), wire {spec}, {args.steps} "
               f"supersteps + degree: untraced {untraced * 1e3:.3f} ms per "
               f"superstep (incl. the degree pass); traced wall "
-              f"{wall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms "
-              f"({busy / wall:.1%}), idle share {1 - busy / wall:.1%}, "
-              f"{sum(r[2] for r in rows)} kernels")
-        print(f"  {home_line(span_stats(prof))}")
+              f"{wall * 1e3:.2f} ms, device busy {busy_ms:.2f} ms "
+              f"({busy_ms / 1e3 / wall:.1%}), idle share "
+              f"{1 - busy_ms / 1e3 / wall:.1%}, {n_events} kernels")
+        print(f"  {home_line(span_stats(prof), args.steps)}")
         for kname, us, n in rows[:15]:
             print(f"  {us / 1e3:9.3f} ms  {n:5d}x  {kname[:90]}")
     if args.cc:
@@ -89,7 +91,7 @@ def main() -> int:
         print(f"cc symmetrize(rmat({args.scale - 1},16)): {r.supersteps} "
               f"supersteps, untraced {secs:.4f} s to convergence; traced "
               f"wall {wall:.4f} s")
-        print(f"  {home_line(span_stats(prof))}")
+        print(f"  {home_line(span_stats(prof), r2.supersteps)}")
     return 0
 
 

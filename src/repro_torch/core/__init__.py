@@ -2,5 +2,7 @@
 from .collections import Col
 from .exchange import LocalExchange, with_wire
 from .graph import Graph
+from .pregel import PregelResult, pregel, pregel_fused
 
-__all__ = ["Col", "Graph", "LocalExchange", "with_wire"]
+__all__ = ["Col", "Graph", "LocalExchange", "PregelResult", "pregel",
+           "pregel_fused", "with_wire"]

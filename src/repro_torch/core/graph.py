@@ -3,7 +3,10 @@
 A `Graph` holds the device-resident structural index (`Structure`, shared
 across property updates: §4.3 index reuse is object sharing), vertex and
 edge property pytrees ([P, V_blk, ...] and [P, E_blk, ...] tensors), the
-visibility masks and the graph-resident replicated view.
+visibility masks, the graph-resident replicated view and the wire log
+(`view.WireLog`: the ships and bytes of the graph's lineage, which
+`mapE`, `subgraph`, `mrTriplets` and every Pregel superstep add to;
+`ships`, `bytes_shipped` and `bytes_accounted` read its totals).
 
 Everything lives on one device, the card unless the caller asks otherwise:
 `device=None` means "cuda", and without a CUDA device that raises rather
@@ -40,7 +43,7 @@ from .exchange import Exchange, LocalExchange
 from .mrtriplets import edge_mask, endpoint_rows, mr_triplets
 from .tree import (ElemSpec, elem_spec, gather_rows, tree_leaves, tree_map,
                    vmap2)
-from .view import GraphView
+from .view import GraphView, WireLog
 
 _CANON = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
           np.dtype(np.uint64): np.uint32}
@@ -177,6 +180,7 @@ class Graph:
     emask: torch.Tensor      # [P, E_blk]
     active: torch.Tensor     # [P, V_blk] changed since the last ship
     view: GraphView = None   # graph-resident replicated view (None = cold)
+    wire_log: WireLog = None  # the lineage's ships and bytes (None: untracked)
     ex: Exchange = None
     host: part_mod.GraphStructure = None
     vmask_full: bool = False
@@ -191,6 +195,32 @@ class Graph:
     @property
     def device(self) -> torch.device:
         return self.s.home_vid.device
+
+    # ------------------------------------------------ pipeline wire metrics
+    def _log_total(self, field: str) -> torch.Tensor:
+        if self.wire_log is None:
+            return torch.zeros((), dtype=torch.float32, device=self.device)
+        return getattr(self.wire_log, field).sum()
+
+    @property
+    def ships(self) -> torch.Tensor:
+        """Routed collectives this graph's lineage has run (0 untracked)."""
+        return self._log_total("ships")
+
+    @property
+    def bytes_shipped(self) -> torch.Tensor:
+        return self._log_total("bytes_shipped")
+
+    @property
+    def bytes_accounted(self) -> torch.Tensor:
+        return self._log_total("bytes_accounted")
+
+    def _after_refresh(self, view, m, n_ships: int) -> "Graph":
+        """Attach a refreshed view and add its traffic to the wire log."""
+        log = self.wire_log
+        if log is not None and m is not None:
+            log = log.add(n_ships, m.bytes_shipped, m.bytes_accounted)
+        return self.replace(view=view, wire_log=log)
 
     # ------------------------------------------------------------- builders
     @staticmethod
@@ -256,14 +286,16 @@ class Graph:
                     host: part_mod.GraphStructure | None = None) -> "Graph":
         """A graph from GraphStructure fields (numpy, as a mapping) and
         [P, rows, ...] numpy property pytrees — e.g. a reference graph taken
-        mid-run, continued here.  The view starts cold."""
+        mid-run, continued here.  The view starts cold, the wire log at
+        zero."""
         dev = resolve_device(device)
         s = Structure.from_host(structure, dev)
         return Graph(
             s=s, vdata=tree_map(lambda a: _to_device(a, dev), vdata),
             edata=tree_map(lambda a: _to_device(a, dev), edata),
             vmask=s.home_mask, emask=s.edge_mask, active=s.home_mask,
-            ex=LocalExchange(s.p), host=host, vmask_full=True)
+            wire_log=WireLog.zeros(s.p, dev), ex=LocalExchange(s.p),
+            host=host, vmask_full=True)
 
     # ------------------------------------------------------ collection views
     @property
@@ -312,17 +344,17 @@ class Graph:
         need = ("both" if deps.uses_src and deps.uses_dst
                 else "src" if deps.uses_src
                 else "dst" if deps.uses_dst else None)
-        view, mirror = self.view, None
+        view, mirror, m, n_ships = self.view, None, None, 0
         if need is not None:
-            view, mirror, _, _ = view_mod.refresh_view(
+            view, mirror, m, n_ships = view_mod.refresh_view(
                 self, need, leaf_mask=deps.read_leaf_mask(
                     len(tree_leaves(self.vdata))))
         svals, dvals = endpoint_rows(self.s, mirror, self.vdata,
                                      tuple(self.emask.shape),
                                      need in ("src", "both"),
                                      need in ("dst", "both"))
-        return self.replace(view=view,
-                            edata=vmap2(f)(svals, self.edata, dvals))
+        return self._after_refresh(view, m, n_ships).replace(
+            edata=vmap2(f)(svals, self.edata, dvals))
 
     # ------------------------------------------------------------- restrict
     def subgraph(self, vpred: Callable | None = None,
@@ -348,12 +380,12 @@ class Graph:
         with_vis = not g.vmask_full
         if epred is None and not with_vis:
             return g
-        view, mirror, _, _ = view_mod.refresh_view(
+        view, mirror, m, n_ships = view_mod.refresh_view(
             g, "both", leaf_mask=leaf_mask, with_vis=with_vis)
         emask = edge_mask(g.s, g.emask, vis=view.vis if with_vis else None,
                           epred=epred, mirror=mirror, vdata=self.vdata,
                           edata=self.edata)
-        return g.replace(view=view, emask=emask)
+        return g._after_refresh(view, m, n_ships).replace(emask=emask)
 
     def reverse(self) -> "Graph":
         """The transpose: src and dst slots swap, and so do the routes and
@@ -387,7 +419,8 @@ class Graph:
             self, map_fn, reduce, to=to, skip_stale=skip_stale,
             kernel_mode=kernel_mode, force_need=force_need,
             payload_bound=payload_bound, transport=transport, epred=epred)
-        g = self.replace(view=view)
+        g = self._after_refresh(view, metrics["fwd"].merge(metrics["back"]),
+                                metrics["ships"])
         if "emask_pushed" in metrics:
             g = g.replace(emask=metrics["emask_pushed"])
         return values, exists, g, metrics

@@ -278,8 +278,11 @@ def _segment_aggregate(msgs: Any, ids: torch.Tensor, valid: torch.Tensor,
         return out[:num_seg].reshape((nl, v_mir) + tail)
 
     partial = tree_map(agg_leaf, msgs)
-    counts = torch.bincount(flat_ids.long(), minlength=num_seg + 1)[:num_seg]
-    return partial, counts.reshape(nl, v_mir) > 0
+    # (an index_add_ of ones: bincount reads its input's maximum back to
+    # the host, which a captured superstep cannot)
+    counts = torch.zeros(num_seg + 1, dtype=torch.int32, device=ids.device)
+    counts.index_add_(0, flat_ids, torch.ones_like(flat_ids))
+    return partial, counts[:num_seg].reshape(nl, v_mir) > 0
 
 
 # ---------------------------------------------------------------------------

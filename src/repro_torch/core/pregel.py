@@ -7,25 +7,55 @@ Per superstep:
 until no vertex changed or max_supersteps.
 
 As in the reference host loop: the incremental view rides the graph, the
-changed mask feeds it back per leaf (passthrough leaves never re-ship), and
+changed mask feeds it back per leaf (passthrough leaves never re-ship),
 `fuse_apply="auto"` runs the combine + vprog + changed half as one kernel
 (kernels/superstep.py) whenever the shapes allow — bit-exact with the
-unfused apply, since both combine sums in ascending source partition.
+unfused apply, since both combine sums in ascending source partition — and
+every superstep adds its ships to the graph's wire log.
+
+Two drivers, as in the reference:
+  * `pregel` — the host loop.  The reference jits its superstep; here
+    superstep 1 runs eagerly (the cold ship, which settles the view's plan
+    and builds the kernels) and, on the card, every later superstep
+    replays one superstep captured as a CUDA graph (`core/capture.py`).
+    The host reads the live count once a superstep.
+  * `pregel_fused` — the reference's one `lax.while_loop`.  After the
+    eager superstep 1, blocks of `FUSED_BLOCK` supersteps are captured
+    back to back; each superstep of a block is masked on the device by
+    `live > 0 and i < max_supersteps`, so the loop halts on the card and
+    the host reads one flag a block.
+On the CPU both run the same steps eagerly, through the same buffers.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
 
 from . import analysis
+from . import capture as capture_mod
 from . import view as view_mod
 from .graph import Graph
 from .mrtriplets import (_derive_need, _plan_apply, apply_plan_of,
                          fused_apply_home, mr_triplets, plan_of)
 from .tree import (ElemSpec, elem_spec, tree_changed, tree_map,
                    tree_unflatten, tree_where, vmap2)
+
+# Supersteps a replayed block of `pregel_fused` runs before the host reads
+# its halt flag.  A larger block saves host syncs and costs up to K - 1
+# masked supersteps after the halt, each a full superstep of device work.
+# On PageRank rmat(22,16), P=4 (scripts/pregel_block_sweep.py, NVIDIA H100
+# 80GB HBM3 at 700 W, median of 5 runs less their capture) the saved syncs
+# are worth less than the masked supersteps: ms a superstep at K 1 / 2 / 4
+# / 8 were 3.68 / 4.30 / 4.69 / 5.83 (10 supersteps), 3.33 / 3.41 / 3.53 /
+# 3.96 (20) and 5.59 / 5.67 / 5.96 / 6.51 (delta, 34).  K = 2 is the
+# smallest block in which the loop still halts on the card.
+FUSED_BLOCK = 2
+
+# the graph fields a superstep rewrites: the carry a replayed step threads
+_CARRIED = ("vdata", "active", "view", "wire_log")
 
 
 @dataclasses.dataclass
@@ -37,7 +67,10 @@ class PregelResult:
 
 def _superstep(g: Graph, *, vprog, send_msg, gather, default_msg, skip_stale,
                changed_fn, kernel_mode, use_cache, payload_bound, aplan):
-    """One BSP superstep; `aplan` is the fused apply plan or None."""
+    """One BSP superstep; `aplan` is the fused apply plan or None and
+    `default_msg` a pytree of tensors on the graph's device.  Makes no host
+    sync and no host-to-device copy on a CUDA graph in the "auto" and
+    "unfused" modes, so it can be captured."""
     gin = g if use_cache else g.replace(view=None)
     msgs, exists, view, metrics = mr_triplets(
         gin, send_msg, gather, to="dst", skip_stale=skip_stale,
@@ -52,8 +85,7 @@ def _superstep(g: Graph, *, vprog, send_msg, gather, default_msg, skip_stale,
         msg_elem = tree_unflatten(list(aplan.msg_specs), aplan.msg_treedef)
     else:
         msgs_or_default = tree_where(exists, msgs, tree_map(
-            lambda d, m: torch.as_tensor(d).to(m.device, m.dtype).expand_as(m),
-            default_msg, msgs))
+            lambda d, m: d.to(m.dtype).expand_as(m), default_msg, msgs))
         new_vdata = vmap2(vprog)(g.s.home_vid, g.vdata, msgs_or_default)
         new_vdata = tree_where(g.vmask, new_vdata, g.vdata)
         if changed_fn is None:
@@ -69,9 +101,40 @@ def _superstep(g: Graph, *, vprog, send_msg, gather, default_msg, skip_stale,
                     msg_elem), 1)
         view = view_mod.view_after_rewrite(view, g.vdata, new_vdata, rewrites,
                                            changed)
+    log = g.wire_log
+    if log is not None:
+        m = metrics["fwd"].merge(metrics["back"])
+        log = log.add(metrics["ships"], m.bytes_shipped, m.bytes_accounted)
     g2 = g.replace(vdata=new_vdata, active=changed,
-                   view=view if use_cache else None)
+                   view=view if use_cache else None, wire_log=log)
     return g2, live, metrics
+
+
+def _step_fn(g: Graph, vprog, send_msg, gather, *, default_msg, skip_stale,
+             changed_fn, kernel_mode, incremental, payload_bound,
+             fuse_apply) -> Callable:
+    """The superstep of one run: step(g) -> (g', live, metrics), its plans
+    made and its default messages moved to the device once."""
+    fuse = kernel_mode != "unfused" and fuse_apply not in (False, "unfused")
+    aplan = (_plan_apply(g, vprog, send_msg, gather, changed_fn, default_msg,
+                         payload_bound) if fuse else None)
+    dmsg = tree_map(lambda d: torch.as_tensor(d).to(g.device), default_msg)
+    return functools.partial(
+        _superstep, vprog=vprog, send_msg=send_msg, gather=gather,
+        default_msg=dmsg, skip_stale=skip_stale, changed_fn=changed_fn,
+        kernel_mode=kernel_mode, use_cache=incremental,
+        payload_bound=payload_bound, aplan=aplan)
+
+
+def _captures(device: torch.device, kernel_mode: str) -> bool:
+    """Do the drivers capture their supersteps?  On the card, unless the
+    caller asked for the plain versions ("ref"), which read tables back to
+    the host and so cannot be captured: those supersteps run eagerly."""
+    return device.type == "cuda" and kernel_mode != "ref"
+
+
+def _carry(g: Graph) -> dict:
+    return {k: getattr(g, k) for k in _CARRIED}
 
 
 def _to_host(metrics: dict) -> dict:
@@ -92,14 +155,23 @@ def pregel(g: Graph, vprog: Callable, send_msg: Callable,
            kernel_mode: str = "auto", track_metrics: bool = False,
            payload_bound: int | None = None,
            fuse_apply: Any = "auto") -> PregelResult:
-    """Host-driven BSP loop.  fuse_apply: "auto" fuses the apply half when
-    eligible; False / "unfused" pins the unfused apply.  The loop reads the
-    live count back every superstep to decide whether to halt."""
-    fuse = kernel_mode != "unfused" and fuse_apply not in (False, "unfused")
-    aplan = (_plan_apply(g, vprog, send_msg, gather, changed_fn, default_msg,
-                         payload_bound) if fuse else None)
+    """The host-driven BSP loop.  fuse_apply: "auto" fuses the apply half
+    when eligible; False / "unfused" pins the unfused apply.
+
+    Superstep 1 runs eagerly; on the card the later ones replay it
+    captured as a CUDA graph (bit-equal to running them eagerly), except
+    under kernel_mode="ref", whose plain versions sync with the host and
+    so run eagerly.  The loop reads the live count back once a superstep
+    to decide whether to halt; track_metrics also reads that superstep's
+    metrics and the wire log's totals (`pipeline_ships`,
+    `pipeline_bytes_shipped`: the graph's lineage, this loop included)."""
+    step = _step_fn(g, vprog, send_msg, gather, default_msg=default_msg,
+                    skip_stale=skip_stale, changed_fn=changed_fn,
+                    kernel_mode=kernel_mode, incremental=incremental,
+                    payload_bound=payload_bound, fuse_apply=fuse_apply)
     deps = analysis.analyze_message_fn(
         send_msg, elem_spec(g.vdata), elem_spec(g.edata), elem_spec(g.vdata))
+    fuse = kernel_mode != "unfused" and fuse_apply not in (False, "unfused")
     static_info = {
         "join_arity": deps.n_way,
         "need": _derive_need(deps, None) or "none",
@@ -113,19 +185,108 @@ def pregel(g: Graph, vprog: Callable, send_msg: Callable,
             payload_bound=payload_bound) if fuse else "unfused")}
 
     all_metrics: list[dict] = []
-    steps = 0
-    for _ in range(max_supersteps):
-        g, live, metrics = _superstep(
-            g, vprog=vprog, send_msg=send_msg, gather=gather,
-            default_msg=default_msg, skip_stale=skip_stale,
-            changed_fn=changed_fn, kernel_mode=kernel_mode,
-            use_cache=incremental, payload_bound=payload_bound, aplan=aplan)
-        steps += 1
+
+    def record(gs: Graph, live, metrics) -> int:
+        """The superstep's live count, read once; its metrics if tracked."""
+        n_live = int(live)
         if track_metrics:
             host = _to_host(metrics)
             host.update(static_info)
-            host["live"] = int(live)
+            host["live"] = n_live
+            host["pipeline_ships"] = float(gs.ships)
+            host["pipeline_bytes_shipped"] = float(gs.bytes_shipped)
             all_metrics.append(host)
-        if int(live) == 0:
-            break
+        return n_live
+
+    if max_supersteps < 1:
+        return PregelResult(graph=g, supersteps=0, metrics=all_metrics)
+    g, live, metrics = step(g)
+    steps = 1
+    if record(g, live, metrics) == 0 or max_supersteps == 1:
+        return PregelResult(graph=g, supersteps=steps, metrics=all_metrics)
+
+    g1 = g
+
+    def replayed(carry):
+        g2, live, metrics = step(g1.replace(**carry))
+        return _carry(g2), (live, metrics)
+
+    with capture_mod.Replay(replayed, _carry(g),
+                            capture=_captures(g.device, kernel_mode)) as rep:
+        while steps < max_supersteps:
+            live, metrics = rep.run()
+            steps += 1
+            g = g1.replace(**rep.carry)
+            if record(g, live, metrics) == 0:
+                break
+        live = metrics = None       # the graph's outputs: its pool goes
     return PregelResult(graph=g, supersteps=steps, metrics=all_metrics)
+
+
+def _select(run: torch.Tensor, new: Any, old: Any) -> Any:
+    """where(run, new, old) over two carries of one static half (a tensor
+    passed through stays itself)."""
+    n_t, n_spec = capture_mod.flatten(new)
+    o_t, o_spec = capture_mod.flatten(old)
+    if n_spec != o_spec:
+        raise capture_mod.StaticHalfChanged(
+            "a superstep of pregel_fused changed its carry's static half")
+
+    return capture_mod.unflatten(n_spec, [
+        n if n is o else torch.where(run, n, o) for n, o in zip(n_t, o_t)])
+
+
+def pregel_fused(g: Graph, vprog: Callable, send_msg: Callable,
+                 gather: str = "sum", *, default_msg: Any,
+                 max_supersteps: int = 50, skip_stale: str | None = "out",
+                 incremental: bool = True, changed_fn: Callable | None = None,
+                 kernel_mode: str = "auto", payload_bound: int | None = None,
+                 transport: Any = None, fuse_apply: Any = "auto"):
+    """The whole run as one loop that halts on the device (the reference's
+    `lax.while_loop`).  Returns (graph, steps), steps a 0-d int32 tensor on
+    the graph's device.
+
+    Superstep 1 runs eagerly (it materialises the view, so the carry has
+    its static half); then supersteps run while live > 0 and steps <
+    max_supersteps.  On the card they run in replayed blocks of
+    `FUSED_BLOCK`: each superstep of a block computes the step and commits
+    it only where `run = live > 0 and i < max_supersteps` holds on the
+    device (i counts the committed ones), and the host reads one pinned
+    halt flag a block.  kernel_mode="ref" runs the same blocks eagerly, as
+    the CPU does.  transport: None or "dense"; the others are not ported."""
+    if transport not in (None, "dense"):
+        raise NotImplementedError(
+            f"transport {transport!r} is not ported yet: ROADMAP Queue 1 "
+            "item 2 (pregel_fused takes the dense transport)")
+    step = _step_fn(g, vprog, send_msg, gather, default_msg=default_msg,
+                    skip_stale=skip_stale, changed_fn=changed_fn,
+                    kernel_mode=kernel_mode, incremental=incremental,
+                    payload_bound=payload_bound, fuse_apply=fuse_apply)
+    g0, live0, _ = step(g)
+    i0 = torch.ones((), dtype=torch.int32, device=g.device)
+    if not bool((live0 > 0) & (i0 < max_supersteps)):
+        return g0, i0
+    capture = _captures(g.device, kernel_mode)
+    flag = torch.zeros((), dtype=torch.bool, pin_memory=capture)
+
+    def block(carry):
+        state, live, i = carry["state"], carry["live"], carry["i"]
+        for _ in range(FUSED_BLOCK):
+            run = (live > 0) & (i < max_supersteps)
+            g2, live2, _ = step(g0.replace(**state))
+            state = _select(run, _carry(g2), state)
+            live = torch.where(run, live2, live)
+            i = i + run.to(i.dtype)
+        flag.copy_((live > 0) & (i < max_supersteps), non_blocking=True)
+        return {"state": state, "live": live, "i": i}, None
+
+    with capture_mod.Replay(block, {"state": _carry(g0), "live": live0,
+                                    "i": i0}, capture=capture) as rep:
+        while True:
+            rep.run()
+            if capture:
+                torch.cuda.current_stream().synchronize()
+            if not bool(flag):
+                break
+        carry = rep.carry
+    return g0.replace(**carry["state"]), carry["i"]

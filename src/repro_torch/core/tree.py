@@ -104,15 +104,29 @@ def scatter_rows(init: torch.Tensor, idx: torch.Tensor,
     return buf[:, :n].contiguous()
 
 
+def _fill_on(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """`t`, a constant a UDF made on the host and vmap broadcast over the
+    two leading axes, rebuilt on `dev` by one fill per element value: no
+    host-to-device copy, so a captured superstep may run it."""
+    out = torch.empty(t.shape, dtype=t.dtype, device=dev)
+    if t.numel():
+        cols = out.reshape(t.shape[:2] + (-1,))
+        for j, v in enumerate(t[0, 0].reshape(-1).tolist()):
+            cols[..., j].fill_(v)
+    return out
+
+
 def vmap2(f: Callable) -> Callable:
     """vmap over the two leading (partition, element) axes.  Outputs are
     contiguous and on the inputs' device: vmap broadcasts an unbatched
-    constant a UDF returns (`torch.tensor(1.0)`) from the CPU."""
+    constant a UDF returns (`torch.tensor(1.0)`) from the CPU, which is
+    filled in on the device (`_fill_on`)."""
     inner = torch.func.vmap(torch.func.vmap(f))
 
     def run(*args):
         dev = tree_leaves(args)[0].device
-        return tree_map(lambda t: t.to(dev).contiguous(), inner(*args))
+        return tree_map(lambda t: t.contiguous() if t.device == dev
+                        else _fill_on(t, dev), inner(*args))
     return run
 
 

@@ -23,6 +23,11 @@ rows whose bit flipped, `refresh_view(..., with_vis=True)` ships it in the
 same routed collective as the property leaves that resolve alike (the
 subgraph visibility + `epred` property ship folds into one), and
 `reverse()` remaps the direction labels instead of dropping the view.
+
+`WireLog` is the pipeline-level account of the ships a graph's lineage has
+run (the reference's `view.WireLog`): `Graph` carries it, its operators
+that refresh the view add their ships, and every Pregel superstep adds its
+own.
 """
 from __future__ import annotations
 
@@ -38,7 +43,10 @@ from .tree import (tree_flatten, tree_flatten_with_path, tree_leaves,
 
 _DIR = {"src": "s", "dst": "d", "both": "sd"}
 _NEED = {"s": "src", "d": "dst", "sd": "both"}
-_DIRROW = {"s": 0, "d": 1}
+# the rows of each direction string in a [nl, 2, V_blk] dirty mask, as a
+# slice: indexing with a Python list would copy an index tensor to the
+# device on every call, which a captured superstep cannot do
+_DIRROWS = {"s": slice(0, 1), "d": slice(1, 2), "sd": slice(0, 2)}
 
 
 def _dirs_union(a: str, b: str) -> str:
@@ -51,7 +59,38 @@ def _dirs_minus(a: str, b: str) -> str:
 
 def _dir_rows(mask: torch.Tensor, dirs: str) -> torch.Tensor:
     """[nl, 2, V_blk] mask -> [nl, V_blk] union over the named directions."""
-    return mask[:, [_DIRROW[c] for c in dirs]].any(dim=1)
+    return mask[:, _DIRROWS[dirs]].any(dim=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class WireLog:
+    """Pipeline-level wire-traffic accumulators, carried by `Graph`: the
+    routed collectives an operator chain ran and the bytes they moved.
+
+    Shaped [nl] f32 like the reference's (which shards them with the
+    graph): a count lands in row 0 and a total is the sum.  `add` makes
+    no host sync and no host-to-device copy, so a captured superstep can
+    bump the log."""
+
+    ships: torch.Tensor            # [nl] f32: routed collectives run
+    bytes_shipped: torch.Tensor    # [nl] f32: what the transports moved
+    bytes_accounted: torch.Tensor  # [nl] f32: the codec accounting
+
+    @staticmethod
+    def zeros(nl: int, device=None) -> "WireLog":
+        z = lambda: torch.zeros((nl,), dtype=torch.float32, device=device)  # noqa: E731
+        return WireLog(z(), z(), z())
+
+    def add(self, n_ships, shipped, accounted) -> "WireLog":
+        """Row 0 of each accumulator plus a Python number or a 0-d tensor
+        on the log's device, cast to f32 as the reference casts it."""
+        def bump(a, x):
+            out = a.clone()
+            out[0] += x.to(a.dtype) if isinstance(x, torch.Tensor) else x
+            return out
+        return WireLog(bump(self.ships, n_ships),
+                       bump(self.bytes_shipped, shipped),
+                       bump(self.bytes_accounted, accounted))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,7 +257,7 @@ def refresh_view(g, need: str, *, leaf_mask=None, with_vis: bool = False,
 
     def clear_rows(mask, dirs):
         mask = mask.clone()
-        mask[:, [_DIRROW[c] for c in dirs]] = False
+        mask[:, _DIRROWS[dirs]] = False
         return mask
 
     shipped_dirs: dict = {}

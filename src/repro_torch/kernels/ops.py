@@ -108,3 +108,17 @@ def reset_launch_counts() -> None:
     for fn in _COUNTED.values():
         fn.launches = 0
     _triplet.fused_triplet.variants.clear()
+
+
+def add_launch_counts(delta: dict[str, int]) -> None:
+    """Add launches that no wrapper call made: a CUDA graph's replay runs
+    the launches its capture recorded (`core.capture`), so each replay
+    adds them, and `launch_counts` keeps counting launches on the card.
+    Keys as `launch_counts`."""
+    variants = _triplet.fused_triplet.variants
+    for name, n in delta.items():
+        if name.startswith("triplet_"):
+            key = name[len("triplet_"):]
+            variants[key] = variants.get(key, 0) + n
+        else:
+            _COUNTED[name].launches += n

@@ -1023,3 +1023,199 @@ def test_train_smoke_on_card_goes_through_the_kernels(cuda):
     counts = ops.launch_counts()
     assert counts["mlstm_fwd"] == counts["mlstm_bwd"] == 3 * 2
     np.testing.assert_allclose(g, two_steps(cpu, "cpu"), rtol=2e-3)
+
+
+# --- the Pregel drivers: captured supersteps and the on-device loop ---------
+def _driver_run(name, device):
+    """(graph, vprog, send, gather, kwargs) of one algorithm on the small
+    symmetric graph, w ~ U(0.5, 3)."""
+    w = np.random.default_rng(1).uniform(0.5, 3, SGD.num_edges).astype(
+        np.float32)
+    g = Graph.from_edges(SGD.src, SGD.dst, edge_values={"w": w},
+                         num_partitions=P, device=device)
+    if name == "pagerank":
+        return (alg.attach_out_degree(g).mapV(alg._pr_init),
+                alg.pagerank_vprog(0.15), alg.pagerank_send, "sum",
+                dict(default_msg={"m": torch.tensor(0.0)}, max_supersteps=10,
+                     skip_stale=None))
+    if name == "delta_pagerank":
+        vprog, changed = alg.delta_pagerank_fns(0.15, 1e-3)
+        g = alg.attach_out_degree(g).mapV(
+            lambda vid, v: {**v, "pr": torch.tensor(0.15),
+                            "delta": torch.tensor(0.15)})
+        return (g, vprog, alg.delta_pagerank_send, "sum",
+                dict(default_msg={"m": torch.tensor(0.0)}, max_supersteps=50,
+                     skip_stale="out", changed_fn=changed))
+    if name == "cc":
+        return (g.mapV(alg._cc_init), alg.cc_vprog, alg.cc_send, "min",
+                dict(default_msg={"m": torch.tensor(alg.IMAX,
+                                                    dtype=torch.int32)}))
+    assert name == "sssp"
+    g = g.mapV(lambda vid, v: {"dist": torch.where(
+        vid == 0, torch.tensor(0.0), torch.tensor(alg.INF32))})
+    return (g, alg.sssp_vprog, alg.sssp_send, "min",
+            dict(default_msg={"m": torch.tensor(alg.INF32)}))
+
+
+def _eager_pregel(g, vprog, send, gather, *, default_msg, max_supersteps=50,
+                  skip_stale="out", changed_fn=None, kernel_mode="auto"):
+    """The loop the drivers replace: `_superstep` superstep by superstep,
+    eagerly, on freshly allocated tensors."""
+    import sys
+    pm = sys.modules["repro_torch.core.pregel"]
+    aplan = (None if kernel_mode == "unfused" else mt._plan_apply(
+        g, vprog, send, gather, changed_fn, default_msg, None))
+    dmsg = tree_map(lambda d: torch.as_tensor(d).to(g.device), default_msg)
+    steps = 0
+    for _ in range(max_supersteps):
+        g, live, _ = pm._superstep(
+            g, vprog=vprog, send_msg=send, gather=gather, default_msg=dmsg,
+            skip_stale=skip_stale, changed_fn=changed_fn,
+            kernel_mode=kernel_mode, use_cache=True, payload_bound=None,
+            aplan=aplan)
+        steps += 1
+        if int(live) == 0:
+            break
+    return g, steps
+
+
+def _assert_same_state(a, b):
+    import sys
+    from repro_torch.core import capture
+    pm = sys.modules["repro_torch.core.pregel"]
+    ta, sa = capture.flatten(pm._carry(a))
+    tb, sb = capture.flatten(pm._carry(b))
+    assert sa == sb
+    for x, y in zip(ta, tb):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("mode", ["auto", "unfused"])
+@pytest.mark.parametrize("name", ["pagerank", "delta_pagerank", "cc", "sssp"])
+def test_captured_pregel_equals_eager_loop(name, mode, cuda):
+    """Supersteps 2.. of `pregel` replay one captured superstep: values,
+    the view, the wire log and the superstep count bit-equal to the eager
+    loop, and the launch counts after the run equal the eager run's."""
+    from repro_torch.core import capture, pregel
+    g, vprog, send, gather, kw = _driver_run(name, cuda)
+    ops.reset_launch_counts()
+    want, n = _eager_pregel(g, vprog, send, gather, kernel_mode=mode, **kw)
+    torch.cuda.synchronize()
+    eager_counts = ops.launch_counts()
+    ops.reset_launch_counts()
+    capture.reset_stats()
+    r = pregel(g, vprog, send, gather, kernel_mode=mode, **kw)
+    torch.cuda.synchronize()
+    assert capture.stats["captures"] == (1 if n > 1 else 0)
+    assert ops.launch_counts() == eager_counts
+    if mode == "auto":
+        assert eager_counts["triplet"] > 0 and eager_counts["apply"] > 0
+    elif gather == "sum":       # unfused float sums: the segment_sum kernel
+        assert eager_counts["segment_sum"] > 0
+    assert r.supersteps == n > 1
+    _assert_same_state(r.graph, want)
+
+
+@pytest.mark.parametrize("max_steps", [None, 2, 6])
+@pytest.mark.parametrize("name", ["pagerank", "delta_pagerank", "cc"])
+def test_pregel_fused_on_card_equals_eager_loop(name, max_steps, cuda):
+    """Blocks of FUSED_BLOCK masked supersteps, replayed: bit-equal to the
+    eager loop, with its superstep count, whether the run halts inside a
+    block (cc, delta PageRank) or at a max_supersteps that is no multiple
+    of the block; the masked supersteps add their launches."""
+    import sys
+    from repro_torch.core import capture, pregel_fused
+    k = sys.modules["repro_torch.core.pregel"].FUSED_BLOCK
+    g, vprog, send, gather, kw = _driver_run(name, cuda)
+    if max_steps is not None:
+        kw["max_supersteps"] = max_steps
+    want, n = _eager_pregel(g, vprog, send, gather, **kw)
+    ops.reset_launch_counts()
+    capture.reset_stats()
+    got, steps = pregel_fused(g, vprog, send, gather, **kw)
+    torch.cuda.synchronize()
+    assert steps.device.type == "cuda" and int(steps) == n
+    assert capture.stats["captures"] == (1 if n > 1 else 0)
+    blocks = -(-(n - 1) // k)
+    assert ops.launch_counts()["apply"] == 1 + blocks * k
+    _assert_same_state(got, want)
+
+
+@pytest.mark.parametrize("codec", ["int8", "fp8_e4m3"])
+def test_pregel_fused_over_resident_mirrors_on_card(codec, cuda):
+    """Encoded mirrors (int8 and fp8 payloads with their scale planes) in
+    the captured carry and its masked commit: bit-equal to the eager
+    loop."""
+    from repro_torch.core import pregel, pregel_fused
+    g, vprog, send, gather, kw = _driver_run("pagerank", cuda)
+    g = g.replace(ex=with_wire(g.ex, codec, resident=True))
+    g = g.replace(view=None)        # mirrors start encoded, cold
+    want, n = _eager_pregel(g, vprog, send, gather, **kw)
+    got, steps = pregel_fused(g, vprog, send, gather, **kw)
+    assert int(steps) == n
+    _assert_same_state(got, want)
+    r = pregel(g, vprog, send, gather, **kw)
+    assert r.supersteps == n
+    _assert_same_state(r.graph, want)
+
+
+def test_captures_give_their_memory_back(cuda):
+    """Each run's graph pool is released when the run returns: the
+    memory the process reserves does not grow from run to run."""
+    import gc
+    from repro_torch.core import pregel, pregel_fused
+    g, vprog, send, gather, kw = _driver_run("pagerank", cuda)
+    reserved = []
+    for _ in range(3):
+        r = pregel(g, vprog, send, gather, **kw)
+        out = pregel_fused(g, vprog, send, gather, **kw)
+        del r, out
+        gc.collect()
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved())
+    assert reserved[2] <= reserved[0], reserved
+
+
+def test_ref_mode_pregel_runs_eagerly_on_card(cuda):
+    """kernel_mode="ref" (the plain versions, which read tables back to the
+    host) runs every superstep eagerly, and equals the eager loop."""
+    from repro_torch.core import capture, pregel
+    g, vprog, send, gather, kw = _driver_run("cc", cuda)
+    capture.reset_stats()
+    r = pregel(g, vprog, send, gather, kernel_mode="ref", **kw)
+    assert capture.stats["captures"] == 0 and r.supersteps > 1
+    want, n = _eager_pregel(g, vprog, send, gather, kernel_mode="ref", **kw)
+    assert r.supersteps == n
+    _assert_same_state(r.graph, want)
+
+
+def test_capture_errors_raise(cuda):
+    """A step that reads back to the host cannot be captured: the capture
+    raises, and nothing runs it eagerly instead; nor does a step that
+    changes its carry's static half.  (Last in the file: a failed capture
+    leaves nothing the later tests would need, but it goes last anyway.)"""
+    from repro_torch.core import capture
+    carry = {"x": torch.arange(8, dtype=torch.float32, device=cuda)}
+
+    def syncs(c):
+        return {"x": c["x"] * float(c["x"].sum())}, None
+
+    with pytest.raises(RuntimeError):
+        capture.Replay(syncs, carry, capture=True)
+    torch.cuda.synchronize()
+
+    def retypes(c):
+        return {"x": c["x"].double()}, None
+
+    with pytest.raises(capture.StaticHalfChanged):
+        capture.Replay(retypes, carry, capture=True)
+    torch.cuda.synchronize()
+
+    def doubles(c):
+        return {"x": c["x"] * 2}, c["x"].sum()
+
+    with capture.Replay(doubles, carry, capture=True) as rep:
+        rep.run()
+        out = rep.run()
+        assert float(out) == 2 * 28.0
+        assert torch.equal(rep.carry["x"], carry["x"] * 4)
