@@ -54,6 +54,24 @@ Phases (any failure exits non-zero before the result line):
      supersteps after the second, traced 3-superstep PageRank's device busy
      ms and idle share, and the same for 3 supersteps after the first,
      eager and replayed (the steady state);
+  4c. the transports on the same graphs: delta PageRank (tol 1e-3) over
+     the f32 delta wire under the dense, ragged, fig4's auto and pipelined
+     auto transports through `pregel` (state, view and the wire log's
+     ship counts bit-equal to dense, equal superstep counts, each
+     superstep's bytes equal to the host formula of the branch it took,
+     ragged supersteps, the last ragged one under the largest dense one;
+     ms a superstep, recompiles, captures, capture and release ms, peak
+     memory, 3 replayed supersteps' idle share with one host read each)
+     and `pregel_fused` under auto; one ship's compaction, scatter back,
+     dense, ragged and both-branch device ms; CC through a 1/8 capacity
+     (labels == dense == scipy, the fallback both ways); the int8 wire
+     with the ragged transport (normalised ranks within 1e-3 of f32, a
+     forward ship on the card == the CPU's bit for bit); the broadcast
+     lane on a hybrid build of CC's edges (bcast_min_repl 3): CC and delta
+     PageRank under dense and auto == the structure without the lane, the
+     all-gather's bytes == the formula; two mutants of core/transport.py
+     that must fail (a compaction dropping each route's last entry, an
+     overflow check that never falls back); each run counted alone;
   4b. the rest of the main path, each main-path run counted alone (the
      launch counts set to 0 just before it and read just after; the
      kernels its plans run must each launch, and the triangle count
@@ -66,8 +84,9 @@ Phases (any failure exits non-zero before the result line):
      the 16-column send and apply fused; fused == unfused ==
      a host vote), subgraph(vid % 3 != 0) (the structure shared, the edge
      mask == both endpoints visible, CC on it == scipy on the induced
-     subgraph), coarsen (Listing 7, domains vid // 16: pages preserved,
-     edges == a host oracle, PageRank on the result fused == unfused);
+     subgraph), coarsen on symmetrize(rmat(19, 16, seed=1)) (Listing 7,
+     domains vid // 16: pages preserved, edges == a host oracle, PageRank
+     on the result fused == unfused);
      the transpose of phase 3's graph (in-degrees == out-degrees bit for
      bit through the permuted "dst" walk; PageRank fused == unfused,
      within 1e-4 of the oracle on (dst, src)); the triangle count on
@@ -264,6 +283,29 @@ def device_ms(fn, n: int = 20) -> tuple[float | None, str]:
                 f"(the profiler returned kernel records {got} for {n} calls)")
 
 
+def graph_ms(fn, n: int = 20) -> float:
+    """Device milliseconds a call of `fn` (a sequence of small kernels),
+    timed by CUDA events over n replays of `fn` captured as one CUDA graph:
+    no host dispatch between its kernels and no profiler."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(n):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    ms = a.elapsed_time(b) / n
+    del graph
+    return ms
+
+
 def cold_device_ms(fn, kernel: str, n: int = 20) -> float | None:
     """Mean device milliseconds of the one kernel a call of fn launches
     whose name holds `kernel`, over n runs of fn after a warm-up, with a
@@ -444,6 +486,18 @@ LP_LABELS, LP_ITERS = 16, 10          # phase 4b label propagation
 # before; the supersteps of the traced runs
 DELTA_TOL, DELTA_MAX, TRACE_STEPS = 1e-3, 100, 3
 TRI_SCALE = 15                         # phase 4b triangle count graph
+COARSEN_SCALE = 19                     # phase 4b coarsen graph
+# phase 4c: fig4's auto policy (benchmarks/fig4_incremental.py), CC's ragged
+# capacity (a fraction of the route its early supersteps overflow), and the
+# broadcast set's replication threshold
+FIG4_AUTO = dict(cap_rounding=32, enter_frac=0.95, exit_frac=0.97)
+CC_RAGGED_FRAC = 0.125
+BCAST_MIN_REPL = 3
+# the hybrid cut's source-degree threshold: what its sweep
+# (`partition.choose_hybrid_threshold`) picks on symmetrize(rmat(s, 16,
+# seed=1)) at s = 17, 18, 19; the sweep alone took two thirds of a 248.7 s
+# build at s = 21 (NVIDIA H100 80GB HBM3, 700 W host), so it is fixed
+HYBRID_THRESHOLD = 8
 # what examples/quickstart.py prints (the JAX reference, on the CPU)
 QUICKSTART_LINES = [
     "graph: 1024 vertices, 6716 edges",
@@ -772,6 +826,489 @@ def phase_4a_drivers(g, sg, cc_ids, cc_want):
     return table
 
 
+def transport_mutant(name: str, old: str, new: str):
+    """The function `name` of core/transport.py with one line edited (phase
+    4c's mutants), loaded from an edited copy of the module."""
+    import importlib
+    import types
+    tm = importlib.import_module("repro_torch.core.transport")
+    src = Path(tm.__file__).read_text()
+    if src.count(old) != 1:
+        raise AssertionError(f"mutant: {old!r} is not in core/transport.py "
+                             "exactly once")
+    mod = types.ModuleType("repro_torch.core._transport_mutant")
+    mod.__package__ = "repro_torch.core"
+    sys.modules[mod.__name__] = mod     # dataclasses look their module up
+    try:
+        exec(compile(src.replace(old, new), tm.__file__, "exec"),
+             mod.__dict__)
+    finally:
+        del sys.modules[mod.__name__]
+    return getattr(mod, name)
+
+
+def must_fail(label: str, check, swap: tuple):
+    """Run `check` with core/transport.py's function swap[0] replaced by
+    swap[1]; the check must raise AssertionError."""
+    import importlib
+    tm = importlib.import_module("repro_torch.core.transport")
+    name, fn = swap
+    keep = getattr(tm, name)
+    setattr(tm, name, fn)
+    try:
+        check()
+    except AssertionError as e:
+        return str(e).splitlines()[0][:120]
+    finally:
+        setattr(tm, name, keep)
+    raise AssertionError(f"mutant {label}: phase 4c's checks passed")
+
+
+def same_state(label, got, want):
+    """Phase 4c: the carry of two Pregel results bit-equal (values, active
+    mask, the view's tensors and plan) and their wire logs' ship counts and
+    accounted bytes; the bytes shipped may differ (that is what the
+    transports change)."""
+    import importlib
+    import torch
+    from repro_torch.core import capture
+    pm = importlib.import_module("repro_torch.core.pregel")
+    a, b = dict(pm._carry(got)), dict(pm._carry(want))
+    la, lb = a.pop("wire_log"), b.pop("wire_log")
+    (ta, sa), (tb, sb) = capture.flatten(a), capture.flatten(b)
+    if sa != sb or not all(torch.equal(x, y) for x, y in zip(ta, tb)):
+        raise AssertionError(f"{label}: state differs from the dense run")
+    if not (torch.equal(la.ships, lb.ships)
+            and torch.equal(la.bytes_accounted, lb.bytes_accounted)):
+        raise AssertionError(f"{label}: wire log's ships or accounted bytes "
+                             "differ from the dense run's")
+
+
+def ship_bytes_formula(side: dict, plan: dict, back: bool, delta_ship: bool,
+                       codec) -> int:
+    """The bytes one routed ship moves by the host formulas, for the branch
+    its record says it took: the dense wire (payload, plus a flag byte an
+    entry on a delta ship) or `transport.ragged_wire_bytes` at the
+    capacities of `plan` (the return route's own fractions for `back`).
+    The ships of phase 4c carry f32 leaves of width 1."""
+    import torch
+    from repro_torch.core import transport as T
+    from repro_torch.core.tree import ElemSpec
+    k = side["route_width"]
+    if k == 0:
+        return 0
+    n_leaves = side["wire_bytes"] // (P * P * k * 4)
+    if n_leaves * P * P * k * 4 != side["wire_bytes"]:
+        raise AssertionError(f"ship of {side['wire_bytes']} bytes is not "
+                             f"f32 leaves over [{P}, {P}, {k}]")
+    if not side["ragged"]:
+        return side["wire_bytes"] + (P * P * k if delta_ship else 0)
+    pol = T.TransportPolicy(**plan)
+    if back and pol.capacity_frac_back is not None:
+        pol = pol.replace(capacity_frac=pol.capacity_frac_back,
+                          capacity_fracs=pol.capacity_fracs_back)
+    cap = T.capacity_for(pol, k)
+    spec = {f"l{i}": ElemSpec((P, P, k), torch.float32)
+            for i in range(n_leaves)}
+    return T.ragged_wire_bytes(spec, codec, None, cap,
+                               T.capacity_vec_for(pol, k, P, cap))
+
+
+def check_transport_bytes(label, r, codec):
+    """Each superstep's bytes_shipped, both routes and their sum, equal to
+    the host formula of the branch it recorded; (ragged supersteps, the
+    largest dense superstep's bytes, the last ragged one's)."""
+    for i, m in enumerate(r.metrics):
+        want = 0
+        for side in ("fwd", "back"):
+            f = ship_bytes_formula(m[side], m["transport_plan"],
+                                   side == "back", side == "back" or i > 0,
+                                   codec)
+            if m[side]["bytes_shipped"] != f:
+                raise AssertionError(
+                    f"{label}: superstep {i + 1} {side} shipped "
+                    f"{m[side]['bytes_shipped']} bytes, the formula of its "
+                    f"branch (ragged {m[side]['ragged']}) {f}")
+            want += f
+        if m["bytes_shipped"] != want:
+            raise AssertionError(f"{label}: superstep {i + 1} shipped "
+                                 f"{m['bytes_shipped']}, formula {want}")
+    rag = [m for m in r.metrics if m["ragged"] == 1.0]
+    dense = [m["bytes_shipped"] for m in r.metrics if m["ragged"] == 0.0]
+    return len(rag), max(dense), (rag[-1]["bytes_shipped"] if rag else None)
+
+
+def same_labels(ids, vals, cc_ids, cc_want) -> bool:
+    """Vertex ids and labels equal to (cc_ids, cc_want) as sets of pairs
+    (another partitioner lists the vertices in another order)."""
+    import numpy as np
+    a, b = np.argsort(ids), np.argsort(cc_ids)
+    return (np.array_equal(ids[a], cc_ids[b])
+            and np.array_equal(vals[a], cc_want[b]))
+
+
+def host_copies(trace) -> int:
+    """The copies the host asked of the card in a profile (a read of a
+    device tensor is one cudaMemcpyAsync)."""
+    from torch.autograd import DeviceType
+    return sum(1 for e in trace.events()
+               if e.device_type == DeviceType.CPU and "Memcpy" in e.name)
+
+
+def phase_4c_transports(g, sg, sgd, cc_ids, cc_want, tally):
+    """The transports on the main path's graphs (phase 4c; see the
+    docstring).  Returns the table it logs."""
+    import dataclasses
+    import importlib
+    import numpy as np
+    import torch
+    from repro_torch import profiling as prof_mod
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import capture, pregel, pregel_fused, with_wire
+    from repro_torch.core import mrtriplets as mt
+    from repro_torch.core import transport as T
+    from repro_torch.core.graph import Graph
+    from repro_torch.kernels import ops
+    pm = importlib.import_module("repro_torch.core.pregel")
+    dev = g.device
+    table = {}
+    zero = {"m": torch.tensor(0.0)}
+    auto = T.TransportPolicy("auto", **FIG4_AUTO)
+    transports = {"dense": None, "ragged": "ragged", "auto (fig4)": auto,
+                  "auto (fig4), pipeline": auto.replace(pipeline=True)}
+
+    # (a) delta PageRank over the f32 delta wire
+    gw = g.replace(ex=with_wire(g.ex, "f32", delta=True))
+    dvp, dch = alg.delta_pagerank_fns(0.15, DELTA_TOL)
+    g_dl = alg.attach_out_degree(gw).mapV(
+        lambda vid, v: {**v, "pr": torch.tensor(0.15),
+                        "delta": torch.tensor(0.15)})
+    args = (g_dl, dvp, alg.delta_pagerank_send, "sum")
+    kw = dict(default_msg=zero, max_supersteps=DELTA_MAX, skip_stale="out",
+              changed_fn=dch)
+    codec = gw.ex.codec
+
+    def timed(tp):
+        ops.reset_launch_counts()
+        capture.reset_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = pregel(*args, transport=tp, **kw)
+        torch.cuda.synchronize()
+        return r, {"ms": (time.perf_counter() - t0) * 1e3,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "captures": capture.stats["captures"],
+                   "capture_ms": capture.stats["capture_s"] * 1e3,
+                   "release_ms": capture.stats["release_s"] * 1e3}
+
+    def steady(pol, label):
+        """3 supersteps after the first, replayed from one capture under
+        `pol`, traced: wall, device busy, idle share, and the host's
+        device-to-host copies (one read a superstep)."""
+        watch = pol is not None and T.resolve_transport(pol).kind != "dense"
+        step = pm._step_fn(*args, default_msg=zero, skip_stale="out",
+                           changed_fn=dch, kernel_mode="auto",
+                           incremental=True, payload_bound=None,
+                           fuse_apply="auto", transport=pol)
+        g1, _, _ = step(args[0])
+
+        def replayed(c):
+            g2, live, m = step(g1.replace(**c))
+            return pm._carry(g2), pm._progress(live, m, watch)
+
+        with capture.Replay(replayed, pm._carry(g1),
+                            capture=pm._captures(dev, "auto")) as rep:
+            def run3():
+                for _ in range(TRACE_STEPS):
+                    rep.run().tolist()
+            run3()
+            _, wall, trace = prof_mod.traced(run3)
+            busy_ms, kernels = prof_mod.busy(trace)
+            copies = host_copies(trace)
+            del trace
+        if copies != TRACE_STEPS:
+            raise AssertionError(f"{label}: {copies} host copies in "
+                                 f"{TRACE_STEPS} replayed supersteps")
+        return {"wall_ms": wall * 1e3, "busy_ms": busy_ms,
+                "idle": 1 - busy_ms / 1e3 / wall, "kernels": kernels,
+                "host_reads": copies}
+
+    base, n_base = None, None
+    for label, tp in transports.items():
+        runs = [timed(tp) for _ in range(2)]
+        r, st = min(runs, key=lambda x: x[1]["ms"])
+        n = r.supersteps
+        rt = main_path_run(tally, f"delta pagerank, transport {label}",
+                           lambda: pregel(*args, transport=tp,
+                                          track_metrics=True, **kw),
+                           launched=("triplet", "apply"))
+        if base is None:
+            base, n_base = rt, n
+        if not (n == rt.supersteps == n_base < DELTA_MAX):
+            raise AssertionError(f"delta pagerank, {label}: {n} / "
+                                 f"{rt.supersteps} supersteps, dense "
+                                 f"{n_base}")
+        same_state(f"delta pagerank, {label}", r.graph, base.graph)
+        same_state(f"delta pagerank, {label} (tracked)", rt.graph,
+                   base.graph)
+        n_rag, dense_max, last_rag = check_transport_bytes(
+            f"delta pagerank, {label}", rt, codec)
+        if tp is not None:
+            if not n_rag:
+                raise AssertionError(f"delta pagerank, {label}: no ragged "
+                                     "superstep")
+            if not last_rag < dense_max:
+                raise AssertionError(
+                    f"delta pagerank, {label}: the last ragged superstep "
+                    f"shipped {last_rag} bytes, the largest dense one "
+                    f"{dense_max}")
+        plan = ([m["transport_plan"] for m in rt.metrics
+                 if m["ragged"] == 1.0] or [None])[-1]
+        pol = (None if tp is None else
+               tp if T.resolve_transport(tp).kind != "auto"
+               else T.TransportPolicy(**plan))
+        sty = steady(pol, f"delta pagerank, {label}")
+        row = dict(st, supersteps=n, ms_a_superstep=st["ms"] / n,
+                   recompiles=rt.metrics[-1]["recompiles"],
+                   ragged_supersteps=n_rag, dense_max_bytes=dense_max,
+                   last_ragged_bytes=last_rag, steady=sty,
+                   bytes_shipped=float(rt.graph.bytes_shipped))
+        table[f"delta pagerank, {label}"] = row
+        log(f"  delta pagerank, {label}: {n} supersteps, state == dense; "
+            f"{st['ms'] / n:.3f} ms a superstep; recompiles "
+            f"{row['recompiles']}, captures {st['captures']}, capture "
+            f"{st['capture_ms']:.1f} ms, release {st['release_ms']:.1f} ms; "
+            f"peak {st['peak_gib']:.2f} GiB; {n_rag} ragged supersteps, last "
+            f"ragged {last_rag} bytes vs largest dense {dense_max}; 3 "
+            f"replayed supersteps: wall {sty['wall_ms']:.2f} ms, busy "
+            f"{sty['busy_ms']:.2f} ms, idle {sty['idle']:.1%}, one host read "
+            f"a superstep; bytes shipped in all "
+            f"{row['bytes_shipped']:.0f}")
+        if label == "auto (fig4)":
+            auto_run, auto_plan = rt, pol
+        del r, rt, runs
+
+    # pregel_fused under fig4's auto policy (no host re-plan)
+    got, steps = pregel_fused(*args, transport=auto, **kw)
+    if int(steps) != n_base:
+        raise AssertionError(f"pregel_fused auto: {int(steps)} supersteps, "
+                             f"dense {n_base}")
+    same_state("pregel_fused, auto (fig4)", got, base.graph)
+    log(f"  pregel_fused, auto (fig4): {int(steps)} supersteps, state == "
+        "dense")
+    del got
+
+    # the compaction and the scatter back, and each branch alone vs both,
+    # at the width and occupancy of a ship of the last ragged superstep
+    last = [m for m in auto_run.metrics if m["ragged"] == 1.0][-1]
+    side = "fwd" if last["fwd"]["ragged"] == 1.0 else "back"
+    side_plan = (auto_plan if side == "fwd" or auto_plan.capacity_frac_back
+                 is None else auto_plan.replace(
+                     capacity_frac=auto_plan.capacity_frac_back,
+                     capacity_fracs=auto_plan.capacity_fracs_back))
+    k_f = last[side]["route_width"]
+    occ = max(last[side]["route_active_frac"])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flags = torch.rand((P, P, k_f), device=dev, generator=gen) < occ
+    tree = {"m": torch.randn((P, P, k_f), device=dev, generator=gen)}
+    cap = T.capacity_for(side_plan, k_f)
+    comp, sel, valid, cnt = T._compact(tree, flags, cap)
+    idx = torch.where(valid, sel, k_f)
+    ex = gw.ex
+    auto_plan = side_plan
+    rag_only = auto_plan.replace(fallback=False)
+    timing = {
+        "compaction": graph_ms(lambda: T._compact(tree, flags, cap)),
+        "scatter back": graph_ms(lambda: T._scatter_rows(comp["m"], idx,
+                                                         k_f)),
+        "dense ship": graph_ms(lambda: T.ship_transport(ex, tree, flags)),
+        "ragged ship alone": graph_ms(lambda: T.ship_transport(
+            ex, tree, flags, policy=rag_only)),
+        "both branches + select": graph_ms(lambda: T.ship_transport(
+            ex, tree, flags, policy=auto_plan))}
+    log(f"  one {side} ship, K {k_f}, occupancy {occ:.4f}, capacity {cap}"
+        f": device ms (CUDA events over 20 replays of a graph of one call) "
+        + ", ".join(f"{k} {v:.4f}" for k, v in timing.items()))
+    table["ship device ms"] = timing
+    del comp, sel, valid, cnt, idx, flags, tree, base, auto_run
+
+    # mutant: a compaction that drops each route's last active entry
+    def rerun_ragged():
+        r = pregel(*args, transport="ragged", **kw)
+        same_state("delta pagerank, ragged", r.graph,
+                   pregel(*args, **kw).graph)
+    why = must_fail("compaction dropping the last active entry", rerun_ragged,
+                    ("_compact", transport_mutant(
+                        "_compact",
+                        "counts = flags.sum(-1, dtype=torch.int32)  # [nl, P]",
+                        "counts = (flags.sum(-1, dtype=torch.int32) - 1)"
+                        ".clamp_min(0)  # [nl, P]")))
+    log(f"  mutant, compaction dropping each route's last active entry: "
+        f"fails ({why})")
+
+    # (b) CC through the ragged transport at a capacity the early
+    # supersteps overflow
+    cc_tp = T.TransportPolicy("ragged", capacity_frac=CC_RAGGED_FRAC)
+    cc_args = (sg.mapV(alg._cc_init), alg.cc_vprog, alg.cc_send, "min")
+    cc_kw = dict(default_msg={"m": torch.tensor(alg.IMAX, dtype=torch.int32)},
+                 max_supersteps=100, skip_stale="out")
+    cc_dense = pregel(*cc_args, **cc_kw)
+
+    def cc_check():
+        r = pregel(*cc_args, transport=cc_tp, track_metrics=True, **cc_kw)
+        if r.supersteps != cc_dense.supersteps or not torch.equal(
+                r.graph.vdata["cc"], cc_dense.graph.vdata["cc"]):
+            raise AssertionError("cc, ragged: labels or supersteps differ "
+                                 "from the dense run")
+        ids, vals = r.graph.vertices_to_numpy()
+        if not (np.array_equal(ids, cc_ids)
+                and np.array_equal(vals["cc"], cc_want)):
+            raise AssertionError("cc, ragged: labels differ from scipy's")
+        over = [m["overflow_fallbacks"] for m in r.metrics]
+        rag = [m["ragged"] for m in r.metrics]
+        first = next((i for i, o in enumerate(over) if o), None)
+        if first is None or not any(rag[first + 1:]):
+            raise AssertionError(f"cc, ragged: overflow fallbacks {over}, "
+                                 f"ragged {rag}: no fallback both ways")
+        return r, over, rag
+    r, over, rag = main_path_run(tally, "cc, transport ragged 1/8", cc_check,
+                                 launched=("triplet", "apply"))
+    log(f"  cc, ragged at capacity {CC_RAGGED_FRAC}: {r.supersteps} "
+        f"supersteps, labels == dense == scipy; overflow fallbacks a "
+        f"superstep {over}, ragged {rag}")
+    table["cc ragged"] = {"overflow": over, "ragged": rag}
+    why = must_fail("overflow check that never falls back", cc_check,
+                    ("_ship_once", transport_mutant(
+                        "_ship_once",
+                        "over_any = ex.psum(overflow.to(torch.int32)) > 0",
+                        "over_any = ex.psum(overflow.to(torch.int32)) < 0")))
+    log(f"  mutant, overflow check that never falls back: fails ({why})")
+    del r, cc_dense
+
+    # (c) the int8 wire and the ragged transport on PageRank's graph
+    g8 = g.replace(ex=with_wire(g.ex, "int8", delta=True))
+    g8_dl = alg.attach_out_degree(g8).mapV(
+        lambda vid, v: {**v, "pr": torch.tensor(0.15),
+                        "delta": torch.tensor(0.15)})
+    args8 = (g8_dl,) + args[1:]
+    r8 = main_path_run(tally, "delta pagerank, int8 wire, transport ragged",
+                       lambda: pregel(*args8, transport="ragged",
+                                      track_metrics=True, **kw),
+                       launched=("triplet", "apply"))
+    f32 = pregel(*args, **kw).graph
+
+    def norm(gr):
+        pr = gr.vdata["pr"][gr.vmask].double()
+        return pr / pr.sum()
+    err = float((norm(r8.graph) - norm(f32)).abs().max())
+    if not err <= RANK_LIMIT:
+        raise AssertionError(f"delta pagerank int8 + ragged: normalised "
+                             f"ranks {err} from the f32 run's")
+    # one superstep's forward ship, on the card and on the CPU
+    k8 = next(i for i, m in enumerate(r8.metrics)
+              if m["fwd"]["ragged"] == 1.0)
+    mid = pregel(*args8, transport="ragged",
+                 **dict(kw, max_supersteps=k8)).graph
+    s = mid.s
+    send_idx, _ = s.routes["src"]
+    safe = send_idx.clamp(min=0)
+    flags = (send_idx >= 0) & mt._take_rows(mid.active, safe)
+    sendbuf = {"delta": mt._take_rows(mid.vdata["delta"], safe)}
+    sendbuf = {k: v.masked_fill(~flags, 0) for k, v in sendbuf.items()}
+    out = {}
+    for where in (dev, "cpu"):
+        out[str(where)] = T.ship_transport(
+            g8.ex, {k: v.to(where) for k, v in sendbuf.items()},
+            flags.to(where), policy=T.RAGGED)
+    (rc, fc, ic), (rh, fh, ih) = out[str(dev)], out["cpu"]
+    if float(ic.ragged) != 1.0:
+        raise AssertionError("int8 + ragged: the forward ship of superstep "
+                             f"{k8 + 1} did not ship ragged")
+    if not (torch.equal(fc.cpu(), fh) and torch.equal(rc["delta"].cpu(),
+                                                      rh["delta"])
+            and float(ic.bytes_shipped) == float(ih.bytes_shipped)):
+        raise AssertionError("int8 + ragged: the card's forward ship differs "
+                             "from the CPU's")
+    log(f"  int8 wire + ragged: {r8.supersteps} supersteps, normalised ranks "
+        f"{err:.3g} from the f32 run (limit {RANK_LIMIT}); superstep "
+        f"{k8 + 1}'s forward ship (K {send_idx.shape[2]}, "
+        f"{int(flags.sum())} entries, ragged, {float(ic.bytes_shipped):.0f} "
+        f"bytes) == the CPU's bit for bit")
+    table["int8 ragged"] = {"rank_err": err, "supersteps": r8.supersteps}
+    del r8, f32, mid, out, rc, rh, sendbuf, flags, g8, g8_dl, args8
+
+    # (d) the broadcast lane: one hybrid build of CC's edges
+    t0 = time.perf_counter()
+    gh = Graph.from_edges(sgd.src, sgd.dst, num_partitions=P,
+                          partitioner="hybrid",
+                          hybrid_threshold=HYBRID_THRESHOLD,
+                          bcast_min_repl=BCAST_MIN_REPL, device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    if not gh.s.has_bcast:
+        raise AssertionError("hybrid build: no broadcast set")
+    gh0 = gh.replace(s=dataclasses.replace(gh.s, brecv=None,
+                                           p2p_routes=None))
+    b_width = gh.s.bsend.shape[1]
+    for name, tp in (("dense", None), ("auto", auto)):
+        rb = main_path_run(tally, f"cc, broadcast lane, transport {name}",
+                           lambda: alg.connected_components(
+                               gh, transport=tp, track_metrics=True),
+                           launched=("triplet", "apply"))
+        rc0 = alg.connected_components(gh0, transport=tp)
+        if rb.supersteps != rc0.supersteps or not torch.equal(
+                rb.graph.vdata["cc"], rc0.graph.vdata["cc"]):
+            raise AssertionError(f"cc, broadcast lane, {name}: differs from "
+                                 "the structure without it")
+        ids, vals = rb.graph.vertices_to_numpy()
+        if not same_labels(ids, vals["cc"], cc_ids, cc_want):
+            raise AssertionError(f"cc, broadcast lane, {name}: labels differ "
+                                 "from scipy's")
+        gdl = alg.attach_out_degree(
+            gh.replace(ex=with_wire(gh.ex, "f32", delta=True))).mapV(
+                lambda vid, v: {**v, "pr": torch.tensor(0.15),
+                                "delta": torch.tensor(0.15)})
+        gdl0 = gdl.replace(s=gh0.s)
+        pa = pregel(gdl, *args[1:], transport=tp, **kw)
+        pb = pregel(gdl0, *args[1:], transport=tp, **kw)
+        if pa.supersteps != pb.supersteps or not all(
+                torch.equal(pa.graph.vdata[k], pb.graph.vdata[k])
+                for k in pa.graph.vdata):
+            raise AssertionError(f"delta pagerank, broadcast lane, {name}: "
+                                 "differs from the structure without it")
+        log(f"  broadcast lane, {name}: cc {rb.supersteps} supersteps == "
+            f"without the lane == scipy; delta pagerank {pa.supersteps} "
+            f"supersteps == without the lane; bytes shipped cc "
+            f"{float(rb.graph.bytes_shipped):.0f} vs "
+            f"{float(rc0.graph.bytes_shipped):.0f}, pagerank "
+            f"{float(pa.graph.bytes_shipped):.0f} vs "
+            f"{float(pb.graph.bytes_shipped):.0f} without")
+        table[f"bcast {name}"] = {
+            "cc_bytes": float(rb.graph.bytes_shipped),
+            "cc_bytes_without": float(rc0.graph.bytes_shipped),
+            "pr_bytes": float(pa.graph.bytes_shipped),
+            "pr_bytes_without": float(pb.graph.bytes_shipped)}
+        del rb, rc0, pa, pb, gdl, gdl0
+    # the all-gather's bytes: one block of CC's labels, by the formula
+    bvalid = gh.s.bsend >= 0
+    block = {"cc": gh.s.home_vid.gather(1, gh.s.bsend.clamp(min=0).long())}
+    _, _, info = T.allgather_ship(gh.ex, block, bvalid)
+    want_b = P * b_width * 4 + P * b_width       # int32 ids + a flag byte
+    if not (info.bytes_shipped == want_b == T.allgather_wire_bytes(
+            {"cc": block["cc"][:, None]}, None, None, P,
+            flags_shipped=True)):
+        raise AssertionError(f"all-gather bytes {info.bytes_shipped}, "
+                             f"formula {want_b}")
+    log(f"  hybrid build with bcast_min_repl {BCAST_MIN_REPL}: "
+        f"{gh.host.stats.n_broadcast} broadcast vertices, B {b_width}, "
+        f"build {t_build:.1f} s; an all-gather of one int32 leaf ships "
+        f"{info.bytes_shipped} bytes == the formula")
+    table["bcast"] = {"n_broadcast": int(gh.host.stats.n_broadcast),
+                      "b_width": b_width, "build_s": t_build}
+    return table
+
+
 def check_plans(label, r, want=("fused", "fused_apply")):
     m0 = r.metrics[0]
     if (m0["plan"], m0["apply_plan"]) != want:
@@ -780,8 +1317,9 @@ def check_plans(label, r, want=("fused", "fused_apply")):
 
 
 def phase_4b_graphs(g, gd, sg, sgd, w_cc, tally):
-    """SSSP, label propagation, subgraph + CC and coarsen on CC's graph,
-    and the transpose of PageRank's graph (phase 4b; see the docstring).
+    """SSSP, label propagation and subgraph + CC on CC's graph, coarsen on
+    symmetrize(rmat(COARSEN_SCALE, 16)), and the transpose of PageRank's
+    graph (phase 4b; see the docstring).
     The launches of each main-path run go into `tally`."""
     import numpy as np
     import torch
@@ -912,8 +1450,14 @@ def phase_4b_graphs(g, gd, sg, sgd, w_cc, tally):
         f"{t_f:.3f} s, fused == unfused, max|pr-ref|/max|ref| = {rel:.3g}")
     del gr, din, dout, p_f, p_u, want
 
-    # --- coarsen (Listing 7) on CC's graph: domains vid // 16, pages summed
-    cgd, cg = sgd, sg
+    # --- coarsen (Listing 7): domains vid // 16, pages summed, on
+    # symmetrize(rmat(COARSEN_SCALE, 16)), CC's edge factor at a scale its
+    # host stage keeps short (at CC's own scale it took 69-105 s)
+    from repro_torch.core.graph import Graph
+    from repro_torch.data import rmat, symmetrize
+    cgd = symmetrize(rmat(COARSEN_SCALE, 16, seed=1))
+    cg = Graph.from_edges(cgd.src, cgd.dst, num_partitions=P,
+                          device=sg.device)
     t0 = time.perf_counter()
     coarse = main_path_run(tally, "coarsen", lambda: alg.coarsen(
         cg.mapV(_coarse_init), _same_domain, "sum"), ("triplet", "apply"))
@@ -1751,10 +2295,27 @@ def main() -> int:
         "pregel_fused) on the graphs of phases 2 and 4")
     log("  phase 4a drivers: " + json.dumps(
         phase_4a_drivers(g, sg, ids_np, cc_want)))
-    del ids_np, cc_want
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  phase 4a: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---------------------------------------------------------- phase 4c
+    t_phase = time.perf_counter()
+    log("phase 4c: the transports (dense, ragged, fig4's auto, pipelined, "
+        "the broadcast lane) on the graphs of phases 2 and 4")
+    tally_4c = {}
+    log("  phase 4c transports: " + json.dumps(phase_4c_transports(
+        g, sg, sgd, ids_np, cc_want, tally_4c)))
+    log("  phase 4c launches, each main-path run counted alone:")
+    for label, counts in tally_4c.items():
+        log(f"    {label}: " + ", ".join(
+            f"{k} {counts.get(k, 0)}" for k in ("triplet", "apply")))
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+    del ids_np, cc_want
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 4c: {time.perf_counter() - t_phase:.1f} s")
 
     # ---------------------------------------------------------- phase 4b
     t_phase = time.perf_counter()

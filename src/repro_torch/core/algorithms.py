@@ -71,28 +71,31 @@ def _pr_init(vid, v):
 
 def pagerank(g: Graph, *, num_iters: int = 20, reset: float = 0.15,
              tol: float = 0.0, kernel_mode: str = "auto",
-             incremental: bool = True,
-             track_metrics: bool = False) -> PregelResult:
+             incremental: bool = True, track_metrics: bool = False,
+             transport=None) -> PregelResult:
     """PageRank via Pregel.  The send UDF reads only source attributes, so
     the dst side of the join is eliminated.
 
     tol == 0: synchronous PageRank, every vertex recomputes
     reset + (1-reset)*msgSum each superstep.  tol > 0: delta PageRank —
-    messages carry rank changes, so skipStale is exact under the sum."""
+    messages carry rank changes, so skipStale is exact under the sum.
+    transport: the exchange's plan (`core.transport`), as in `pregel`."""
     g = attach_out_degree(g, kernel_mode)
     zero = {"m": torch.tensor(0.0)}
     if tol <= 0.0:
         return pregel(g.mapV(_pr_init), pagerank_vprog(reset), pagerank_send,
                       "sum", default_msg=zero, max_supersteps=num_iters,
                       skip_stale=None, incremental=incremental,
-                      kernel_mode=kernel_mode, track_metrics=track_metrics)
+                      kernel_mode=kernel_mode, track_metrics=track_metrics,
+                      transport=transport)
     g = g.mapV(lambda vid, v: {**v, "pr": torch.tensor(reset),
                                "delta": torch.tensor(reset)})
     vprog, changed_fn = delta_pagerank_fns(reset, tol)
     return pregel(g, vprog, delta_pagerank_send, "sum", default_msg=zero,
                   max_supersteps=num_iters, skip_stale="out",
                   incremental=incremental, changed_fn=changed_fn,
-                  kernel_mode=kernel_mode, track_metrics=track_metrics)
+                  kernel_mode=kernel_mode, track_metrics=track_metrics,
+                  transport=transport)
 
 
 def pagerank_reference(src: np.ndarray, dst: np.ndarray, n: int,
@@ -120,13 +123,15 @@ def _cc_init(vid, v):
 
 def connected_components(g: Graph, *, max_supersteps: int = 100,
                          kernel_mode: str = "auto", incremental: bool = True,
-                         track_metrics: bool = False) -> PregelResult:
-    """Min-id label diffusion over a symmetrised edge set."""
+                         track_metrics: bool = False,
+                         transport=None) -> PregelResult:
+    """Min-id label diffusion over a symmetrised edge set; transport as in
+    `pregel`."""
     return pregel(g.mapV(_cc_init), cc_vprog, cc_send, "min",
                   default_msg={"m": torch.tensor(IMAX, dtype=torch.int32)},
                   max_supersteps=max_supersteps, skip_stale="out",
                   incremental=incremental, kernel_mode=kernel_mode,
-                  track_metrics=track_metrics)
+                  track_metrics=track_metrics, transport=transport)
 
 
 def connected_components_reference(src, dst, vids) -> dict[int, int]:

@@ -25,14 +25,21 @@ beside the carry (the live count, the metrics) and is not fed back.
   ship, so the drivers run that superstep eagerly before they capture.
 - The capture comes after that eager step, so the kernels are built,
   their attributes set and the lazy handles made before capture begins.
-- A replay adds the launches its capture recorded to `ops.launch_counts`
-  (the capture itself launches nothing).
+  A step that runs code the eager step did not (a transport plan first
+  used later in a run) is made with `defer=True`: its first step runs
+  eagerly into the buffers and the second one captures.
+- A replay adds the launches its capture recorded to `ops.launch_counts`,
+  and the route ships it recorded to `transport.SHIP_EVENTS` (the capture
+  itself launches and ships nothing).
+- `load(carry)` copies another carry of the same static half into the
+  buffers: a driver that switches between captured steps (one per
+  transport plan) hands the current state to the next one.
 - On the CPU (`capture=False`) the same object runs the step eagerly into
   the same buffers and checks the static half at every step, so the CPU
   tests exercise the buffers, the check and the commit.
 - `close()` (or leaving the `with` block) releases the graph and its
-  memory pool.  A capture that fails raises; nothing falls back to an
-  eager run.
+  memory pool; `close_all` releases several with one `empty_cache`.  A
+  capture that fails raises; nothing falls back to an eager run.
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ from typing import Any, Callable
 
 import torch
 
+from . import transport as transport_mod
 from .wire import ResidentLeaf
 from ..kernels import ops as kops
 
@@ -130,7 +138,8 @@ class Replay:
     tensors, which the next replay overwrites).  `carry` is the current
     carry over the static buffers."""
 
-    def __init__(self, step: Callable, carry: Any, *, capture: bool):
+    def __init__(self, step: Callable, carry: Any, *, capture: bool,
+                 defer: bool = False):
         self._step = step
         tensors, self._spec = flatten(carry)
         self._bufs = [t.clone() for t in tensors]
@@ -138,7 +147,11 @@ class Replay:
         self._out_spec = None
         self._graph = None
         self._counts: dict[str, int] = {}
-        if capture:
+        self._ships: list = []
+        # defer: run the first step eagerly and capture at the second, for
+        # a step whose kernels have not all run eagerly yet
+        self._pending = capture and defer
+        if capture and not defer:
             self._capture()
 
     @property
@@ -165,6 +178,10 @@ class Replay:
         for b, t in staged:
             b.copy_(t)
 
+    def load(self, carry: Any) -> None:
+        """Make `carry` (same static half) the current carry."""
+        self._commit(carry)
+
     def _eager(self):
         new, out = self._step(self.carry)
         self._commit(new)
@@ -172,6 +189,7 @@ class Replay:
 
     def _capture(self) -> None:
         before = kops.launch_counts()
+        n_ships = len(transport_mod.SHIP_EVENTS)
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         # capture_begin / capture_end on a side stream, as torch.cuda.graph
@@ -196,13 +214,20 @@ class Replay:
                         if n != before.get(k, 0)}
         # the capture recorded these launches; none of them ran
         kops.add_launch_counts({k: -n for k, n in self._counts.items()})
+        self._ships = transport_mod.SHIP_EVENTS[n_ships:]
+        del transport_mod.SHIP_EVENTS[n_ships:]
         self._graph = graph
 
     def run(self) -> Any:
-        """One step: replay the graph, or run the step eagerly."""
+        """One step: replay the graph, or run the step eagerly (the first
+        step of a deferred capture, which the second one captures)."""
+        if self._pending and self._out_spec is not None:
+            self._pending = False
+            self._capture()
         if self._graph is not None:
             self._graph.replay()
             kops.add_launch_counts(self._counts)
+            transport_mod.SHIP_EVENTS.extend(self._ships)
             return self._out
         out = self._eager()
         _, spec = flatten(out)
@@ -214,6 +239,15 @@ class Replay:
                 f"{self._out_spec} -> {spec}")
         return out
 
+    def _release(self) -> bool:
+        """Drop the graph and the outputs in its pool; was there one?"""
+        had = self._graph is not None
+        if had:
+            self._graph.reset()
+        self._graph = None
+        self._out = None
+        return had
+
     def close(self) -> None:
         """Release the graph and the outputs that live in its pool, and
         give the pool's memory back to the device (the caller drops its
@@ -221,17 +255,19 @@ class Replay:
         pool keeps its segments cached until `torch.cuda.empty_cache()`:
         without it, a process that captured 90 supersteps of rmat(22,16)
         ran out of the card's 80 GB."""
-        if self._graph is not None:
-            t0 = time.perf_counter()
-            self._graph.reset()
-            self._out = None
-            torch.cuda.empty_cache()
-            stats["release_s"] += time.perf_counter() - t0
-        self._graph = None
-        self._out = None
+        close_all([self])
 
     def __enter__(self) -> "Replay":
         return self
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def close_all(replays) -> None:
+    """Close several replays with one `empty_cache`, which costs a large
+    process milliseconds each time."""
+    t0 = time.perf_counter()
+    if sum(rep._release() for rep in replays):
+        torch.cuda.empty_cache()
+        stats["release_s"] += time.perf_counter() - t0

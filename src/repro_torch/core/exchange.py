@@ -9,6 +9,10 @@ Every distributed primitive is written against one contract,
 an axis transpose.  A multi-device executor over `torch.distributed`
 (all_to_all) comes with a later slice.
 
+Two more primitives serve the transports (`core/transport.py`):
+`ring_transpose`, the same contract as P ring stages (the pipelined ship),
+over `ppermute`; and `all_gather_rows`, the broadcast lane's collective.
+
 `ship` moves a buffer through the exchange's wire codec (`core/wire.py`,
 set with `with_wire`): encode on the send side, transpose the narrow
 payload and its block exponents, decode on the receive side.
@@ -19,6 +23,7 @@ import dataclasses
 
 import torch
 
+from . import transport as transport_mod
 from . import wire as wire_mod
 from .tree import tree_map
 from .wire import WireCodec, make_codec
@@ -32,6 +37,26 @@ class Exchange:
     wire: WireCodec | None = None
 
     def transpose(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def ppermute(self, x: torch.Tensor, shift: int) -> torch.Tensor:
+        """Rotate blocks around the partition ring: out[(i + shift) % P]
+        gets partition i's block."""
+        raise NotImplementedError
+
+    def ring_transpose(self, x: torch.Tensor) -> torch.Tensor:
+        """transpose() as P ring stages: stage d moves each partition's
+        d-th diagonal block a hop of distance d.  Bit-identical to
+        transpose (pure data movement); each stage reads only `x` and
+        fills a disjoint part of the result, so a multi-device executor
+        can overlap a stage's wire time with work on the blocks that
+        already arrived."""
+        raise NotImplementedError
+
+    def all_gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The broadcast lane's collective: every partition contributes
+        its block [nl, B, ...] once and receives all of them,
+        out[l, q, ...] == x_global[q, ...], shape [nl, P, B, ...]."""
         raise NotImplementedError
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
@@ -48,14 +73,20 @@ class Exchange:
         return self.wire
 
     def ship(self, x: torch.Tensor, *, active: torch.Tensor | None = None,
-             bound: int | None = None) -> torch.Tensor:
-        """transpose() through the wire codec (the dense transport).
+             bound: int | None = None, transport=None) -> torch.Tensor:
+        """transpose() through the wire codec and the selected transport.
 
         active [nl, P, K]: the entries the receiver will read; stale ones
         are zero-substituted before the quantization.  bound: the static
-        |value| bound of lossless int narrowing.  bf16 narrowing stays
+        |value| bound of lossless int narrowing.  transport: a
+        `core.transport` plan; a ragged one compacts the active entries,
+        so stale positions come back as zeros.  bf16 narrowing stays
         narrow on return; scaled and packed-int payloads decode back to
         their original dtype."""
+        tp = transport_mod.ragged_plan(transport, active)
+        if tp is not None:
+            return transport_mod.ship_transport(self, x, active, bound=bound,
+                                                policy=tp)[0]
         enc = wire_mod.encode_leaf(x, self.codec, bound=bound, active=active)
         if enc is None:
             return self.transpose(x)
@@ -64,7 +95,11 @@ class Exchange:
         return wire_mod.decode_leaf(enc.kind, payload, scale, x, self.codec)
 
     def tree_ship(self, tree, *, active: torch.Tensor | None = None,
-                  bound: int | None = None):
+                  bound: int | None = None, transport=None):
+        tp = transport_mod.ragged_plan(transport, active)
+        if tp is not None:
+            return transport_mod.ship_transport(self, tree, active,
+                                                bound=bound, policy=tp)[0]
         return tree_map(lambda x: self.ship(x, active=active, bound=bound),
                         tree)
 
@@ -81,6 +116,33 @@ class LocalExchange(Exchange):
             raise ValueError(f"expected [{self.p}, {self.p}, ...], got "
                              f"{tuple(x.shape)}")
         return x.transpose(0, 1).contiguous()
+
+    def ppermute(self, x: torch.Tensor, shift: int) -> torch.Tensor:
+        if x.shape[0] != self.p:
+            raise ValueError(f"expected [{self.p}, ...], got {tuple(x.shape)}")
+        return torch.roll(x, shift % self.p, dims=0)
+
+    def ring_transpose(self, x: torch.Tensor) -> torch.Tensor:
+        # stage d: receiver r gets sender (r - d) % p's block x[(r-d) % p, r]
+        # and files it at out[r, (r-d) % p]; after p stages out ==
+        # transpose(x).  One gather and one scatter copy a stage, indices
+        # made on the device (no host-to-device copy: capturable).
+        if x.shape[0] != self.p or x.shape[1] != self.p:
+            raise ValueError(f"expected [{self.p}, {self.p}, ...], got "
+                             f"{tuple(x.shape)}")
+        rows = torch.arange(self.p, device=x.device)
+        out = torch.empty_like(x)
+        for d in range(self.p):
+            src = (rows - d) % self.p
+            out[rows, src] = x[src, rows]
+        return out
+
+    def all_gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        # every partition is resident: each local row l observes each
+        # source row q
+        if x.shape[0] != self.p:
+            raise ValueError(f"expected [{self.p}, ...], got {tuple(x.shape)}")
+        return x.unsqueeze(0).expand((self.p,) + tuple(x.shape)).contiguous()
 
 
 def with_wire(ex: Exchange, codec, *, delta: bool | None = None,

@@ -92,7 +92,18 @@ class Structure:
     num_vertices: int
     num_edges: int
     max_vid: int
-    has_bcast: bool = False
+    # the broadcast lane (build_structure's bcast_min_repl): each home's
+    # broadcast rows [P, B] (-1 pads), the mirror slot of every source's
+    # block row, need -> [P, P, B] (v_mir: not mirrored here), and the
+    # routes without the broadcast vertices, need -> (send_idx, recv_slot)
+    bsend: torch.Tensor | None = None
+    brecv: dict | None = None
+    p2p_routes: dict | None = None
+
+    @property
+    def has_bcast(self) -> bool:
+        """Does the forward ship split into the broadcast and p2p lanes?"""
+        return self.brecv is not None and self.p2p_routes is not None
 
     @staticmethod
     def from_host(f: Mapping, device) -> "Structure":
@@ -129,7 +140,12 @@ class Structure:
             v_mir=int(f["v_mir"]), v_blk=int(f["v_blk"]),
             num_vertices=int(f["num_vertices"]),
             num_edges=int(f["num_edges"]), max_vid=int(f["max_vid"]),
-            has_bcast=f.get("brecv") is not None)
+            bsend=None if f.get("bsend") is None else t(f["bsend"]),
+            brecv=(None if f.get("brecv") is None
+                   else {k: t(v) for k, v in f["brecv"].items()}),
+            p2p_routes=(None if f.get("p2p_routes") is None
+                        else {k: (t(v[0]), t(v[1]))
+                              for k, v in f["p2p_routes"].items()}))
 
 
 def _degree_msg(sv, ev, dv):
@@ -398,7 +414,9 @@ class Graph:
                              device=s.src_perm.device).expand(s.p, s.e_blk)
         s2 = dataclasses.replace(
             s, src_slot=s.dst_slot, dst_slot=s.src_slot, src_perm=ident,
-            routes=_swap_sides(s.routes), agg_ptr=_swap_sides(s.agg_ptr),
+            routes=_swap_sides(s.routes), brecv=_swap_sides(s.brecv),
+            p2p_routes=_swap_sides(s.p2p_routes),
+            agg_ptr=_swap_sides(s.agg_ptr),
             agg_pieces=_swap_sides(s.agg_pieces),
             agg_perm=_swap_sides(s.agg_perm),
             apply_rng=_swap_sides(s.apply_rng))
@@ -411,14 +429,17 @@ class Graph:
                    to: str = "dst", skip_stale: str | None = None,
                    kernel_mode: str = "auto", force_need: str | None = None,
                    payload_bound: int | None = None, transport=None,
+                   transport_state=None, cache=None,
                    epred: Callable | None = None):
-        """See `core.mrtriplets.mr_triplets`.  Returns (values, exists,
-        graph', metrics), graph' carrying the refreshed view and, under a
-        pushed-down `epred`, the restricted edge mask."""
+        """See `core.mrtriplets.mr_triplets` (transport: any policy of
+        `core.transport`).  Returns (values, exists, graph', metrics),
+        graph' carrying the refreshed view and, under a pushed-down
+        `epred`, the restricted edge mask."""
         values, exists, view, metrics = mr_triplets(
             self, map_fn, reduce, to=to, skip_stale=skip_stale,
             kernel_mode=kernel_mode, force_need=force_need,
-            payload_bound=payload_bound, transport=transport, epred=epred)
+            payload_bound=payload_bound, transport=transport,
+            transport_state=transport_state, cache=cache, epred=epred)
         g = self._after_refresh(view, metrics["fwd"].merge(metrics["back"]),
                                 metrics["ships"])
         if "emask_pushed" in metrics:

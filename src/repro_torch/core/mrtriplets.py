@@ -7,9 +7,11 @@ map(triplets); result = reduceByKey(messages).  Physical plan, as in
   1. join elimination (§4.5.2): the UDF trace picks the routing table
      ("src" / "dst" / "both" / none) and the vertex leaves it reads;
   2. vertex shipping through the graph-resident view (§4.5.1): only dirty
-     leaves and missing directions move, over the dense transport and
-     through the exchange's wire codec (`core/wire.py`); under a resident
-     codec the mirrors stay encoded between supersteps (§2.4);
+     leaves and missing directions move, through the selected transport
+     (`core/transport.py`: dense, ragged or adaptive; high-replication
+     mirrors through the broadcast lane) and the exchange's wire codec
+     (`core/wire.py`); under a resident codec the mirrors stay encoded
+     between supersteps (§2.4);
   3. the edge map + local aggregation, either fused — one CUDA kernel
      gathers both endpoints, runs the UDF and reduces into mirror slots
      (kernels/triplet.py; it reads encoded mirrors through their scale
@@ -24,7 +26,7 @@ Each aggregation side walks the edges in its own order, `s.agg_perm[to]`
 graph; `reverse()` swaps the two), so the CSR tables `agg_ptr[to]` and the
 messages both plans reduce agree on a transposed graph too.
 
-Scope: dense transport; the fused plans take leaves of rank <= 1, with f16
+Scope: the fused plans take leaves of rank <= 1, with f16
 staged through f32 and bf16 mirrors staged as bf16 when every used leaf is
 bf16.
 """
@@ -72,18 +74,43 @@ class ViewCache:
     active: torch.Tensor     # [nl, V_mir] bool — slot changed in this ship
 
 
+def _vmax(a, b):
+    """max of two numbers or tensors (a 0-d tensor broadcasts against a
+    [P] one); a Python number against a tensor stays on the device."""
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        return torch.maximum(a, b.to(a.dtype))
+    if isinstance(a, torch.Tensor):
+        return a.clamp_min(b)
+    if isinstance(b, torch.Tensor):
+        return b.clamp_min(a)
+    return max(a, b)
+
+
 @dataclasses.dataclass(frozen=True)
 class ShipMetrics:
-    """Byte accounting of route ships (the reference's dense-wire fields)."""
+    """Byte accounting and transport facts of route ships.  Fields are
+    Python numbers where they are static and tensors where the device
+    computed them (the ragged branch's bytes, the occupancy counts)."""
 
     wire_bytes: int                  # static bytes a dense collective moves
     effective_bytes: torch.Tensor    # data actually needed
     n_shipped: torch.Tensor          # route entries that carried a value
     bytes_accounted: Any             # codec accounting: int, or an int64
     #                                  tensor under a delta codec
-    bytes_shipped: int               # what the transport really moved
+    bytes_shipped: Any               # what the transport really moved: an
+    #                                  int, or f32 where the device chose
     route_width: int                 # K of the route
-    bytes_link_modeled: float        # ring-lowered link bytes
+    bytes_link_modeled: Any          # ring-lowered link bytes
+    ragged: Any = 0.0                # 1: the ragged branch was taken
+    route_active_max: Any = 0        # largest per-destination count
+    overflow: Any = 0.0              # ragged -> dense fallbacks taken
+    # integrity failures and degraded routes: zero until the integrity
+    # ladder is ported (ROADMAP Queue 1 item 5)
+    wire_faults: Any = 0.0
+    degraded: Any = 0.0
+    # [P] per-destination occupancy fractions (0 when nothing shipped):
+    # what adapt_policy tiers on
+    route_active_frac: Any = 0.0
 
     @classmethod
     def zero(cls, device=None) -> "ShipMetrics":
@@ -91,7 +118,8 @@ class ShipMetrics:
         return cls(0, zi, zi, 0, 0, 0, 0.0)
 
     def merge(self, other: "ShipMetrics") -> "ShipMetrics":
-        """Bytes and counts add; the route width takes the max."""
+        """Bytes and counts add; the branch taken, the route width and the
+        occupancy facts take the max (the fullest route)."""
         return ShipMetrics(
             wire_bytes=self.wire_bytes + other.wire_bytes,
             effective_bytes=self.effective_bytes + other.effective_bytes,
@@ -100,21 +128,38 @@ class ShipMetrics:
             bytes_shipped=self.bytes_shipped + other.bytes_shipped,
             route_width=max(self.route_width, other.route_width),
             bytes_link_modeled=(self.bytes_link_modeled
-                                + other.bytes_link_modeled))
+                                + other.bytes_link_modeled),
+            ragged=_vmax(self.ragged, other.ragged),
+            route_active_max=_vmax(self.route_active_max,
+                                   other.route_active_max),
+            overflow=self.overflow + other.overflow,
+            wire_faults=self.wire_faults + other.wire_faults,
+            degraded=self.degraded + other.degraded,
+            route_active_frac=_vmax(self.route_active_frac,
+                                    other.route_active_frac))
 
     def to_host(self) -> dict:
-        """Python numbers, for per-superstep records."""
-        return {f.name: (v.item() if isinstance(v, torch.Tensor) else v)
-                for f in dataclasses.fields(self)
-                for v in (getattr(self, f.name),)}
+        """Python numbers (lists for [P] vectors), for per-superstep
+        records."""
+        def host(v):
+            if not isinstance(v, torch.Tensor):
+                return v
+            return v.item() if v.dim() == 0 else v.tolist()
+        return {f.name: host(getattr(self, f.name))
+                for f in dataclasses.fields(self)}
 
 
 def _route_ship(ex, sendbuf: Any, flags: torch.Tensor, *, bound: int | None,
-                elem_bytes: int, recvflags: torch.Tensor | None = None):
+                elem_bytes: int,
+                transport: transport_mod.TransportPolicy = transport_mod.DENSE,
+                prefer_ragged: torch.Tensor | None = None,
+                recvflags: torch.Tensor | None = None, label: str = "fwd"):
     """Move one routed [nl, P, K, ...] buffer + its flags (the wire's
-    active set) through the codec and account it."""
-    recvbuf, rflags, shipped = transport_mod.ship_transport(
-        ex, sendbuf, flags, bound=bound, recvflags=recvflags)
+    active set) through the selected transport and account it."""
+    transport_mod.record_ship(label, transport.kind, f"K={flags.shape[-1]}")
+    recvbuf, rflags, info = transport_mod.ship_transport(
+        ex, sendbuf, flags, bound=bound, policy=transport,
+        prefer_ragged=prefer_ragged, recvflags=recvflags)
     p = flags.shape[1]
     n = flags.sum()
     metrics = ShipMetrics(
@@ -122,10 +167,12 @@ def _route_ship(ex, sendbuf: Any, flags: torch.Tensor, *, bound: int | None,
         effective_bytes=n * elem_bytes, n_shipped=n,
         bytes_accounted=wire_mod.bytes_on_wire(sendbuf, ex.codec, flags,
                                                bound),
-        bytes_shipped=shipped,
+        bytes_shipped=info.bytes_shipped,
         route_width=flags.shape[-1],
         # a2a on a ring: each chip's diagonal block never leaves it
-        bytes_link_modeled=shipped * (p - 1) / max(p, 1))
+        bytes_link_modeled=info.bytes_shipped * (p - 1) / max(p, 1),
+        ragged=info.ragged, route_active_max=info.route_active_max,
+        overflow=info.overflow, route_active_frac=info.route_active_frac)
     return recvbuf, rflags, metrics
 
 
@@ -138,19 +185,26 @@ def _take_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def ship_to_mirrors(s, values: Any, need: str, ex, *,
                     active: torch.Tensor | None = None,
-                    cache: ViewCache | None = None, bound: int | None = None):
+                    cache: ViewCache | None = None, bound: int | None = None,
+                    transport: Any = None,
+                    prefer_ragged: torch.Tensor | None = None):
     """Materialise the replicated vertex view for one need set.
 
     values: pytree [nl, V_blk, ...]; active [nl, V_blk] ships only those
     rows (None: every routed row); bound: |value| bound of lossless int
-    narrowing.  A narrow-resident cache is decoded for the scatter and the
-    result re-encoded once after it: untouched blocks round-trip exactly,
-    blocks a fresh row landed in re-quantize against their new absmax.
-    Returns (ViewCache, ShipMetrics)."""
-    if s.has_bcast:
-        raise NotImplementedError(
-            "the broadcast lane (bcast_min_repl) is not ported yet")
-    send_idx, recv_slot = s.routes[need]
+    narrowing; transport / prefer_ragged: the plan of the routed lane
+    (`core.transport`).  On a structure with a broadcast set (`s.brecv`,
+    `s.p2p_routes`) the high-replication vertices move once per source
+    through `transport.allgather_ship`, scattered through the brecv
+    tables, and the routed lane runs over the remaining routes: both
+    write the slots the one route would have (placement changes bytes,
+    never values).  A narrow-resident cache is decoded for the scatter
+    and the result re-encoded once after both lanes: untouched blocks
+    round-trip exactly, blocks a fresh row landed in re-quantize against
+    their new absmax.  Returns (ViewCache, ShipMetrics)."""
+    tp = transport_mod.resolve_transport(transport)
+    use_bcast = s.has_bcast
+    send_idx, recv_slot = (s.p2p_routes if use_bcast else s.routes)[need]
     nl, p, k = send_idx.shape
     valid = send_idx >= 0
     safe_idx = send_idx.clamp(min=0)
@@ -164,8 +218,8 @@ def ship_to_mirrors(s, values: Any, need: str, ex, *,
     # full ship: the receiver knows the flags from the route's structure
     structural = (recv_slot < s.v_mir) if active is None else None
     recvbuf, recvflags, metrics = _route_ship(
-        ex, sendbuf, flags, bound=bound, elem_bytes=elem_bytes,
-        recvflags=structural)
+        ex, sendbuf, flags, bound=bound, elem_bytes=elem_bytes, transport=tp,
+        prefer_ragged=prefer_ragged, recvflags=structural)
 
     # incremental scatter: only fresh entries overwrite their mirror slot
     idx = torch.where(recvflags, recv_slot, s.v_mir).reshape(nl, -1)
@@ -179,6 +233,14 @@ def ship_to_mirrors(s, values: Any, need: str, ex, *,
     shipped = scatter_rows(
         torch.zeros((nl, s.v_mir), dtype=torch.bool, device=idx.device), idx,
         torch.ones((nl, p * k), dtype=torch.bool, device=idx.device))
+
+    if use_bcast:
+        mirror, bshipped, bmetrics = _broadcast_lane(
+            s, values, need, ex, mirror, active=active, bound=bound,
+            elem_bytes=elem_bytes)
+        shipped = shipped | bshipped
+        metrics = metrics.merge(bmetrics)
+
     codec = ex.codec
     if codec is not None and codec.resident:
         def encode(leaf):
@@ -190,9 +252,52 @@ def ship_to_mirrors(s, values: Any, need: str, ex, *,
     return ViewCache(mirror=mirror, filled=filled, active=shipped), metrics
 
 
+def _broadcast_lane(s, values: Any, need: str, ex, mirror: Any, *,
+                    active: torch.Tensor | None, bound: int | None,
+                    elem_bytes: int):
+    """The broadcast set's rows through one all-gather, scattered into
+    `mirror` through `s.brecv[need]`; (mirror, slots written,
+    ShipMetrics).  Its occupancy facts stay zero: the lane has no
+    capacity to plan and must not distort the routed lane's tiers."""
+    nl = s.bsend.shape[0]
+    p = ex.p
+    bvalid = s.bsend >= 0                                      # [nl, B]
+    bidx = s.bsend.clamp(min=0)
+    b = bvalid.shape[1]
+    bflags = bvalid if active is None else bvalid & gather_rows(active, bidx)
+    btree = tree_map(lambda v: gather_rows(v, bidx), values)
+    btree = tree_map(lambda x: x.masked_fill(~bmask(bflags, x), 0), btree)
+    transport_mod.record_ship("fwd", "bcast", f"B={b}")
+    recvb, rfb, binfo = transport_mod.allgather_ship(ex, btree, bflags,
+                                                     bound=bound)
+    brecv = s.brecv[need]                                      # [nl, P, B]
+    hit = rfb & (brecv < s.v_mir)
+    bscat = torch.where(hit, brecv, s.v_mir).reshape(nl, -1)
+    mirror = tree_map(
+        lambda m, leaf: scatter_rows(
+            m, bscat, leaf.reshape((nl, p * b) + tuple(leaf.shape[3:]))),
+        mirror, recvb)
+    written = scatter_rows(
+        torch.zeros((nl, s.v_mir), dtype=torch.bool, device=bscat.device),
+        bscat, torch.ones((nl, p * b), dtype=torch.bool, device=bscat.device))
+    staged = tree_map(lambda x: x[:, None], btree)
+    metrics = ShipMetrics(
+        wire_bytes=transport_mod.allgather_wire_bytes(
+            staged, ex.codec, bound, p, flags_shipped=True),
+        effective_bytes=hit.sum() * elem_bytes,
+        n_shipped=bflags.sum(),
+        bytes_accounted=wire_mod.bytes_on_wire(staged, ex.codec,
+                                               bflags[:, None], bound),
+        bytes_shipped=binfo.bytes_shipped, route_width=0,
+        # ring all-gather: every contributed block traverses P-1 links
+        bytes_link_modeled=binfo.bytes_shipped * max(p - 1, 0))
+    return mirror, written, metrics
+
+
 def ship_aggregates_home(s, partial: Any, had_msg: torch.Tensor, need: str,
                          reduce: str, ex, *, combine: bool = True,
-                         bound: int | None = None):
+                         bound: int | None = None, transport: Any = None,
+                         prefer_ragged: torch.Tensor | None = None):
     """Return partial aggregates [nl, V_mir, ...] to the vertex homes and
     combine them.  Float sums combine in f32 in ascending source partition
     — one partition's route entries hit distinct home rows, so each step is
@@ -203,14 +308,18 @@ def ship_aggregates_home(s, partial: Any, had_msg: torch.Tensor, need: str,
     The return wire zero-substitutes the entries the homes discard before
     the codec (an int identity would wrap a narrowed cast, a float one blow
     up a block's absmax); `bound` certifies message values, which partial
-    sums escape, so sum aggregates never pack."""
+    sums escape, so sum aggregates never pack.  The return keeps the full
+    routes under a broadcast set (a reduction cannot all-gather) and goes
+    through `transport` like the forward ship."""
     send_idx, recv_slot = s.routes[need]
     nl, p, k = send_idx.shape
     backbuf = tree_map(lambda leaf: _take_rows(leaf, recv_slot), partial)
     backflags = _take_rows(had_msg, recv_slot) & (recv_slot < s.v_mir)
     recv, rflags, metrics = _route_ship(
         ex, backbuf, backflags, bound=None if reduce == "sum" else bound,
-        elem_bytes=nbytes_of(tree_map(lambda v: v[0, 0], partial)))
+        elem_bytes=nbytes_of(tree_map(lambda v: v[0, 0], partial)),
+        transport=transport_mod.resolve_transport(transport),
+        prefer_ragged=prefer_ragged, label="back")
     if not combine:
         return recv, rflags, metrics
 
@@ -533,6 +642,8 @@ def mr_triplets(g, map_fn: Callable, reduce: str = "sum", *, to: str = "dst",
                 skip_stale: str | None = None, kernel_mode: str = "auto",
                 force_need: str | None = None,
                 payload_bound: int | None = None, transport: Any = None,
+                transport_state: torch.Tensor | None = None,
+                cache: Any = None,
                 epred: Callable | None = None, return_routed: bool = False):
     """Execute one mrTriplets.  Returns (values, exists, view, metrics).
 
@@ -550,11 +661,21 @@ def mr_triplets(g, map_fn: Callable, reduce: str = "sum", *, to: str = "dst",
     kernel_mode: "auto" (fused when eligible: the CUDA kernel on CUDA
     tensors, its plain version on CPU tensors), "ref" (fused when eligible,
     plain version), or "unfused" (gather -> vmapped UDF -> segment reduce,
-    with the segment_sum kernel for float sums on the card)."""
+    with the segment_sum kernel for float sums on the card).
+
+    transport: how the exchange buffers move (`core.transport`): None /
+    "dense", "ragged" (compacts the active entries; an overflow ships
+    dense) or "auto", which picks per call on the dirty fraction with
+    hysteresis: transport_state, a 0-d f32 tensor, is the previous
+    decision (metrics["transport_state"]).  Transports change bytes, never
+    values.
+
+    cache: an explicit view (or a graph carrying one) with `g.active` as
+    the changed rows of every shipped leaf: the reference's legacy loop
+    contract, for eager loops that track changes themselves."""
     from . import view as view_mod      # view.py builds on this module
     s, ex = g.s, g.ex
     nl = g.vmask.shape[0]
-    transport_mod.resolve_transport(transport)
     # wire-packing bound: an explicit payload_bound certifies every signed
     # int payload; the id-valued default (max_vid) speaks only for int32
     # ids, so it is floored at int16's own range (narrower dtypes never
@@ -591,11 +712,39 @@ def mr_triplets(g, map_fn: Callable, reduce: str = "sum", *, to: str = "dst",
     metrics["shipped_leaves"] = (0 if need is None else
                                  sum(leaf_mask) if leaf_mask
                                  else len(flat_vals))
-    metrics["transport"] = "dense"
 
+    if cache is not None and not isinstance(cache, view_mod.GraphView) \
+            and hasattr(cache, "view"):
+        cache = cache.view          # a Graph in the cache position
+    legacy = cache is not None
     graph_view = g.view
-    if not view_mod.compatible(graph_view, g.vdata, nl, s.v_mir):
+    if not legacy and not view_mod.compatible(graph_view, g.vdata, nl,
+                                              s.v_mir):
         graph_view = None
+
+    # transport plan: only delta ships have stale entries to skip, so with
+    # no requested leaf possibly dirty the plan is dense.  "auto" decides
+    # on the dirty fraction against the hysteresis band, on the device.
+    tp = transport_mod.resolve_transport(transport)
+    ship_rows = (g.active if legacy
+                 else view_mod.dirty_rows(graph_view, leaf_mask))
+    prefer_ragged = None
+    tstate_new: Any = 0.0
+    if tp.kind == "auto":
+        if ship_rows is None:
+            tp = transport_mod.DENSE
+            tstate_new = torch.zeros((), dtype=torch.float32,
+                                     device=g.vmask.device)
+        else:
+            frac = (ex.psum(ship_rows.sum().float())
+                    / float(max(s.p * ship_rows.shape[1], 1)))
+            thresh = (tp.enter_frac if transport_state is None
+                      else torch.where(transport_state > 0.5, tp.exit_frac,
+                                       tp.enter_frac))
+            prefer_ragged = frac <= thresh
+            tstate_new = prefer_ragged.float()
+    metrics["transport"] = tp.kind
+    metrics["transport_state"] = tstate_new
     ships_fwd = 0
     # a pushed-down epred on a restricted graph folds the visibility ship
     # into this refresh
@@ -603,7 +752,9 @@ def mr_triplets(g, map_fn: Callable, reduce: str = "sum", *, to: str = "dst",
     if need is not None or with_vis:
         lm = leaf_mask if need is not None else (False,) * len(flat_vals)
         view, mirror_tree, m_fwd, ships_fwd = view_mod.refresh_view(
-            g, need or "both", leaf_mask=lm, with_vis=with_vis, bound=bound)
+            g, need or "both", leaf_mask=lm, with_vis=with_vis, bound=bound,
+            transport=tp, prefer_ragged=prefer_ragged,
+            legacy_cache=cache if legacy else None)
         metrics["fwd"] = m_fwd
         if need is None:
             # no vertex property read: no freshness information
@@ -611,11 +762,14 @@ def mr_triplets(g, map_fn: Callable, reduce: str = "sum", *, to: str = "dst",
                 (nl, s.v_mir), dtype=torch.bool, device=g.vmask.device))
     else:
         mirror_tree = None
-        # no vertex data read: no delta information, every slot is fresh
-        view = (graph_view if graph_view is not None
-                else view_mod.empty_view(s, g.vdata, nl, ex.codec, bound))
-        view = view.replace(active=torch.ones((nl, s.v_mir), dtype=torch.bool,
-                                              device=g.vmask.device))
+        if legacy:
+            view = cache
+        else:
+            # no vertex data read: no delta information, every slot is fresh
+            view = (graph_view if graph_view is not None
+                    else view_mod.empty_view(s, g.vdata, nl, ex.codec, bound))
+            view = view.replace(active=torch.ones(
+                (nl, s.v_mir), dtype=torch.bool, device=g.vmask.device))
         metrics["fwd"] = ShipMetrics.zero(g.vmask.device)
 
     # skipStale (§3.2/§4.6): drop edges whose relevant endpoint is stale
@@ -663,9 +817,13 @@ def mr_triplets(g, map_fn: Callable, reduce: str = "sum", *, to: str = "dst",
                                               s.agg_ptr[to], s.agg_pieces[to],
                                               reduce, sub_mode)
 
+    # the return route has its own capacity fraction when the plan set one
+    tp_back = (tp if tp.capacity_frac_back is None
+               else tp.replace(capacity_frac=tp.capacity_frac_back,
+                               capacity_fracs=tp.capacity_fracs_back))
     values, exists, m_back = ship_aggregates_home(
         s, partial, had_msg, to, reduce, ex, combine=not return_routed,
-        bound=bound)
+        bound=bound, transport=tp_back, prefer_ragged=prefer_ragged)
     metrics["back"] = m_back
     metrics["ships_fwd"] = ships_fwd
     metrics["ships"] = ships_fwd + 1
@@ -675,6 +833,8 @@ def mr_triplets(g, map_fn: Callable, reduce: str = "sum", *, to: str = "dst",
                                 + m_back.bytes_shipped)
     metrics["bytes_link_modeled"] = (metrics["fwd"].bytes_link_modeled
                                      + m_back.bytes_link_modeled)
+    # either route may compact: "ragged" means any ship did
+    metrics["ragged"] = _vmax(metrics["fwd"].ragged, m_back.ragged)
     # device bytes the mirror carry keeps between calls (§2.4)
     metrics["mirror_hbm_bytes"] = wire_mod.resident_hbm_bytes(view.mirror)
     return values, exists, view, metrics

@@ -18,24 +18,31 @@ Two drivers, as in the reference:
     superstep 1 runs eagerly (the cold ship, which settles the view's plan
     and builds the kernels) and, on the card, every later superstep
     replays one superstep captured as a CUDA graph (`core/capture.py`).
-    The host reads the live count once a superstep.
+    The host reads the live count once a superstep.  Under an "auto"
+    transport the host re-plans the next superstep's policy from that
+    same read (`transport.adapt_policy`); each distinct policy is one
+    capture, where the reference compiles once per policy.
   * `pregel_fused` — the reference's one `lax.while_loop`.  After the
     eager superstep 1, blocks of `FUSED_BLOCK` supersteps are captured
     back to back; each superstep of a block is masked on the device by
     `live > 0 and i < max_supersteps`, so the loop halts on the card and
-    the host reads one flag a block.
+    the host reads one flag a block.  An "auto" transport keeps its
+    static capacity and switches dense / ragged on the device; its last
+    decision rides the block's carry.
 On the CPU both run the same steps eagerly, through the same buffers.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import logging
 from typing import Any, Callable
 
 import torch
 
 from . import analysis
 from . import capture as capture_mod
+from . import transport as transport_mod
 from . import view as view_mod
 from .graph import Graph
 from .mrtriplets import (_derive_need, _plan_apply, apply_plan_of,
@@ -57,6 +64,8 @@ FUSED_BLOCK = 2
 # the graph fields a superstep rewrites: the carry a replayed step threads
 _CARRIED = ("vdata", "active", "view", "wire_log")
 
+_log = logging.getLogger(__name__)
+
 
 @dataclasses.dataclass
 class PregelResult:
@@ -66,15 +75,18 @@ class PregelResult:
 
 
 def _superstep(g: Graph, *, vprog, send_msg, gather, default_msg, skip_stale,
-               changed_fn, kernel_mode, use_cache, payload_bound, aplan):
+               changed_fn, kernel_mode, use_cache, payload_bound, aplan,
+               transport=None, tstate=None):
     """One BSP superstep; `aplan` is the fused apply plan or None and
-    `default_msg` a pytree of tensors on the graph's device.  Makes no host
-    sync and no host-to-device copy on a CUDA graph in the "auto" and
-    "unfused" modes, so it can be captured."""
+    `default_msg` a pytree of tensors on the graph's device; `transport`
+    the superstep's policy and `tstate` the previous "auto" decision.
+    Makes no host sync and no host-to-device copy on a CUDA graph in the
+    "auto" and "unfused" modes, so it can be captured."""
     gin = g if use_cache else g.replace(view=None)
     msgs, exists, view, metrics = mr_triplets(
         gin, send_msg, gather, to="dst", skip_stale=skip_stale,
         kernel_mode=kernel_mode, payload_bound=payload_bound,
+        transport=transport, transport_state=tstate,
         return_routed=aplan is not None)
     if aplan is not None:
         # `msgs` is the raw routed aggregate buffer: the kernel combines it
@@ -112,7 +124,7 @@ def _superstep(g: Graph, *, vprog, send_msg, gather, default_msg, skip_stale,
 
 def _step_fn(g: Graph, vprog, send_msg, gather, *, default_msg, skip_stale,
              changed_fn, kernel_mode, incremental, payload_bound,
-             fuse_apply) -> Callable:
+             fuse_apply, transport=None) -> Callable:
     """The superstep of one run: step(g) -> (g', live, metrics), its plans
     made and its default messages moved to the device once."""
     fuse = kernel_mode != "unfused" and fuse_apply not in (False, "unfused")
@@ -123,7 +135,7 @@ def _step_fn(g: Graph, vprog, send_msg, gather, *, default_msg, skip_stale,
         _superstep, vprog=vprog, send_msg=send_msg, gather=gather,
         default_msg=dmsg, skip_stale=skip_stale, changed_fn=changed_fn,
         kernel_mode=kernel_mode, use_cache=incremental,
-        payload_bound=payload_bound, aplan=aplan)
+        payload_bound=payload_bound, aplan=aplan, transport=transport)
 
 
 def _captures(device: torch.device, kernel_mode: str) -> bool:
@@ -148,12 +160,51 @@ def _to_host(metrics: dict) -> dict:
     return out
 
 
+def _progress(live: torch.Tensor, metrics: dict, watch: bool):
+    """What the host reads after a superstep, as one tensor, so one
+    device-to-host copy: the live count; when `watch` (a transport other
+    than dense) also the overflow fallbacks and each route's occupancy,
+    the largest per-destination count and, when it is a vector, the [P]
+    fractions adapt_policy tiers on (`_occupancy` unpacks them)."""
+    if not watch:
+        return live
+    fwd, back = metrics["fwd"], metrics["back"]
+    parts = [live, fwd.overflow + back.overflow, fwd.route_active_max,
+             back.route_active_max]
+    out = [x.double().reshape(1) if isinstance(x, torch.Tensor)
+           else live.new_full((1,), float(x), dtype=torch.float64)
+           for x in parts]
+    out += [m.route_active_frac.double() for m in (fwd, back)
+            if _is_vec(m.route_active_frac)]
+    return torch.cat(out)
+
+
+def _is_vec(v) -> bool:
+    return isinstance(v, torch.Tensor) and v.dim() == 1 and v.numel() > 1
+
+
+def _occupancy(vals: list, metrics: dict):
+    """(fwd, back) occupancy for adapt_policy from `_progress`'s values:
+    the per-destination vector, or the largest count over the route width
+    (the reference's rule: a vector only when P > 1)."""
+    i = 4
+    occ = []
+    for m, maxc in ((metrics["fwd"], vals[2]), (metrics["back"], vals[3])):
+        if _is_vec(m.route_active_frac):
+            n = m.route_active_frac.numel()
+            occ.append(tuple(vals[i:i + n]))
+            i += n
+        else:
+            occ.append(int(maxc) / max(m.route_width, 1))
+    return occ
+
+
 def pregel(g: Graph, vprog: Callable, send_msg: Callable,
            gather: str = "sum", *, default_msg: Any,
            max_supersteps: int = 50, skip_stale: str | None = "out",
            incremental: bool = True, changed_fn: Callable | None = None,
            kernel_mode: str = "auto", track_metrics: bool = False,
-           payload_bound: int | None = None,
+           payload_bound: int | None = None, transport: Any = None,
            fuse_apply: Any = "auto") -> PregelResult:
     """The host-driven BSP loop.  fuse_apply: "auto" fuses the apply half
     when eligible; False / "unfused" pins the unfused apply.
@@ -164,7 +215,22 @@ def pregel(g: Graph, vprog: Callable, send_msg: Callable,
     so run eagerly.  The loop reads the live count back once a superstep
     to decide whether to halt; track_metrics also reads that superstep's
     metrics and the wire log's totals (`pipeline_ships`,
-    `pipeline_bytes_shipped`: the graph's lineage, this loop included)."""
+    `pipeline_bytes_shipped`: the graph's lineage, this loop included).
+
+    transport: None / "dense" | "ragged" | "auto" | TransportPolicy.
+    "auto" re-plans on the host: superstep 1 ships dense (a full ship),
+    then `transport.adapt_policy` picks the next superstep's concrete
+    policy from the active fraction and the route occupancy the last one
+    observed, read in the same copy as the live count.  Each distinct
+    policy is captured once and kept until the run ends (a policy other
+    than superstep 1's at its second superstep: its first runs eagerly, so
+    the kernels it adds are loaded before a capture); the run switches
+    between them by loading the carry.  The records hold the decision
+    ("transport", "transport_cap", "transport_frac", "ragged",
+    "overflow_fallbacks"; the whole concrete policy as "transport_plan"),
+    `recompiles` (distinct policies so far, as the reference counts its
+    compiles), and `captures` / `capture_ms`."""
+    tp = transport_mod.resolve_transport(transport)
     step = _step_fn(g, vprog, send_msg, gather, default_msg=default_msg,
                     skip_stale=skip_stale, changed_fn=changed_fn,
                     kernel_mode=kernel_mode, incremental=incremental,
@@ -176,7 +242,7 @@ def pregel(g: Graph, vprog: Callable, send_msg: Callable,
         "join_arity": deps.n_way,
         "need": _derive_need(deps, None) or "none",
         "wire": g.ex.codec.name if g.ex.codec is not None else "f32",
-        "transport_policy": "dense",
+        "transport_policy": tp.kind,
         "plan": plan_of(g, send_msg, gather, kernel_mode=kernel_mode,
                         payload_bound=payload_bound),
         "apply_plan": (apply_plan_of(
@@ -184,42 +250,95 @@ def pregel(g: Graph, vprog: Callable, send_msg: Callable,
             default_msg=default_msg, kernel_mode=kernel_mode,
             payload_bound=payload_bound) if fuse else "unfused")}
 
+    auto = tp.kind == "auto"
+    watch = tp.kind != "dense"
+    # superstep 1 is a full ship, dense by construction
+    cur_tp = transport_mod.DENSE if auto else tp
+    plans_seen = {cur_tp}
+    n_visible = max(int(g.vmask.sum()), 1) if auto else 1
+    caps0 = dict(capture_mod.stats)
     all_metrics: list[dict] = []
 
-    def record(gs: Graph, live, metrics) -> int:
-        """The superstep's live count, read once; its metrics if tracked."""
-        n_live = int(live)
+    def record(gs: Graph, prog, metrics) -> tuple[int, list]:
+        """Read `prog` once; the live count, the values; the metrics too if
+        tracked."""
+        vals = prog.tolist() if watch else [int(prog)]
+        n_live = int(vals[0])
+        over = vals[1] if watch else 0.0
+        if over:
+            _log.warning("pregel: the ragged transport overflowed its "
+                         "capacity %d time(s) and shipped dense (values "
+                         "exact, bytes worse)", int(over))
         if track_metrics:
             host = _to_host(metrics)
             host.update(static_info)
-            host["live"] = n_live
-            host["pipeline_ships"] = float(gs.ships)
-            host["pipeline_bytes_shipped"] = float(gs.bytes_shipped)
+            fwd, back = metrics["fwd"], metrics["back"]
+            host.update(
+                live=n_live, transport=cur_tp.kind,
+                transport_cap=cur_tp.cap or 0,
+                transport_frac=(cur_tp.capacity_frac
+                                if cur_tp.kind == "ragged" else 0.0),
+                transport_plan=dataclasses.asdict(cur_tp),
+                recompiles=len(plans_seen), overflow_fallbacks=float(over),
+                wire_faults=float(fwd.wire_faults + back.wire_faults),
+                degraded_routes=float(fwd.degraded + back.degraded),
+                captures=capture_mod.stats["captures"] - caps0["captures"],
+                capture_ms=1e3 * (capture_mod.stats["capture_s"]
+                                  - caps0["capture_s"]),
+                pipeline_ships=float(gs.ships),
+                pipeline_bytes_shipped=float(gs.bytes_shipped))
             all_metrics.append(host)
-        return n_live
+        return n_live, vals
 
     if max_supersteps < 1:
         return PregelResult(graph=g, supersteps=0, metrics=all_metrics)
-    g, live, metrics = step(g)
+    first_tp = cur_tp
+    g, live, metrics = step(g, transport=cur_tp)
     steps = 1
-    if record(g, live, metrics) == 0 or max_supersteps == 1:
+    n_live, vals = record(g, _progress(live, metrics, watch), metrics)
+    if n_live == 0 or max_supersteps == 1:
         return PregelResult(graph=g, supersteps=steps, metrics=all_metrics)
 
     g1 = g
+    capture = _captures(g.device, kernel_mode)
+    replays: dict = {}
+    rep = None
 
-    def replayed(carry):
-        g2, live, metrics = step(g1.replace(**carry))
-        return _carry(g2), (live, metrics)
+    def replayed(policy):
+        def run(carry):
+            g2, live, metrics = step(g1.replace(**carry), transport=policy)
+            return _carry(g2), (_progress(live, metrics, watch), metrics)
+        return run
 
-    with capture_mod.Replay(replayed, _carry(g),
-                            capture=_captures(g.device, kernel_mode)) as rep:
+    try:
         while steps < max_supersteps:
-            live, metrics = rep.run()
+            if auto:
+                fwd_occ, back_occ = _occupancy(vals, metrics)
+                cur_tp = transport_mod.adapt_policy(
+                    tp, was_ragged=cur_tp.kind == "ragged",
+                    active_frac=n_live / n_visible, fwd_frac=fwd_occ,
+                    back_frac=back_occ, prev=cur_tp)
+                plans_seen.add(cur_tp)
+            nxt = replays.get(cur_tp)
+            if nxt is None:
+                # a policy superstep 1 did not run captures at its second
+                # superstep: its first runs the new code eagerly
+                nxt = replays[cur_tp] = capture_mod.Replay(
+                    replayed(cur_tp), _carry(g), capture=capture,
+                    defer=cur_tp != first_tp)
+            elif nxt is not rep:
+                nxt.load(_carry(g))
+            rep = nxt
+            prog, metrics = rep.run()
             steps += 1
             g = g1.replace(**rep.carry)
-            if record(g, live, metrics) == 0:
+            n_live, vals = record(g, prog, metrics)
+            if n_live == 0:
                 break
-        live = metrics = None       # the graph's outputs: its pool goes
+    finally:
+        # the graph's outputs: their pools go, together
+        prog = metrics = None
+        capture_mod.close_all(replays.values())
     return PregelResult(graph=g, supersteps=steps, metrics=all_metrics)
 
 
@@ -253,16 +372,19 @@ def pregel_fused(g: Graph, vprog: Callable, send_msg: Callable,
     it only where `run = live > 0 and i < max_supersteps` holds on the
     device (i counts the committed ones), and the host reads one pinned
     halt flag a block.  kernel_mode="ref" runs the same blocks eagerly, as
-    the CPU does.  transport: None or "dense"; the others are not ported."""
-    if transport not in (None, "dense"):
-        raise NotImplementedError(
-            f"transport {transport!r} is not ported yet: ROADMAP Queue 1 "
-            "item 2 (pregel_fused takes the dense transport)")
+    the CPU does.
+
+    transport: one policy for the whole run (no host re-plan): an "auto"
+    policy keeps its static capacity and switches dense / ragged each
+    superstep on the device, its previous decision riding the carry."""
+    tp = transport_mod.resolve_transport(transport)
+    auto = tp.kind == "auto"
     step = _step_fn(g, vprog, send_msg, gather, default_msg=default_msg,
                     skip_stale=skip_stale, changed_fn=changed_fn,
                     kernel_mode=kernel_mode, incremental=incremental,
-                    payload_bound=payload_bound, fuse_apply=fuse_apply)
-    g0, live0, _ = step(g)
+                    payload_bound=payload_bound, fuse_apply=fuse_apply,
+                    transport=tp)
+    g0, live0, m0 = step(g)
     i0 = torch.ones((), dtype=torch.int32, device=g.device)
     if not bool((live0 > 0) & (i0 < max_supersteps)):
         return g0, i0
@@ -271,17 +393,29 @@ def pregel_fused(g: Graph, vprog: Callable, send_msg: Callable,
 
     def block(carry):
         state, live, i = carry["state"], carry["live"], carry["i"]
+        ts = carry.get("ts")
         for _ in range(FUSED_BLOCK):
             run = (live > 0) & (i < max_supersteps)
-            g2, live2, _ = step(g0.replace(**state))
+            g2, live2, m = step(g0.replace(**state), tstate=ts)
             state = _select(run, _carry(g2), state)
             live = torch.where(run, live2, live)
             i = i + run.to(i.dtype)
+            if auto:
+                ts = torch.where(run, m["transport_state"], ts)
         flag.copy_((live > 0) & (i < max_supersteps), non_blocking=True)
-        return {"state": state, "live": live, "i": i}, None
+        out = {"state": state, "live": live, "i": i}
+        if auto:
+            out["ts"] = ts
+        return out, None
 
-    with capture_mod.Replay(block, {"state": _carry(g0), "live": live0,
-                                    "i": i0}, capture=capture) as rep:
+    carry0 = {"state": _carry(g0), "live": live0, "i": i0}
+    if auto:
+        carry0["ts"] = m0["transport_state"]
+    # under "auto" superstep 1 ships dense (a cold view), so the ragged
+    # branch first runs in the first block: that block runs eagerly and the
+    # second one captures
+    with capture_mod.Replay(block, carry0, capture=capture,
+                            defer=auto) as rep:
         while True:
             rep.run()
             if capture:

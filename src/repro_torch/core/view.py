@@ -27,7 +27,8 @@ subgraph visibility + `epred` property ship folds into one), and
 `WireLog` is the pipeline-level account of the ships a graph's lineage has
 run (the reference's `view.WireLog`): `Graph` carries it, its operators
 that refresh the view add their ships, and every Pregel superstep adds its
-own.
+own, with the bytes its transport really moved (a ragged ship's compacted
+payload, indices and counts; the broadcast lane's all-gather).
 """
 from __future__ import annotations
 
@@ -187,7 +188,9 @@ def _plan_leaf(dirs: str, stale: str, need_d: str):
 
 
 def refresh_view(g, need: str, *, leaf_mask=None, with_vis: bool = False,
-                 bound: int | None = None):
+                 bound: int | None = None, transport=None,
+                 prefer_ragged: torch.Tensor | None = None,
+                 legacy_cache: GraphView | None = None):
     """Materialise the replicated view for one consumer through the cache.
 
     Returns (view', mirror_tree, merged ShipMetrics, n_ships): mirror_tree
@@ -197,12 +200,19 @@ def refresh_view(g, need: str, *, leaf_mask=None, with_vis: bool = False,
     view); leaves the consumer does not read keep whatever the view holds.
     with_vis: also bring the visibility mirror `view'.vis` up to date over
     both directions, in the same collective as the leaves that resolve
-    alike.  bound: |value| bound of lossless int narrowing on the wire."""
+    alike.  bound: |value| bound of lossless int narrowing on the wire.
+    transport / prefer_ragged: the plan of the delta ships (a full ship
+    has nothing to compact and stays dense).
+
+    legacy_cache: the reference's legacy `mr_triplets(cache=...)`
+    contract: this view, with `g.active` as the changed rows of every
+    requested leaf in place of the view's own dirty state, and every
+    filled direction kept coherent."""
     s, ex = g.s, g.ex
     nl = g.vmask.shape[0]
     flat_vals, treedef = tree_flatten(g.vdata)
     n = len(flat_vals)
-    view = g.view
+    view = legacy_cache if legacy_cache is not None else g.view
     if not compatible(view, g.vdata, nl, s.v_mir):
         view = empty_view(s, g.vdata, nl, ex.codec, bound)
     mir_l = list(tree_leaves(view.mirror))
@@ -210,11 +220,23 @@ def refresh_view(g, need: str, *, leaf_mask=None, with_vis: bool = False,
     dirs_l, stale_l = list(view.dirs), list(view.stale)
     vis_mir, vis_dirty = view.vis, view.vis_dirty
     vis_dirs, vis_stale = view.vis_dirs, view.vis_stale
+    if legacy_cache is not None:
+        rows = g.active
+        dirty_l = [rows[:, None].expand((nl, 2) + tuple(rows.shape[1:]))] * n
+        stale_l = ["sd"] * n
     required = tuple(leaf_mask) if leaf_mask is not None else (True,) * n
     need_d = _DIR[need]
 
+    def leaf_need(i: int) -> str:
+        # a legacy loop's g.active is only the last step's change set, so
+        # every filled direction ships each refresh
+        if legacy_cache is not None:
+            return _dirs_union(need_d, dirs_l[i])
+        return need_d
+
     entries = [(i, kind, route_d) for i in range(n) if required[i]
-               for kind, route_d in _plan_leaf(dirs_l[i], stale_l[i], need_d)]
+               for kind, route_d in _plan_leaf(dirs_l[i], stale_l[i],
+                                               leaf_need(i))]
     if with_vis:
         entries += [("vis", kind, route_d) for kind, route_d in
                     _plan_leaf(vis_dirs, vis_stale, "sd")]
@@ -240,7 +262,9 @@ def refresh_view(g, need: str, *, leaf_mask=None, with_vis: bool = False,
         sub, m = ship_to_mirrors(
             s, vals, _NEED[route_d], ex, active=act,
             cache=ViewCache(mirror=prev, filled=filled, active=filled),
-            bound=bound)
+            bound=bound,
+            transport=transport if kind == "delta" else None,
+            prefer_ragged=prefer_ragged if kind == "delta" else None)
         n_ships += 1
         merged = m if merged is None else merged.merge(m)
         filled = sub.filled
@@ -270,7 +294,7 @@ def refresh_view(g, need: str, *, leaf_mask=None, with_vis: bool = False,
         if sd:
             dirty_l[i] = clear_rows(dirty_l[i], sd)
         stale_l[i] = _dirs_minus(stale_l[i], sd)
-        dirs_l[i] = _dirs_union(dirs_l[i], need_d)
+        dirs_l[i] = _dirs_union(dirs_l[i], leaf_need(i))
     if with_vis:
         sd = shipped_dirs.get("vis", "")
         if sd:

@@ -400,8 +400,10 @@ def bytes_on_wire(tree, codec: WireCodec | None,
         nb = max(-(-k // codec.block), 1)
         ae = torch.nn.functional.pad(ae, (0, nb * codec.block - k))
         blk_active = ae.reshape(nl, p, nb, codec.block).any(dim=-1)
-        sizes = torch.full((nb,), codec.block, dtype=torch.int64,
-                           device=active.device)
-        sizes[-1] = k - (nb - 1) * codec.block
+        # each block's element count, the last one short: made on the
+        # device (a captured superstep cannot copy a host scalar in)
+        sizes = (k - codec.block * torch.arange(
+            nb, dtype=torch.int64, device=active.device)).clamp(
+                max=codec.block)
         total = total + (blk_active * (sizes * w + sb)).sum()
     return total

@@ -1058,21 +1058,25 @@ def _driver_run(name, device):
 
 
 def _eager_pregel(g, vprog, send, gather, *, default_msg, max_supersteps=50,
-                  skip_stale="out", changed_fn=None, kernel_mode="auto"):
+                  skip_stale="out", changed_fn=None, kernel_mode="auto",
+                  transport=None):
     """The loop the drivers replace: `_superstep` superstep by superstep,
-    eagerly, on freshly allocated tensors."""
+    eagerly, on freshly allocated tensors (under one transport policy; an
+    "auto" one threads its decision as pregel_fused's carry does)."""
     import sys
     pm = sys.modules["repro_torch.core.pregel"]
     aplan = (None if kernel_mode == "unfused" else mt._plan_apply(
         g, vprog, send, gather, changed_fn, default_msg, None))
     dmsg = tree_map(lambda d: torch.as_tensor(d).to(g.device), default_msg)
-    steps = 0
+    steps, ts = 0, None
     for _ in range(max_supersteps):
-        g, live, _ = pm._superstep(
+        g, live, m = pm._superstep(
             g, vprog=vprog, send_msg=send, gather=gather, default_msg=dmsg,
             skip_stale=skip_stale, changed_fn=changed_fn,
             kernel_mode=kernel_mode, use_cache=True, payload_bound=None,
-            aplan=aplan)
+            aplan=aplan, transport=transport, tstate=ts)
+        ts = m["transport_state"] if isinstance(
+            m["transport_state"], torch.Tensor) else None
         steps += 1
         if int(live) == 0:
             break
@@ -1187,6 +1191,190 @@ def test_ref_mode_pregel_runs_eagerly_on_card(cuda):
     want, n = _eager_pregel(g, vprog, send, gather, kernel_mode="ref", **kw)
     assert r.supersteps == n
     _assert_same_state(r.graph, want)
+
+
+# --- the transports: ragged, tiered, pipelined, adaptive, broadcast --------
+def _transport(name):
+    from repro_torch.core.transport import TransportPolicy
+    return {"dense": None,
+            "ragged": TransportPolicy("ragged", capacity_frac=0.25,
+                                      cap_rounding=8),
+            "tiered": TransportPolicy("ragged", capacity_frac=0.5,
+                                      capacity_fracs=(0.25, 0.5, 0.125, 0.5),
+                                      cap_rounding=8),
+            "pipeline": TransportPolicy("ragged", capacity_frac=0.25,
+                                        cap_rounding=8, pipeline=True),
+            "auto": TransportPolicy("auto", cap_rounding=8, enter_frac=0.95,
+                                    exit_frac=0.97)}[name]
+
+
+@pytest.mark.parametrize("codec", [None, "int8"])
+def test_transport_ships_on_card_equal_cpu(codec, cuda):
+    """A dense, ragged (sparse and overflowing), tiered and pipelined
+    routed ship and an all-gather ship on the card give the CPU's receive
+    buffers, flags, branch and bytes bit for bit."""
+    from repro_torch.core import transport as T
+    from repro_torch.core.exchange import LocalExchange
+    ex = LocalExchange(P)
+    if codec is not None:
+        ex = with_wire(ex, codec, delta=True)
+    rng = np.random.default_rng(3)
+    k = 300
+    tree = {"a": rng.normal(size=(P, P, k)).astype(np.float32),
+            "b": rng.normal(size=(P, P, k, 3)).astype(np.float32),
+            "i": rng.integers(-100, 100, (P, P, k)).astype(np.int32)}
+    for dens in (0.05, 0.2, 0.9):
+        flags = rng.random((P, P, k)) < dens
+        for name in ("dense", "ragged", "tiered", "pipeline"):
+            out = {}
+            for dev in ("cpu", cuda):
+                out[str(dev)] = T.ship_transport(
+                    ex, {n: torch.from_numpy(v).to(dev)
+                         for n, v in tree.items()},
+                    torch.from_numpy(flags).to(dev), bound=100,
+                    policy=T.resolve_transport(_transport(name)))
+            (r0, f0, i0), (r1, f1, i1) = out["cpu"], out[str(cuda)]
+            assert torch.equal(f0, f1.cpu())
+            for n in tree:
+                assert torch.equal(r0[n], r1[n].cpu()), (name, dens, n)
+            for f in ("bytes_shipped", "ragged", "overflow",
+                      "route_active_max"):
+                assert float(getattr(i0, f)) == float(getattr(i1, f)), f
+            assert torch.equal(i0.route_active_frac,
+                               i1.route_active_frac.cpu())
+    b = 70
+    block = {"x": rng.normal(size=(P, b)).astype(np.float32),
+             "i": rng.integers(-100, 100, (P, b)).astype(np.int32)}
+    bflags = rng.random((P, b)) < 0.5
+    out = [T.allgather_ship(ex, {n: torch.from_numpy(v).to(dev)
+                                 for n, v in block.items()},
+                            torch.from_numpy(bflags).to(dev), bound=100)
+           for dev in ("cpu", cuda)]
+    assert torch.equal(out[0][1], out[1][1].cpu())
+    for n in block:
+        assert torch.equal(out[0][0][n], out[1][0][n].cpu())
+    assert out[0][2].bytes_shipped == out[1][2].bytes_shipped
+
+
+@pytest.mark.parametrize("transport", ["ragged", "tiered", "pipeline",
+                                       "auto"])
+@pytest.mark.parametrize("name", ["delta_pagerank", "cc"])
+def test_replayed_superstep_under_each_transport_equals_eager_loop(
+        name, transport, cuda):
+    """pregel_fused under each transport (one policy, replayed in blocks;
+    auto's decision in the carry) equals the eager loop under the same
+    transport, wire log included, and the dense eager loop in values; the
+    host loop `pregel` equals it too."""
+    from repro_torch.core import pregel, pregel_fused
+    g, vprog, send, gather, kw = _driver_run(name, cuda)
+    tp = _transport(transport)
+    want, n = _eager_pregel(g, vprog, send, gather, transport=tp, **kw)
+    dense, nd = _eager_pregel(g, vprog, send, gather, **kw)
+    assert n == nd
+    for leaf in want.vdata:
+        assert torch.equal(want.vdata[leaf], dense.vdata[leaf])
+    got, steps = pregel_fused(g, vprog, send, gather, transport=tp, **kw)
+    assert int(steps) == n
+    _assert_same_state(got, want)
+    r = pregel(g, vprog, send, gather, transport=tp, **kw)
+    assert r.supersteps == n
+    for leaf in want.vdata:
+        assert torch.equal(r.graph.vdata[leaf], dense.vdata[leaf])
+    assert float(r.graph.ships) == float(dense.ships)
+    assert float(r.graph.bytes_accounted) == float(dense.bytes_accounted)
+
+
+@pytest.mark.parametrize("codec", ["f32", "int8"])
+def test_captured_pregel_over_delta_wire_equals_eager_loop(codec, cuda):
+    """A delta codec's accounting (`wire.bytes_on_wire`) inside captured
+    supersteps, dense and ragged: bit-equal to the eager loop, wire log
+    included."""
+    from repro_torch.core import pregel, pregel_fused
+    g, vprog, send, gather, kw = _driver_run("cc", cuda)
+    g = g.replace(ex=with_wire(g.ex, codec, delta=True))
+    for name in ("dense", "ragged"):
+        tp = _transport(name)
+        want, n = _eager_pregel(g, vprog, send, gather, transport=tp, **kw)
+        r = pregel(g, vprog, send, gather, transport=tp, **kw)
+        assert r.supersteps == n
+        _assert_same_state(r.graph, want)
+        got, steps = pregel_fused(g, vprog, send, gather, transport=tp, **kw)
+        assert int(steps) == n
+        _assert_same_state(got, want)
+
+
+def test_switching_plans_in_one_pregel_run(cuda):
+    """The auto policy on delta PageRank (rmat(10, 8), w = 1) re-plans on
+    the host: several concrete policies, each captured once, the carry
+    handed between them; state equal to the dense run and the
+    per-superstep records equal to the same run on the CPU; closing the
+    captures gives their memory back (three runs reserve no more than
+    one)."""
+    import gc
+    import json
+    from repro_torch.core import capture
+    tp = _transport("auto")
+    kw = dict(num_iters=60, tol=1e-3)
+    res = {}
+    for dev in ("cpu", cuda):
+        g = Graph.from_edges(GD.src, GD.dst, num_partitions=P, device=dev)
+        capture.reset_stats()
+        res[str(dev)] = alg.pagerank(g, transport=tp, track_metrics=True,
+                                     **kw)
+    r, rc = res[str(cuda)], res["cpu"]
+    fracs = {m["transport_frac"] for m in r.metrics
+             if m["transport"] == "ragged"}
+    # a policy is captured at its second superstep, superstep 1's at once
+    plans = [json.dumps(m["transport_plan"], sort_keys=True)
+             for m in r.metrics]
+    later = plans[1:]
+    captured = {p for p in later
+                if later.count(p) >= 2 or p == plans[0]}
+    assert r.metrics[-1]["recompiles"] >= 3 and len(fracs) >= 2
+    assert capture.stats["captures"] == r.metrics[-1]["captures"] \
+        == len(captured) >= 2
+    assert r.supersteps == rc.supersteps
+    keys = ("transport", "transport_frac", "ragged", "bytes_shipped",
+            "overflow_fallbacks", "recompiles", "live")
+    for m, mc in zip(r.metrics, rc.metrics):
+        assert {k: m[k] for k in keys} == {k: mc[k] for k in keys}
+    g = Graph.from_edges(GD.src, GD.dst, num_partitions=P, device=cuda)
+    dense = alg.pagerank(g, **kw)
+    assert torch.equal(r.graph.vdata["pr"], dense.graph.vdata["pr"])
+    reserved = []
+    for _ in range(3):
+        out = alg.pagerank(g, transport=tp, **kw)
+        del out
+        gc.collect()
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved())
+    assert reserved[2] <= reserved[0], reserved
+
+
+def test_broadcast_lane_on_card_equals_cleared_structure(cuda):
+    """A hybrid build with a broadcast set: CC under the dense and auto
+    transports equals the same structure with the broadcast tables
+    cleared, and the CPU run."""
+    import dataclasses
+    from repro_torch.core import pregel
+    out = {}
+    for dev in ("cpu", cuda):
+        g = Graph.from_edges(SGD.src, SGD.dst, num_partitions=P,
+                             partitioner="hybrid", bcast_min_repl=3,
+                             device=dev)
+        assert g.s.has_bcast
+        gc_ = g.replace(s=dataclasses.replace(g.s, brecv=None,
+                                              p2p_routes=None))
+        for name in ("dense", "auto"):
+            for key, gg in (("bcast", g), ("cleared", gc_)):
+                r = alg.connected_components(gg, transport=_transport(name))
+                out[(str(dev), name, key)] = r
+    want = out[("cpu", "dense", "cleared")].graph.vdata["cc"]
+    for (dev, name, key), r in out.items():
+        assert torch.equal(r.graph.vdata["cc"].cpu(), want), (dev, name, key)
+    for name in ("dense", "auto"):
+        assert float(out[(str(cuda), name, "bcast")].graph.bytes_shipped) \
+            == float(out[("cpu", name, "bcast")].graph.bytes_shipped)
 
 
 def test_capture_errors_raise(cuda):

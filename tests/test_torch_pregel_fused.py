@@ -359,12 +359,20 @@ def test_ref_mode_runs_eagerly_on_the_card():
 
 
 def test_refused_transports_name_the_roadmap(graphs):
+    """Every transport runs; only the integrity ladder is refused, and it
+    names its ROADMAP item."""
+    from repro_torch.core.transport import TransportPolicy
     g, vprog, send, gather, kw = _port_run("cc", graphs[0])
-    pregel_fused(g, vprog, send, gather, transport="dense", max_supersteps=1,
-                 default_msg=kw["default_msg"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        pregel_fused(g, vprog, send, gather, transport="ragged",
-                     default_msg=kw["default_msg"])
+    want, n = pregel_fused(g, vprog, send, gather, transport="dense",
+                           default_msg=kw["default_msg"])
+    for tp in ("ragged", "auto", TransportPolicy("ragged", pipeline=True)):
+        got, m = pregel_fused(g, vprog, send, gather, transport=tp,
+                              default_msg=kw["default_msg"])
+        assert int(m) == int(n) and torch.equal(got.vdata["cc"],
+                                                want.vdata["cc"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        pregel_fused(g, vprog, send, gather, default_msg=kw["default_msg"],
+                     transport=TransportPolicy("ragged", integrity=True))
 
 
 def test_drivers_are_exported_as_in_reference():

@@ -6,8 +6,13 @@ reference's after each operator of a chain that refreshes the view
 `pipeline_ships` / `pipeline_bytes_shipped` metrics must equal the
 reference's for PageRank and CC, under the f32 wire and a delta int8 wire
 (whose accounted bytes are a device tensor).  Counts and byte totals are
-integers below 2^24, so the f32 accumulators agree exactly.
+integers below 2^24, so the f32 accumulators agree exactly.  The records
+hold the reference's keys (the transport's decision, capacity, fallbacks
+and recompiles among them, equal to its values), each ship's record the
+reference's ShipMetrics fields.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -22,16 +27,19 @@ from repro_torch.core import Graph, with_wire  # noqa: E402
 from repro_torch.core import algorithms as alg  # noqa: E402
 from repro_torch.core.view import WireLog  # noqa: E402
 
-# the reference's per-superstep fields of the transports the port has not
-# ported yet (ROADMAP Queue 1 item 2)
-TRANSPORT_FIELDS = {"transport_state", "transport_cap", "transport_frac",
-                    "ragged", "recompiles", "overflow_fallbacks",
-                    "degraded_routes", "wire_faults"}
 # static mrTriplets entries the port keeps in its records (its own tests
 # and chip_smoke.py read them) and the reference strips, since its jitted
-# superstep cannot return Python ints; and the port's live count
+# superstep cannot return Python ints; the port's live count; the whole
+# concrete transport policy of the superstep; and its captures of the
+# superstep with their host ms (the reference counts its compiles as
+# `recompiles`, which both records hold)
 PORT_ONLY = {"ships", "ships_fwd", "shipped_leaves", "mirror_hbm_bytes",
-             "live"}
+             "live", "transport_plan", "captures", "capture_ms"}
+# the fields of each ship's record (ShipMetrics), the reference's
+SHIP_FIELDS = {"wire_bytes", "effective_bytes", "n_shipped",
+               "bytes_accounted", "bytes_shipped", "route_width",
+               "bytes_link_modeled", "ragged", "route_active_max",
+               "overflow", "wire_faults", "degraded", "route_active_frac"}
 
 
 def _pair(wire=None):
@@ -108,6 +116,14 @@ def test_pipeline_metrics_per_superstep_match_reference(name, wire):
     for m, rm in zip(r.metrics, rr.metrics):
         assert m["pipeline_ships"] == rm["pipeline_ships"]
         assert m["pipeline_bytes_shipped"] == rm["pipeline_bytes_shipped"]
-        assert set(m) == (set(rm) - TRANSPORT_FIELDS) | PORT_ONLY
+        assert set(m) == set(rm) | PORT_ONLY
+        for side in ("fwd", "back"):
+            assert set(m[side]) == SHIP_FIELDS == {
+                f.name for f in dataclasses.fields(rm[side])}
+        for k in ("transport", "transport_cap", "transport_frac", "ragged",
+                  "recompiles", "overflow_fallbacks", "wire_faults",
+                  "degraded_routes", "transport_state"):
+            want = rm[k] if isinstance(rm[k], str) else float(rm[k])
+            assert m[k] == want, k
     assert _log(r.graph) == _log(rr.graph)
     assert r.metrics[-1]["pipeline_ships"] == float(r.graph.ships)
