@@ -72,6 +72,27 @@ Phases (any failure exits non-zero before the result line):
      all-gather's bytes == the formula; two mutants of core/transport.py
      that must fail (a compaction dropping each route's last entry, an
      overflow check that never falls back); each run counted alone;
+  4d. the data-parallel half on phase 3's graph, each main-path run
+     counted alone: the dataflow PageRank (the paper's Fig. 7 baseline,
+     `Col` operators only: left_join -> map -> reduce_by_key -> left_join
+     -> compact, 10 iterations at capacities 2 ceil(E/P^2) and 2 ceil(V/P);
+     no overflow or drop, within 1e-4 of phase 3's engine ranks and the
+     float64 oracle, none of the six kernels launched; ms an iteration
+     beside the engine's ms a superstep, peak memory); leftJoin (values ==
+     a host oracle, the wire log unchanged), innerJoin (vid % 3: visible
+     set and triplet visibility == a host oracle), the top-k innerJoin
+     (vid % 11, changed="diff": the next mrTriplets ships fewer rows than
+     are visible, == a cold view bit for bit) and Listing 5 (mrTriplets ->
+     a `Col` of the messages keyed by home vid -> leftJoin -> mapV ==
+     pregel's first superstep bit for bit: the device hash lands on the
+     host build's homes); the chain planner: Fig. 5's chain on a warm view
+     (mapV -> mrTriplets -> mrTriplets, optimize on == off == the "auto"
+     transport bit for bit, bytes on <= off, > 0) and Fig. 6's pushdown
+     (subgraph(dst vid < V/2) -> mrTriplets: the pushed-down edge mask ==
+     subgraph(epred)'s, == the unfused chain bit for bit, the triplet
+     kernel launched); bytes and ms a step; two mutants that must fail
+     (prune_view demoting clean leaves; the hash without its second
+     multiply);
   4b. the rest of the main path, each main-path run counted alone (the
      launch counts set to 0 just before it and read just after; the
      kernels its plans run must each launch, and the triangle count
@@ -498,6 +519,9 @@ BCAST_MIN_REPL = 3
 # seed=1)) at s = 17, 18, 19; the sweep alone took two thirds of a 248.7 s
 # build at s = 21 (NVIDIA H100 80GB HBM3, 700 W host), so it is fixed
 HYBRID_THRESHOLD = 8
+# phase 4d: the dataflow PageRank's iterations and reset probability (as
+# phase 3's engine PageRank)
+DF_ITERS, DF_RESET = PR_ITERS, 0.15
 # what examples/quickstart.py prints (the JAX reference, on the CPU)
 QUICKSTART_LINES = [
     "graph: 1024 vertices, 6716 edges",
@@ -573,25 +597,30 @@ def main_path_run(tally, label, fn, launched=(), idle=()):
     return out
 
 
-def pregel_mutant(old: str, new: str):
-    """core/pregel.py with one line edited, loaded as a module of the
-    port's package (phase 4a's mutants of pregel_fused)."""
+def edited_module(name: str, old: str, new: str):
+    """The port's module `name` with one line edited, loaded as a module of
+    the port's package (the mutants of phases 4a, 4c and 4d)."""
     import importlib
     import types
-    pm = importlib.import_module("repro_torch.core.pregel")
-    src = Path(pm.__file__).read_text()
+    orig = importlib.import_module(name)
+    src = Path(orig.__file__).read_text()
     if src.count(old) != 1:
-        raise AssertionError(f"mutant: {old!r} is not in core/pregel.py "
-                             "exactly once")
-    mod = types.ModuleType("repro_torch.core._pregel_mutant")
-    mod.__package__ = "repro_torch.core"
+        raise AssertionError(f"mutant: {old!r} is not in {name} exactly once")
+    mod = types.ModuleType(name + "_mutant")
+    mod.__package__ = orig.__package__
     sys.modules[mod.__name__] = mod     # dataclasses look their module up
     try:
-        exec(compile(src.replace(old, new), pm.__file__, "exec"),
+        exec(compile(src.replace(old, new), orig.__file__, "exec"),
              mod.__dict__)
     finally:
         del sys.modules[mod.__name__]
     return mod
+
+
+def pregel_mutant(old: str, new: str):
+    """core/pregel.py with one line edited (phase 4a's mutants of
+    pregel_fused)."""
+    return edited_module("repro_torch.core.pregel", old, new)
 
 
 def eager_pregel(g, vprog, send, gather, *, default_msg, max_supersteps,
@@ -828,30 +857,17 @@ def phase_4a_drivers(g, sg, cc_ids, cc_want):
 
 def transport_mutant(name: str, old: str, new: str):
     """The function `name` of core/transport.py with one line edited (phase
-    4c's mutants), loaded from an edited copy of the module."""
-    import importlib
-    import types
-    tm = importlib.import_module("repro_torch.core.transport")
-    src = Path(tm.__file__).read_text()
-    if src.count(old) != 1:
-        raise AssertionError(f"mutant: {old!r} is not in core/transport.py "
-                             "exactly once")
-    mod = types.ModuleType("repro_torch.core._transport_mutant")
-    mod.__package__ = "repro_torch.core"
-    sys.modules[mod.__name__] = mod     # dataclasses look their module up
-    try:
-        exec(compile(src.replace(old, new), tm.__file__, "exec"),
-             mod.__dict__)
-    finally:
-        del sys.modules[mod.__name__]
-    return getattr(mod, name)
+    4c's mutants)."""
+    return getattr(edited_module("repro_torch.core.transport", old, new),
+                   name)
 
 
-def must_fail(label: str, check, swap: tuple):
-    """Run `check` with core/transport.py's function swap[0] replaced by
-    swap[1]; the check must raise AssertionError."""
+def must_fail(label: str, check, swap: tuple,
+              module: str = "repro_torch.core.transport"):
+    """Run `check` with `module`'s function swap[0] replaced by swap[1];
+    the check must raise AssertionError."""
     import importlib
-    tm = importlib.import_module("repro_torch.core.transport")
+    tm = importlib.import_module(module)
     name, fn = swap
     keep = getattr(tm, name)
     setattr(tm, name, fn)
@@ -861,7 +877,7 @@ def must_fail(label: str, check, swap: tuple):
         return str(e).splitlines()[0][:120]
     finally:
         setattr(tm, name, keep)
-    raise AssertionError(f"mutant {label}: phase 4c's checks passed")
+    raise AssertionError(f"mutant {label}: the checks passed")
 
 
 def same_state(label, got, want):
@@ -1309,6 +1325,381 @@ def phase_4c_transports(g, sg, sgd, cc_ids, cc_want, tally):
     return table
 
 
+def _xy_init(vid, v):
+    return {"x": (vid % 17 + 1).float(), "y": (vid % 5).float()}
+
+
+def _send_xy(sv, ev, dv):
+    return {"m": sv["x"] + sv["y"]}
+
+
+def _join_y(v, o, hit):
+    import torch
+    return {"x": v["x"], "y": torch.where(hit, o["y"], -1.0)}
+
+
+def _join_keep(v, o, hit):
+    return v
+
+
+def _join_topk(v, o, hit):
+    import torch
+    return {"x": torch.where(hit, v["x"] + o["b"], v["x"]), "y": v["y"]}
+
+
+def _pr_bump(vid, v):
+    return {**v, "pr": v["pr"] + 1.0}
+
+
+def _send_both(sv, ev, dv):
+    return {"m": sv["pr"] * ev["w"] + dv["deg"]}
+
+
+def _vid_f32(vid, v):
+    return {**v, "vid": vid.float()}
+
+
+def _send_deg(sv, ev, dv):
+    return {"m": sv["deg"] * ev["w"]}
+
+
+def _l5_attach(v, o, hit):
+    import torch
+    return {**v, "msg": torch.where(hit, o["m"], 0.0)}
+
+
+def _l5_apply(vid, v):
+    from repro_torch.core import algorithms as alg
+    return alg.pagerank_vprog(DF_RESET)(
+        vid, {k: x for k, x in v.items() if k != "msg"}, {"m": v["msg"]})
+
+
+def _df_contrib(k, v):
+    """An edge's (dst, src rank / src out-degree), zero without a rank."""
+    import torch
+    return v[0]["dst"], torch.where(v[2], v[1]["pr"] / v[1]["deg"], 0.0)
+
+
+def _df_rank(k, v):
+    """A vertex's new rank from its joined sum (none: no in-edges)."""
+    import torch
+    return k, {"pr": DF_RESET + (1 - DF_RESET) * torch.where(v[2], v[1], 0.0),
+               "deg": v[0]["deg"]}
+
+
+def dataflow_pagerank(gd, dev, iters: int):
+    """PageRank written with collection operators only (the paper's Fig. 7
+    baseline, benchmarks/common.py:naive_pagerank): each iteration
+    left_join (edges to ranks) -> map -> reduce_by_key("sum") -> left_join
+    (ranks to sums) -> compact.  Capacities 2 * ceil(E / P^2) for the edge
+    join and the reduce, 2 * ceil(V / P) for the rank join: the sums
+    arrive partitioned by key, so that join ships each partition to
+    itself.  Returns (vids, ranks, the overflow and dropped counts summed
+    over every shuffle, ms an iteration, the capacities and rank width)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import Col
+    src, dst = gd.src.astype(np.int32), gd.dst.astype(np.int32)
+    vids = np.unique(np.concatenate([src, dst]))
+    cap_e = 2 * -(-len(src) // P ** 2)
+    cap_v = 2 * -(-len(vids) // P)
+    edges = Col.from_numpy(src, {"dst": dst}, P, device=dev)
+    deg = np.maximum(np.bincount(src, minlength=int(vids.max()) + 1), 1)
+    ranks = Col.from_numpy(vids, {"pr": np.ones(len(vids), np.float32),
+                                  "deg": deg[vids].astype(np.float32)},
+                           P, device=dev)
+    width = 2 * ranks.keys.shape[1]
+    bad = torch.zeros((), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        joined, o1 = edges.left_join(ranks, capacity=cap_e)
+        contribs = joined.map(_df_contrib)
+        del joined
+        sums, o2 = contribs.reduce_by_key("sum", capacity=cap_e)
+        del contribs
+        upd, o3 = ranks.left_join(sums, capacity=cap_v)
+        del sums
+        new = upd.map(_df_rank)
+        del upd
+        ranks, dropped = new.compact(width)
+        bad = bad + o1 + o2 + o3 + dropped
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    k, v = ranks.to_numpy()
+    # one more iteration, synchronised after each operator: where the time
+    # goes (its result is dropped)
+    split, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        split[name] = (t1 - t0) * 1e3
+        t0 = t1
+    joined, _ = edges.left_join(ranks, capacity=cap_e)
+    lap("left_join edges")
+    contribs = joined.map(_df_contrib)
+    del joined
+    lap("map")
+    sums, _ = contribs.reduce_by_key("sum", capacity=cap_e)
+    del contribs
+    lap("reduce_by_key")
+    upd, _ = ranks.left_join(sums, capacity=cap_v)
+    del sums
+    lap("left_join ranks")
+    upd.map(_df_rank).compact(width)
+    lap("map + compact")
+    return k, v["pr"], int(bad), ms, (cap_e, cap_v, width), split
+
+
+def phase_4d_dataparallel(g, gd, pr3, tally):
+    """The data-parallel half on phase 3's graph (phase 4d; see the
+    docstring): the dataflow PageRank, the joins, Listing 5 and the chain
+    planner, each main-path run counted alone into `tally`; two mutants
+    must fail.  Returns the phase's record."""
+    import numpy as np
+    import torch
+    from repro_torch.core import Col, algorithms as alg, pregel
+    from repro_torch.core import planner as TP
+    table = {}
+    all_kernels = ("triplet", "apply", "segment_sum", "flash_attention",
+                   "mlstm_fwd", "mlstm_bwd", "spmv")
+
+    # --- (a) the dataflow PageRank, Fig. 7's baseline, beside a warm run
+    # of the engine's (phase 3 built its kernels and plans)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r_eng = alg.pagerank(g, num_iters=DF_ITERS)
+    torch.cuda.synchronize()
+    eng_ms = (time.perf_counter() - t0) * 1e3 / r_eng.supersteps
+    del r_eng
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    k, pr, bad, ms, caps, split = main_path_run(
+        tally, "dataflow pagerank", lambda: dataflow_pagerank(
+            gd, g.device, DF_ITERS), idle=all_kernels)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    if bad != 0:
+        raise AssertionError(f"dataflow pagerank: {bad} entries overflowed "
+                             "or dropped")
+    ids, pr_eng, want = pr3["ids"], pr3["pr"], pr3["want"]
+    full = np.full(int(max(k.max(), ids.max())) + 1, np.nan, np.float64)
+    full[k] = pr
+    got = full[ids]
+    if np.isnan(got).any() or len(k) != len(ids):
+        raise AssertionError("dataflow pagerank: vertex sets differ")
+    rel_eng = float(np.max(np.abs(got - pr_eng)) / np.max(np.abs(pr_eng)))
+    rel_ref = float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+    if not (rel_eng <= 1e-4 and rel_ref <= 1e-4):
+        raise AssertionError(f"dataflow pagerank vs engine {rel_eng}, vs "
+                             f"float64 oracle {rel_ref}")
+    table["dataflow"] = {"ms_per_iter": ms, "engine_ms_per_superstep":
+                         eng_ms, "peak_gib_above_start": peak,
+                         "rel_vs_engine": rel_eng, "rel_vs_oracle": rel_ref,
+                         "cap_edge": caps[0], "cap_rank": caps[1],
+                         "rank_width": caps[2], "split_ms": split}
+    log(f"  dataflow pagerank, {DF_ITERS} iterations: {ms:.1f} ms an "
+        f"iteration (the engine's warm run {eng_ms:.2f} ms a superstep "
+        f"incl. degree), "
+        f"peak {peak:.2f} GiB above the phase's start, capacities edge "
+        f"{caps[0]} rank {caps[1]}, 0 overflow, max|d|/max vs engine "
+        f"{rel_eng:.3g}, vs oracle {rel_ref:.3g}; no kernel launched; one "
+        f"iteration by operator (ms): " + ", ".join(
+            f"{name} {t:.1f}" for name, t in split.items()))
+    del k, pr, full, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- (b) the joins
+    n = gd.num_vertices
+    gj = g.mapV(_xy_init)
+    ids_all = gj.vertices_to_numpy()[0].astype(np.int64)
+    evens = np.arange(0, n, 2, dtype=np.int64)
+    col_even = Col.from_numpy(evens.astype(np.int32),
+                              {"y": (evens * 10).astype(np.float32)}, P,
+                              device=g.device)
+
+    def left_join_check(label="leftJoin"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g2 = main_path_run(tally, label,
+                           lambda: gj.leftJoin(col_even, _join_y))
+        table.setdefault("leftJoin_ms", (time.perf_counter() - t0) * 1e3)
+        vids, vv = g2.vertices_to_numpy()
+        want_y = np.where(vids % 2 == 0, (vids * 10).astype(np.float32),
+                          np.float32(-1))
+        if not np.array_equal(vv["y"], want_y):
+            raise AssertionError("leftJoin: values differ from the host "
+                                 "oracle")
+        if float(g2.ships) != float(gj.ships) or \
+                float(g2.bytes_shipped) != float(gj.bytes_shipped):
+            raise AssertionError("leftJoin: the graph's wire log grew")
+    left_join_check()
+
+    thirds = np.arange(0, n, 3, dtype=np.int64)
+    col3 = Col.from_numpy(thirds.astype(np.int32),
+                          {"b": np.ones(len(thirds), np.float32)}, P,
+                          device=g.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g3 = main_path_run(tally, "innerJoin",
+                       lambda: gj.innerJoin(col3, _join_keep))
+    table["innerJoin_ms"] = (time.perf_counter() - t0) * 1e3
+    vis_ids = np.sort(g3.vertices_to_numpy()[0])
+    if not np.array_equal(vis_ids, np.sort(ids_all[ids_all % 3 == 0])):
+        raise AssertionError("innerJoin: visible set differs from the host "
+                             "oracle")
+    svid, dvid, _, _, _, tmask = g3.triplets()
+    want_mask = g3.emask & (svid % 3 == 0) & (dvid % 3 == 0)
+    n_edges3 = int(((gd.src % 3 == 0) & (gd.dst % 3 == 0)).sum())
+    if not torch.equal(tmask, want_mask) or int(tmask.sum()) != n_edges3:
+        raise AssertionError("innerJoin: triplet visibility differs from "
+                             "the host oracle")
+    del svid, dvid, tmask, want_mask, g3
+
+    gw = gj.mrTriplets(_send_xy, "sum")[2]
+    elevens = np.arange(0, n, 11, dtype=np.int64)
+    col11 = Col.from_numpy(elevens.astype(np.int32),
+                           {"b": np.full(len(elevens), 100.0, np.float32)},
+                           P, device=g.device)
+    g_k = gw.innerJoin(col11, _join_topk, changed="diff")
+    got_k, ex_k, _, m_k = main_path_run(
+        tally, "top-k join's mrTriplets",
+        lambda: g_k.mrTriplets(_send_xy, "sum"), launched=("triplet",))
+    cold, ex_c, _, _ = g_k.replace(view=None).mrTriplets(_send_xy, "sum")
+    n_vis = int(gj.vmask.sum())
+    n_fwd = int(m_k["fwd"].n_shipped)
+    if not (n_fwd < n_vis and torch.equal(got_k["m"], cold["m"])
+            and torch.equal(ex_k, ex_c)):
+        raise AssertionError(f"top-k join: forward n_shipped {n_fwd} of "
+                             f"{n_vis} visible, or values != a cold view")
+    table["joins"] = {"topk_fwd_n_shipped": n_fwd, "visible": n_vis,
+                      "inner_edges": n_edges3}
+    log(f"  joins: leftJoin == host oracle, wire log unchanged "
+        f"({table['leftJoin_ms']:.1f} ms); innerJoin ({table['innerJoin_ms']:.1f}"
+        f" ms, vid % 3) visible set and triplet visibility == host oracle "
+        f"({n_edges3} edges); top-k innerJoin(vid % 11, diff): forward "
+        f"n_shipped {n_fwd} of {n_vis} visible, == a cold view bit for bit")
+    del gw, g_k, got_k, cold, ex_k, ex_c, m_k
+
+    # Listing 5: one PageRank superstep through a join
+    g_pr = alg.attach_out_degree(g).mapV(alg._pr_init)
+
+    def listing5():
+        vals, exists, _, _ = g_pr.mrTriplets(alg.pagerank_send, "sum")
+        msgs = Col(g_pr.s.home_vid, vals, exists & g_pr.vmask, g_pr.ex)
+        return g_pr.leftJoin(msgs, _l5_attach).mapV(_l5_apply)
+    l5 = main_path_run(tally, "Listing 5 superstep", listing5,
+                       launched=("triplet",))
+    want_l5 = pregel(g_pr, alg.pagerank_vprog(DF_RESET), alg.pagerank_send,
+                     "sum", default_msg={"m": torch.tensor(0.0)},
+                     max_supersteps=1, skip_stale=None).graph
+    vis = g_pr.vmask
+    if not all(torch.equal(l5.vdata[f][vis], want_l5.vdata[f][vis])
+               for f in ("pr", "deg")):
+        raise AssertionError("Listing 5 superstep != pregel's first "
+                             "superstep")
+    log("  Listing 5 (mrTriplets -> Col by home vid -> leftJoin -> mapV) "
+        "== pregel's first superstep bit for bit")
+    del l5, want_l5
+
+    # --- (c) the chain planner
+    g_warm = g_pr.mrTriplets(_send_both, "sum")[2]
+    fig5 = (TP.MapV(_pr_bump), TP.MrTriplets(alg.pagerank_send),
+            TP.MrTriplets(alg.pagerank_send))
+
+    def chain(label, gg, steps, **kw):
+        """The chain once to warm its plans and traces, then counted and
+        timed: (result, bytes it shipped, ms a step)."""
+        TP.run_chain(gg, steps, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = main_path_run(tally, label, lambda: TP.run_chain(gg, steps,
+                                                               **kw),
+                            launched=("triplet",))
+        ms = (time.perf_counter() - t0) * 1e3 / len(steps)
+        return res, float(res.graph.bytes_shipped) - float(
+            gg.bytes_shipped), ms
+
+    def same_outputs(label, a, b):
+        for (va, ea, _), (vb, eb, _) in zip(a.outputs, b.outputs):
+            if not (torch.equal(va["m"], vb["m"]) and torch.equal(ea, eb)):
+                raise AssertionError(f"{label}: outputs differ")
+
+    def fig5_check(tag=""):
+        on, b_on, ms_on = chain("fig5 chain, optimize on" + tag, g_warm,
+                                fig5)
+        off, b_off, ms_off = chain("fig5 chain, optimize off" + tag, g_warm,
+                                   fig5, optimize=False)
+        same_outputs("fig5 chain on vs off", on, off)
+        if not 0 < b_on <= b_off:
+            raise AssertionError(f"fig5 chain bytes on {b_on}, off {b_off}")
+        return on, b_on, ms_on, b_off, ms_off
+    on, b_on, ms_on, b_off, ms_off = fig5_check()
+    auto, b_auto, ms_auto = chain("fig5 chain, auto transport", g_warm,
+                                  fig5, transport="auto")
+    same_outputs("fig5 chain auto vs dense", auto, on)
+    pruned = sum(r.get("pruned_dirs", 0) for r in on.step_metrics)
+    log(f"  fig5 chain (mapV -> mrT -> mrT, warm both-direction view): "
+        f"on == off == auto bit for bit; bytes on {b_on:.0f}, off "
+        f"{b_off:.0f}, auto {b_auto:.0f}; ms a step on {ms_on:.2f}, off "
+        f"{ms_off:.2f}, auto {ms_auto:.2f}; {pruned} directions pruned; "
+        f"auto plans {[r.get('transport_next') for r in auto.step_metrics]}")
+    del on, auto
+
+    gq = alg.attach_out_degree(g).mapV(_vid_f32)
+    n_half = float(gq.s.num_vertices) / 2.0
+
+    def dst_low(sv, ev, dv):
+        return dv["vid"] < n_half
+    fig6 = (TP.Subgraph(epred=dst_low), TP.MrTriplets(_send_deg))
+    if TP.plan_chain(gq, fig6).fused != (True, False):
+        raise AssertionError("fig6: the Subgraph did not fuse")
+    pd, b_pd, ms_pd = chain("fig6 pushdown chain", gq, fig6)
+    unf = TP.run_chain(gq, fig6, optimize=False)
+    plain = gq.subgraph(epred=dst_low).emask
+    same_outputs("fig6 pushdown vs unfused", pd, unf)
+    if not (torch.equal(pd.outputs[0][2]["emask_pushed"], plain)
+            and torch.equal(pd.graph.emask, plain)):
+        raise AssertionError("fig6: pushed-down emask != subgraph(epred)'s")
+    live = float(pd.outputs[0][2]["live_edges"])
+    b_unf = float(unf.graph.bytes_shipped) - float(gq.bytes_shipped)
+    log(f"  fig6 pushdown (subgraph(dst vid < V/2) -> mrT): emask == "
+        f"subgraph(epred)'s, values == the unfused chain bit for bit; "
+        f"{live:.0f} live edges of {gq.s.num_edges}; bytes {b_pd:.0f} "
+        f"(unfused {b_unf:.0f}); {ms_pd:.2f} ms a step")
+    table["chains"] = {"fig5_bytes_on": b_on, "fig5_bytes_off": b_off,
+                       "fig5_bytes_auto": b_auto, "fig5_ms_step_on": ms_on,
+                       "fig5_ms_step_off": ms_off,
+                       "fig5_ms_step_auto": ms_auto,
+                       "fig6_bytes": b_pd, "fig6_bytes_unfused": b_unf,
+                       "fig6_ms_step": ms_pd, "fig6_live_edges": live}
+    del pd, unf, plain
+
+    # --- mutants that must fail (their runs are not main-path runs)
+    view_mut = edited_module(
+        "repro_torch.core.view",
+        '        d = "".join(c for c in d0 if c in keep)\n',
+        '        d = "".join(c for c in d0 if c in keep and st0)\n')
+    hash_mut = edited_module("repro_torch.core.hashing",
+                             "    z = (z * 0xC2B2AE35) & _M32\n", "")
+    why_view = must_fail("prune_view demoting clean leaves",
+                         lambda: fig5_check(" (mutant)"),
+                         ("prune_view", view_mut.prune_view),
+                         module="repro_torch.core.view")
+    why_hash = must_fail("hash without its second multiply",
+                         lambda: left_join_check("leftJoin (mutant)"),
+                         ("hash_mod_t", hash_mut.hash_mod_t),
+                         module="repro_torch.core.collections")
+    for label in list(tally):
+        if label.endswith("(mutant)"):
+            del tally[label]
+    log(f"  mutants fail: prune_view demoting clean leaves ({why_view}); "
+        f"the hash without its second multiply ({why_hash})")
+    return table
+
+
 def check_plans(label, r, want=("fused", "fused_apply")):
     m0 = r.metrics[0]
     if (m0["plan"], m0["apply_plan"]) != want:
@@ -1674,6 +2065,13 @@ def main() -> int:
         sources.append(("apply", app_mod.source(mt._plan_apply(
             g_x.mapV(alg._pr_init), pr_vprog, alg.pagerank_send, "sum", None,
             zero_msg, None).kernel, "sum")))
+    # phase 4d's sends: the joins' x + y, fig5's both-sided warm-up, fig6's
+    # degree send under the pushed-down predicate
+    g_deg_t = alg.attach_out_degree(gt, kernel_mode="ref")
+    for g_x, send in ((gt.mapV(_xy_init), _send_xy), (g_pr_t, _send_both),
+                      (g_deg_t.mapV(_vid_f32), _send_deg)):
+        sources.append(("triplet", tri_mod.source(
+            mt.fused_plan(g_x, send, "sum").kernel, "sum", "dst")))
     t0 = time.perf_counter()
     build.prebuild(sources)
     log(f"kernel build: {len(sources)} sources in "
@@ -2127,6 +2525,8 @@ def main() -> int:
     rel = float(np.max(np.abs(vals["pr"] - want)) / np.max(np.abs(want)))
     if not rel <= 1e-4:
         raise AssertionError(f"pagerank vs float64 oracle: {rel}")
+    pr3 = {"ids": ids_np, "pr": vals["pr"].astype(np.float64),
+           "want": want}                         # phase 4d's references
     log(f"  pagerank fused {t_f:.3f} s ({t_f / r_f.supersteps * 1e3:.2f} ms "
         f"per superstep incl. degree), unfused {t_u:.3f} s "
         f"({t_u / r_u.supersteps * 1e3:.2f} ms per superstep); "
@@ -2316,6 +2716,25 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  phase 4c: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---------------------------------------------------------- phase 4d
+    t_phase = time.perf_counter()
+    log("phase 4d: the data-parallel half (the dataflow PageRank, the "
+        "joins, Listing 5, the chain planner) on phase 3's graph")
+    tally_4d = {}
+    log("  phase 4d: " + json.dumps(phase_4d_dataparallel(g, gd, pr3,
+                                                          tally_4d)))
+    log("  phase 4d launches, each main-path run counted alone:")
+    for label, counts in tally_4d.items():
+        log(f"    {label}: " + ", ".join(
+            f"{k} {counts.get(k, 0)}" for k in ("triplet", "apply",
+                                                "segment_sum")))
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+    del pr3
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 4d: {time.perf_counter() - t_phase:.1f} s")
 
     # ---------------------------------------------------------- phase 4b
     t_phase = time.perf_counter()

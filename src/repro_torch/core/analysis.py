@@ -140,6 +140,17 @@ class TripletDeps:
                      zip(self.src_leaves, self.dst_leaves))
 
 
+def union_read_dirs(a: tuple[str, ...] | None,
+                    b: tuple[str, ...] | None) -> tuple[str, ...] | None:
+    """Pointwise union of two per-leaf direction read sets ("", "s", "d",
+    "sd").  None means unknown, hence everything, and absorbs: one
+    unanalyzable consumer disables pruning behind it."""
+    if a is None or b is None:
+        return None
+    return tuple("".join(c for c in "sd" if c in x or c in y)
+                 for x, y in zip(a, b))
+
+
 def analyze_message_fn(fn: Callable, src_example: Any, edge_example: Any,
                        dst_example: Any) -> TripletDeps:
     """Trace `fn(src, edge, dst)` and report operand usage; an untraceable

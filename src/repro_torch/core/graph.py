@@ -17,6 +17,8 @@ Operators (Listing 4 of the paper):
   vertices / edges / triplets   collection views (triplets reads through
                                 the graph-resident view, visibility too)
   mapV / mapE                   property transforms, structure reused
+  leftJoin / innerJoin          merge a vertex property collection in
+                                (the collection shuffles, the graph not)
   subgraph                      a visibility-restricted view that shares
                                 the structure
   reverse                       the transpose: slots, routes and the
@@ -38,7 +40,7 @@ import torch
 from . import analysis
 from . import partition as part_mod
 from . import view as view_mod
-from .collections import Col
+from .collections import Col, merge_probe, shuffle_by_key
 from .exchange import Exchange, LocalExchange
 from .mrtriplets import edge_mask, endpoint_rows, mr_triplets
 from .tree import (ElemSpec, elem_spec, gather_rows, tree_leaves, tree_map,
@@ -151,6 +153,16 @@ class Structure:
 def _degree_msg(sv, ev, dv):
     """Module-level UDF: plan and kernel caches key on the UDF object."""
     return {"deg": torch.tensor(1.0)}
+
+
+def _join_tuple(v, o, hit):
+    """leftJoin's default: the vertex value, the joined value, the hit."""
+    return (v, o, hit)
+
+
+def _join_pair(v, o, hit):
+    """innerJoin's default: the vertex value and the joined value."""
+    return (v, o)
 
 
 # reverse(): the per-side tables swap aggregation roles; keys that name no
@@ -371,6 +383,55 @@ class Graph:
                                      need in ("dst", "both"))
         return self._after_refresh(view, m, n_ships).replace(
             edata=vmap2(f)(svals, self.edata, dvals))
+
+    def leftJoin(self, other: Col, f: Callable | None = None,
+                 capacity: int | None = None, *, changed=None) -> "Graph":
+        """Merge a vertex property collection into the graph (Listing 4).
+
+        f(vval, other_val, found) -> vval' (default: the tuple).  Only the
+        collection shuffles (§4.4): it is re-keyed to the vertex homes and
+        merge-joined against the sorted home ids.  The view survives by
+        leaf path: passthrough leaves stay clean, rewritten leaves go dirty
+        (`changed` as in mapV: "diff" re-ships only the rows the join
+        rewrote), new leaves start cold."""
+        if f is None:
+            f = _join_tuple
+        return self._join(other, f, capacity, changed, inner=False)
+
+    def innerJoin(self, other: Col, f: Callable | None = None,
+                  capacity: int | None = None, *, changed=None) -> "Graph":
+        """leftJoin that also hides the unmatched vertices.  The visibility
+        leaf goes dirty only where a vertex disappeared; property leaves
+        follow leftJoin's rules."""
+        if f is None:
+            f = _join_pair
+        return self._join(other, f, capacity, changed, inner=True)
+
+    def _join(self, other: Col, f: Callable, capacity, changed,
+              inner: bool) -> "Graph":
+        (ovals, found), _ = self._join_to_homes(other, capacity)
+        new = vmap2(f)(self.vdata, ovals, found)
+        rewrites = analysis.analyze_rewrites(
+            f, (elem_spec(self.vdata), elem_spec(ovals),
+                ElemSpec((), torch.bool)), 0)
+        view = view_mod.view_after_rewrite(
+            self.view, self.vdata, new, rewrites, changed)
+        if not inner:
+            return self.replace(vdata=new, view=view)
+        if view is not None:
+            view = view.mark_vis(self.vmask & ~found)
+        return self.replace(vdata=new, vmask=self.vmask & found, view=view,
+                            vmask_full=False)
+
+    def _join_to_homes(self, other: Col, capacity: int | None):
+        """Shuffle `other` by the vertex-home hash, then merge-join it on
+        each partition's sorted home ids: ((values at each home row, found
+        [P, V_blk]), the shuffle's overflow)."""
+        capacity = capacity or 2 * max(other.keys.shape[1], self.s.v_blk)
+        k, v, m, ovf = shuffle_by_key(other.keys, other.values, other.mask,
+                                      self.ex, capacity)
+        vals, hit = merge_probe(k, v, m, self.s.home_vid)
+        return (vals, hit & self.s.home_mask), ovf
 
     # ------------------------------------------------------------- restrict
     def subgraph(self, vpred: Callable | None = None,

@@ -1,13 +1,16 @@
-"""Deterministic integer hashing used by the partitioner (numpy, build time).
+"""Deterministic integer hashing: the partitioner's (numpy, build time)
+and the collection shuffles' (tensors, on the device).
 
-The numpy half of `repro.core.hashing`, kept bit-identical so the port
-builds the same partitions and routing tables as the JAX reference:
-splitmix64 for the edge partitioners, a Murmur-style 32-bit mix for vertex
-home partitions.
+Bit-identical to `repro.core.hashing`, so the port builds the same
+partitions and routing tables as the JAX reference: splitmix64 for the
+edge partitioners, a Murmur-style 32-bit mix for vertex home partitions,
+whose tensor twin (`hash_mod_t`) routes a key of a collection shuffle to
+the partition the host build made its vertex's home.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 _U64 = np.uint64
 _U32 = np.uint32
@@ -45,3 +48,27 @@ def hash_mod32(x: np.ndarray, mod: int, salt: int = 0) -> np.ndarray:
     """Home-partition assignment of vertex ids (32-bit)."""
     x32 = np.asarray(x).astype(np.int64).astype(np.uint32).view(np.int32)
     return (mix32_np(x32 ^ np.int32(salt)) % _U32(mod)).astype(np.int64)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def mix32_t(x: torch.Tensor) -> torch.Tensor:
+    """`mix32_np` on a tensor of integers, bit for bit: the mixed words as
+    int64 values in [0, 2^32).  torch's uint32 has no shifts or multiplies,
+    so the words ride int64 and each product keeps its low 32 bits (the
+    product of two 32-bit words may overflow int64's sign bit; the low 32
+    bits survive the wrap)."""
+    z = x.long() & _M32
+    z = z ^ (z >> 16)
+    z = (z * 0x85EBCA6B) & _M32
+    z = z ^ (z >> 13)
+    z = (z * 0xC2B2AE35) & _M32
+    return z ^ (z >> 16)
+
+
+def hash_mod_t(x: torch.Tensor, mod: int, salt: int = 0) -> torch.Tensor:
+    """Device-side hash-then-mod of the collection shuffles, on the tensor's
+    own device: int32, equal to `hash_mod32(x, mod, salt)`, so a key lands
+    on the home partition the host build gave the same vertex id."""
+    return (mix32_t(x.long() ^ salt) % mod).to(torch.int32)

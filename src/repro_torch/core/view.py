@@ -340,6 +340,39 @@ def keep_through(old_vdata, exclude: tuple = ()) -> dict:
     return {p: kept(p) for p, _ in tree_flatten_with_path(old_vdata)[0]}
 
 
+def prune_view(view: GraphView | None,
+               keep_dirs: tuple[str, ...] | None) -> GraphView | None:
+    """Forget per-leaf view state no remaining consumer reads: the chain
+    planner's join-elimination primitive (`core/planner.py`).  keep_dirs is
+    a per-flat-leaf direction set ("", "s", "d", "sd"); each leaf's filled
+    directions shrink to the intersection, and the dropped directions
+    forget their dirty rows (they will never delta-ship; a later read takes
+    the cold full-ship path: more bytes, the same values).  The visibility
+    state is never pruned.  None keep_dirs, a None view or a length
+    mismatch is a no-op, and so is a keep set that changes nothing: the
+    same object comes back, which the planner tests for."""
+    if view is None or keep_dirs is None:
+        return view
+    flat_dirty, ddef = tree_flatten(view.dirty)
+    if len(keep_dirs) != len(flat_dirty):
+        return view
+    dirs, stale, dirty = [], [], []
+    for d0, st0, dy0, keep in zip(view.dirs, view.stale, flat_dirty,
+                                  keep_dirs):
+        d = "".join(c for c in d0 if c in keep)
+        if d != d0:
+            dy0 = dy0.clone()
+            dy0[:, _DIRROWS[_dirs_minus("sd", d)]] = False
+            st0 = "".join(c for c in st0 if c in d)
+        dirs.append(d)
+        stale.append(st0)
+        dirty.append(dy0)
+    if tuple(dirs) == tuple(view.dirs):
+        return view
+    return view.replace(dirty=tree_unflatten(dirty, ddef), dirs=tuple(dirs),
+                        stale=tuple(stale))
+
+
 def view_after_rewrite(view: GraphView | None, old_vdata, new_vdata,
                        rewrites: dict | None, changed=None) -> GraphView | None:
     """Carry a GraphView across a vertex-property rewrite.

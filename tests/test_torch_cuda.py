@@ -18,7 +18,10 @@ their shared summation order (`csrc/segorder.cuh`), bit for bit; the
 triplet sums are also held within rtol 1e-5 of the plain version, whose
 `index_add_` adds with atomics on the card.  End to end, the card's fused
 plan equals its unfused plan bit for bit, CC equals the CPU run exactly and
-PageRank equals it within rtol 1e-5, atol 1e-6.
+PageRank equals it within rtol 1e-5, atol 1e-6.  The collection operators
+(the hash, shuffle_by_key, reduce_by_key with f32 sums over a hub key of
+more than 32 k entries, left_join, compact), the graph joins and a planned
+chain equal the CPU run bit for bit.
 """
 import numpy as np
 import pytest
@@ -1375,6 +1378,113 @@ def test_broadcast_lane_on_card_equals_cleared_structure(cuda):
     for name in ("dense", "auto"):
         assert float(out[(str(cuda), name, "bcast")].graph.bytes_shipped) \
             == float(out[("cpu", name, "bcast")].graph.bytes_shipped)
+
+
+def _col_pair(keys, vals, cuda, p=P):
+    from repro_torch.core import Col
+    return (Col.from_numpy(keys, vals, p, device="cpu"),
+            Col.from_numpy(keys, vals, p, device=cuda))
+
+
+def _same_on_both(a, b):
+    """Two pytrees of tensors (CPU run, card run) equal bit for bit."""
+    from repro_torch.core.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert torch.equal(x, y.cpu())
+
+
+def _kv(n, seed, hub=None):
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 5000, n).astype(np.int32)
+    if hub is not None:
+        keys[rng.random(n) < 0.7] = hub
+    return keys, {"x": (rng.normal(size=n) * 100).astype(np.float32),
+                  "i": rng.integers(-9, 9, n).astype(np.int32)}
+
+
+def test_hash_on_card_equals_cpu(cuda):
+    from repro_torch.core.hashing import hash_mod32, hash_mod_t
+    rng = np.random.default_rng(0)
+    x = np.concatenate([[-2**31, -1, 0, 1, 2**31 - 1],
+                        rng.integers(-2**31, 2**31, 200000)]).astype(np.int32)
+    for p in range(1, 9):
+        for salt in (0, 7, 0x5EED):
+            got = hash_mod_t(torch.from_numpy(x).to(cuda), p, salt).cpu()
+            np.testing.assert_array_equal(got.numpy(), hash_mod32(x, p, salt))
+
+
+def test_shuffle_by_key_on_card_equals_cpu(cuda):
+    from repro_torch.core import shuffle_by_key
+    keys, vals = _kv(20000, 1)
+    cpu, card = _col_pair(keys, vals, cuda)
+    for cap in (2000, 1000):        # the second overflows
+        _same_on_both(*(shuffle_by_key(c.keys, c.values, c.mask, c.ex, cap)
+                        for c in (cpu, card)))
+
+
+def test_reduce_by_key_hub_sum_on_card_equals_cpu(cuda):
+    """f32 sums over a hub key with more than 32 k entries: the scan's
+    combine order gives the CPU's bits on the card."""
+    keys, vals = _kv(60000, 2, hub=77)
+    assert (keys == 77).sum() > 32768
+    cpu, card = _col_pair(keys, vals, cuda)
+    for op in ("sum", "min", "max", "mul"):
+        _same_on_both(*((c.keys, c.values, c.mask, o) for c, o in
+                        (cpu.reduce_by_key(op), card.reduce_by_key(op))))
+
+
+def test_left_join_and_compact_on_card_equal_cpu(cuda):
+    keys, vals = _kv(9000, 3)
+    rk = np.unique(keys)[::2]
+    right = (rk, {"r": rk.astype(np.float32) * 0.5})
+    cpu, card = _col_pair(keys, vals, cuda)
+    rcpu, rcard = _col_pair(*right, cuda)
+    jc, oc = cpu.left_join(rcpu)
+    jg, og = card.left_join(rcard)
+    _same_on_both((jc.keys, jc.values, jc.mask, oc),
+                  (jg.keys, jg.values, jg.mask, og))
+    for width in (4000, 100):
+        _same_on_both(*((c.keys, c.values, c.mask, d) for c, d in
+                        (jc.compact(width), jg.compact(width))))
+
+
+def test_left_join_and_chain_on_card_equal_cpu(cuda):
+    """Graph.leftJoin / innerJoin and run_chain (pushdown, pruning, the
+    triplet kernel) on the card equal the CPU run bit for bit."""
+    from repro_torch.core import Col
+    from repro_torch.core import planner as TP
+    vids = np.arange(GD.num_vertices, dtype=np.int64)
+    vv = {"x": (vids % 17 + 1).astype(np.float32),
+          "y": (vids % 5).astype(np.float32)}
+    send = lambda sv, ev, dv: {"m": sv["x"] * ev["w"]}      # noqa: E731
+    bump = lambda vid, v: {"x": v["x"] + 1.0, "y": v["y"]}  # noqa: E731
+    steps = [TP.MapV(bump), TP.MrTriplets(send),
+             TP.Subgraph(epred=lambda sv, ev, dv: dv["y"] < 3.0),
+             TP.MrTriplets(send)]
+    j = lambda v, o, hit: {"x": torch.where(hit, v["x"] + o["b"], v["x"]),  # noqa: E731
+                           "y": v["y"]}
+    keep = vids[::11]
+    out = []
+    for dev in ("cpu", cuda):
+        g = Graph.from_edges(GD.src, GD.dst, vertex_keys=vids,
+                             vertex_values=vv,
+                             default_vertex={"x": np.float32(0),
+                                             "y": np.float32(0)},
+                             num_partitions=P, device=dev)
+        g = g.mrTriplets(send, "sum")[2]
+        col = Col.from_numpy(keep.astype(np.int32),
+                             {"b": np.full(len(keep), 100.0, np.float32)},
+                             P, device=dev)
+        gl = g.leftJoin(col, j, changed="diff")
+        gi = g.innerJoin(col, j, changed="diff")
+        r = TP.run_chain(gl, steps, transport="auto")
+        out.append((gl.vdata, gi.vdata, gi.vmask,
+                    [o[:2] for o in r.outputs], r.graph.emask,
+                    r.graph.bytes_shipped))
+    _same_on_both(out[0], out[1])
 
 
 def test_capture_errors_raise(cuda):

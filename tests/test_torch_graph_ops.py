@@ -16,9 +16,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
+from repro.core import Col as RefCol  # noqa: E402
 from repro.core import Graph as RefGraph  # noqa: E402
 from repro.data import rmat, symmetrize  # noqa: E402
-from repro_torch.core import Graph  # noqa: E402
+from repro_torch.core import Col, Graph, pregel  # noqa: E402
+from repro_torch.core import algorithms as alg  # noqa: E402
 from repro_torch.core import analysis  # noqa: E402
 from repro_torch.core import mrtriplets as mt  # noqa: E402
 from repro_torch.core.tree import ElemSpec  # noqa: E402
@@ -384,3 +386,172 @@ def test_label_send_plans_fused_with_a_k_column_message():
     vu, eu, _, _ = g.mrTriplets(send, "sum", kernel_mode="unfused")
     assert mf["plan"] == "fused"
     assert torch.equal(vf["votes"], vu["votes"]) and torch.equal(ef, eu)
+
+
+# ------------------------------------------------------------------ joins
+def _vgraphs():
+    """tests/test_view.py's graph: x = vid % 17 + 1, y = vid % 5."""
+    gd = rmat(6, 4, seed=0)
+    vids = np.arange(gd.num_vertices, dtype=np.int64)
+    kw = dict(vertex_keys=vids,
+              vertex_values={"x": (vids % 17 + 1).astype(np.float32),
+                             "y": (vids % 5).astype(np.float32)},
+              default_vertex={"x": np.float32(0), "y": np.float32(0)},
+              num_partitions=4)
+    return (Graph.from_edges(gd.src, gd.dst, device="cpu", **kw),
+            RefGraph.from_edges(gd.src, gd.dst, **kw), gd)
+
+
+@pytest.fixture(scope="module")
+def vgraphs():
+    return _vgraphs()
+
+
+def _send_xy(sv, ev, dv):
+    return {"m": sv["x"] + sv["y"]}
+
+
+def _cols(vids, vals):
+    return (Col.from_numpy(vids.astype(np.int32), vals, p=4, device="cpu"),
+            RefCol.from_numpy(vids.astype(np.int32), vals, p=4))
+
+
+def _leaves_equal(a, b):
+    from repro_torch.core.tree import tree_leaves
+    import jax
+    la, lb = tree_leaves(a), jax.tree.leaves(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        np.testing.assert_array_equal(_np(x), _np(y))
+
+
+def _view_equal(v, rv):
+    assert (v is None) == (rv is None)
+    if v is None:
+        return
+    assert (v.dirs, v.stale, v.vis_dirs, v.vis_stale) == \
+        (rv.dirs, rv.stale, rv.vis_dirs, rv.vis_stale)
+    _leaves_equal((v.dirty, v.vis_dirty), (rv.dirty, rv.vis_dirty))
+
+
+def _joined_equal(g, rg):
+    """values, masks, view state and the next ship equal the reference's."""
+    _leaves_equal(g.vdata, rg.vdata)
+    np.testing.assert_array_equal(_np(g.vmask), _np(rg.vmask))
+    assert g.vmask_full == rg.vmask_full
+    _view_equal(g.view, rg.view)
+    vals, ex, _, m = g.mrTriplets(_send_xy, "sum", kernel_mode="ref")
+    rvals, rex, _, rm = rg.mrTriplets(_send_xy, "sum", kernel_mode="ref")
+    _tree_equal(vals, rvals)
+    np.testing.assert_array_equal(_np(ex), _np(rex))
+    _ship_equal(m["fwd"], rm["fwd"])
+
+
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("changed", [None, "diff"])
+def test_left_join_equals_reference(vgraphs, warm, changed):
+    g, rg, gd = vgraphs
+    if warm:
+        g, rg = (x.mrTriplets(_send_xy, "sum", kernel_mode="ref")[2]
+                 for x in (g, rg))
+    vids = np.arange(0, gd.num_vertices, 2, dtype=np.int64)
+    col, rcol = _cols(vids, {"b": (vids * 10).astype(np.float32)})
+    g2 = g.leftJoin(col, lambda v, o, hit: {
+        "x": v["x"], "y": torch.where(hit, o["b"], -1.0)}, changed=changed)
+    rg2 = rg.leftJoin(rcol, lambda v, o, hit: {
+        "x": v["x"], "y": jnp.where(hit, o["b"], -1.0)}, changed=changed)
+    _joined_equal(g2, rg2)
+    out_vids, vv = g2.vertices_to_numpy()
+    np.testing.assert_array_equal(
+        vv["y"], np.where(out_vids % 2 == 0, out_vids * 10.0, -1.0))
+    # the collection shuffles, the graph does not: no ship is logged
+    assert float(g2.ships) == float(g.ships)
+    assert float(g2.bytes_shipped) == float(g.bytes_shipped)
+
+
+def test_left_join_default_tuple_equals_reference(vgraphs):
+    g, rg, gd = vgraphs
+    vids = np.arange(1, gd.num_vertices, 3, dtype=np.int64)
+    col, rcol = _cols(vids, {"b": vids.astype(np.float32) + 0.5})
+    g2, rg2 = g.leftJoin(col), rg.leftJoin(rcol)
+    _leaves_equal(g2.vdata, rg2.vdata)
+    _view_equal(g2.view, rg2.view)
+    ids, (_, o, hit) = g2.vertices_to_numpy()
+    np.testing.assert_array_equal(hit, ids % 3 == 1)
+    np.testing.assert_array_equal(o["b"][hit], ids[hit] + 0.5)
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_inner_join_equals_reference(vgraphs, warm):
+    g, rg, gd = vgraphs
+    if warm:
+        g, rg = (x.mrTriplets(_send_xy, "sum", kernel_mode="ref")[2]
+                 for x in (g, rg))
+    keep = np.arange(0, gd.num_vertices, 3, dtype=np.int64)
+    col, rcol = _cols(keep, {"b": np.ones(len(keep), np.float32)})
+    g2 = g.innerJoin(col, lambda v, o, hit: v)
+    rg2 = rg.innerJoin(rcol, lambda v, o, hit: v)
+    _joined_equal(g2, rg2)
+    out_vids, _ = g2.vertices_to_numpy()
+    np.testing.assert_array_equal(np.sort(out_vids), keep)
+    svid, dvid, _, _, _, vis = g2.triplets()
+    *_, rvis = rg2.triplets()
+    np.testing.assert_array_equal(_np(vis), _np(rvis))
+    m = _np(vis)
+    assert ((_np(svid)[m] % 3 == 0) & (_np(dvid)[m] % 3 == 0)).all()
+    live = _np(g2.emask)
+    want = live & (_np(svid) % 3 == 0) & (_np(dvid) % 3 == 0)
+    np.testing.assert_array_equal(m, want)
+
+
+def test_sparse_inner_join_ships_sparse(vgraphs):
+    """The top-k join: an innerJoin hitting few vertices with
+    changed="diff" re-ships only the rows it rewrote."""
+    g, rg, gd = vgraphs
+    gw = g.mrTriplets(_send_xy, "sum", kernel_mode="ref")[2]
+    rgw = rg.mrTriplets(_send_xy, "sum", kernel_mode="ref")[2]
+    keep = np.arange(0, gd.num_vertices, 11, dtype=np.int64)
+    col, rcol = _cols(keep, {"b": np.full(len(keep), 100.0, np.float32)})
+    g_j = gw.innerJoin(col, lambda v, o, hit: {
+        "x": torch.where(hit, v["x"] + o["b"], v["x"]), "y": v["y"]},
+        changed="diff")
+    rg_j = rgw.innerJoin(rcol, lambda v, o, hit: {
+        "x": jnp.where(hit, v["x"] + o["b"], v["x"]), "y": v["y"]},
+        changed="diff")
+    assert not g_j.vmask_full
+    _joined_equal(g_j, rg_j)
+    _, _, _, m = g_j.mrTriplets(_send_xy, "sum", kernel_mode="ref")
+    assert int(m["fwd"].n_shipped) < int(g.vmask.sum())
+    want, we, _, _ = g_j.replace(view=None).mrTriplets(
+        _send_xy, "sum", kernel_mode="ref")
+    got, ge, _, _ = g_j.mrTriplets(_send_xy, "sum", kernel_mode="ref")
+    assert torch.equal(got["m"], want["m"]) and torch.equal(ge, we)
+
+
+def listing5_superstep(g, vprog, send):
+    """One PageRank superstep written with the dataflow operators
+    (Listing 5): mrTriplets, the messages as a collection keyed by home
+    vid, leftJoin, mapV."""
+    vals, exists, _, _ = g.mrTriplets(send, "sum")
+    msgs = Col(g.s.home_vid, vals, exists & g.vmask, g.ex)
+    joined = g.leftJoin(msgs, lambda v, o, hit: {
+        **v, "msg": torch.where(hit, o["m"], 0.0)})
+    return joined.mapV(lambda vid, v: vprog(
+        vid, {k: x for k, x in v.items() if k != "msg"}, {"m": v["msg"]}))
+
+
+@pytest.mark.parametrize("partitioner", ["2d", "1d"])
+def test_listing5_superstep_equals_pregel(partitioner):
+    gd = rmat(8, 6, seed=4)
+    g = Graph.from_edges(gd.src, gd.dst, num_partitions=3,
+                         partitioner=partitioner, device="cpu")
+    g = alg.attach_out_degree(g).mapV(alg._pr_init)
+    vprog = alg.pagerank_vprog(0.15)
+    got = listing5_superstep(g, vprog, alg.pagerank_send)
+    want = pregel(g, vprog, alg.pagerank_send, "sum",
+                  default_msg={"m": torch.tensor(0.0)}, max_supersteps=1,
+                  skip_stale=None)
+    # the vertices' rows (pregel leaves the padding rows as they were)
+    vis = g.vmask
+    for k in ("pr", "deg"):
+        assert torch.equal(got.vdata[k][vis], want.graph.vdata[k][vis])
