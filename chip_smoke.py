@@ -93,6 +93,31 @@ Phases (any failure exits non-zero before the result line):
      kernel launched); bytes and ms a step; two mutants that must fail
      (prune_view demoting clean leaves; the hash without its second
      multiply);
+  4e. fault tolerance and out-of-core residency on the same graphs, each
+     main-path run counted alone: PageRank (tol 0, 10 supersteps) through
+     the captured `pregel` under the dense and the ragged policy with
+     integrity words, with no fault (== the unchecked run, no faults), a
+     transient `corrupt` fault over `FaultyExchange(LocalExchange(4))`
+     (==, wire_faults > 0, nothing degraded) and a persistent one (==,
+     degraded > 0), the negative control (no integrity, always corrupt:
+     must differ), `pregel_fused` under checked ragged with a transient
+     fault (==), one checked dense ship's 5-call ms and its device ms as
+     one replayed CUDA graph beside an unchecked one's on the forward
+     route's shape, and a mutant of
+     core/transport.py without the degrade rung that must fail the
+     persistent case; kill and resume (PageRank checkpointed every 5
+     supersteps, a preemption guard tripped at the fifth boundary, the
+     rerun resumes: state, view and wire log bit-equal to the
+     uninterrupted run; the snapshot's bytes, copy, write and read
+     seconds), CC killed after 2 supersteps on symmetrize(rmat(16, 16))
+     and restored elastically onto P=2 (labels == scipy's; a small graph,
+     since the re-shard is a host build); out of core: PageRank and CC at
+     working_set_frac 0.5 (== the resident run, CC's labels == scipy's,
+     every rotation's resident bytes under the footprint cap of
+     tests/spmd_check.py, per rotation the measured device-to-host and
+     host-to-device ms beside the modelled serial and overlapped times,
+     peak device memory resident and out of core); the snapshot
+     directories are removed at the end;
   4b. the rest of the main path, each main-path run counted alone (the
      launch counts set to 0 just before it and read just after; the
      kernels its plans run must each launch, and the triangle count
@@ -152,7 +177,11 @@ Phases (any failure exits non-zero before the result line):
      finite losses; then step 1 again from the same weights and batch:
      through the kernels with every mLSTM forward and backward call held in
      place against its plain version on the same inputs and cotangent, and
-     through the plain versions, whose loss must agree.
+     through the plain versions, whose loss must agree; the training run
+     checkpoints after step 2 (`--ckpt-dir`, `Checkpointer`), and a run
+     resumed from that snapshot for step 3 must give its loss and every
+     parameter bit for bit (the snapshot's bytes, copy and write seconds
+     logged).
 Phase 2 also runs spmv (the PageRank send as one SpMV through the triplet
 kernel) against its plain version and a CSR `torch.sparse.mm`, and the
 triplet kernel on the PageRank send's rows encoded by `wire.encode_resident`
@@ -1707,6 +1736,298 @@ def check_plans(label, r, want=("fused", "fused_apply")):
                              f"{m0['apply_plan']}; want {want}")
 
 
+ELASTIC_SCALE = 16      # phase 4e's elastic restore graph (see the docstring)
+SNAP_DIR = ROOT / "build" / "chip_smoke_snapshots"
+
+
+def same_run(label, got, want):
+    """Phase 4e: two Pregel results' carries bit-equal: values, active
+    mask, the view's tensors and plan, and every field of the wire log."""
+    import importlib
+    import torch
+    from repro_torch.core import capture
+    pm = importlib.import_module("repro_torch.core.pregel")
+    (ta, sa), (tb, sb) = (capture.flatten(pm._carry(r.graph))
+                          for r in (got, want))
+    if sa != sb or not all(torch.equal(x, y) for x, y in zip(ta, tb)):
+        raise AssertionError(f"{label}: state, view or wire log differs from "
+                             "the uninterrupted run")
+
+
+def phase_4e_fault_tolerance(g, sg, cc_ids, cc_want, tally):
+    """Fault tolerance and out-of-core residency on the main path's graphs
+    (phase 4e; see the docstring), each main-path run counted alone into
+    `tally`.  Returns the table it logs."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import pregel, pregel_fused
+    from repro_torch.core import snapshot as snap_mod
+    from repro_torch.core import spill as spill_mod
+    from repro_torch.core import transport as T
+    from repro_torch.core.exchange import LocalExchange
+    from repro_torch.core.fault import FaultPlan, FaultyExchange
+    from repro_torch.core.graph import Graph
+    from repro_torch.data import rmat, symmetrize
+    table = {}
+    zero = {"m": torch.tensor(0.0)}
+    vprog = alg.pagerank_vprog(0.15)
+    g_pr = alg.attach_out_degree(g).mapV(alg._pr_init)
+    kernels = ("triplet", "apply")
+
+    def pr(gg, **kw):
+        return pregel(gg, vprog, alg.pagerank_send, "sum", default_msg=zero,
+                      max_supersteps=PR_ITERS, skip_stale=None, **kw)
+
+    def faulty(gg, **plan):
+        return gg.replace(ex=FaultyExchange(LocalExchange(p=P),
+                                            FaultPlan(**plan)))
+
+    def totals(r):
+        return (sum(m["wire_faults"] for m in r.metrics),
+                sum(m["degraded_routes"] for m in r.metrics))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # (a) chaos: the integrity ladder over the fault injector
+    base, t_base = timed(lambda: main_path_run(
+        tally, "pagerank, unchecked", lambda: pr(g_pr), launched=kernels))
+    want = base.graph.vdata["pr"]
+    chaos = {"unchecked_ms_per_superstep": 1e3 * t_base / base.supersteps}
+    for name, tp in (("dense", T.TransportPolicy("dense", integrity=True)),
+                     ("ragged", T.TransportPolicy("ragged", integrity=True))):
+        row = {}
+        for case, plan in (("no fault", None),
+                           ("transient", dict(mode="corrupt", attempts=(0,))),
+                           ("persistent", dict(mode="corrupt",
+                                               attempts=(0, 1)))):
+            gg = g_pr if plan is None else faulty(g_pr, **plan)
+            r, t = timed(lambda: main_path_run(
+                tally, f"pagerank, {name} checked, {case}",
+                lambda: pr(gg, transport=tp, track_metrics=True),
+                launched=kernels))
+            if not torch.equal(r.graph.vdata["pr"], want):
+                raise AssertionError(f"chaos {name} {case}: values differ "
+                                     "from the unchecked run")
+            faults, degraded = totals(r)
+            if plan is None and (faults or degraded):
+                raise AssertionError(f"chaos {name}: faults without a fault")
+            if case == "transient" and not (faults > 0 and degraded == 0):
+                raise AssertionError(f"chaos {name} transient: faults "
+                                     f"{faults}, degraded {degraded}")
+            if case == "persistent" and not degraded > 0:
+                raise AssertionError(f"chaos {name} persistent: nothing "
+                                     "degraded")
+            row[case] = {"wire_faults": faults, "degraded": degraded,
+                         "ms_per_superstep": 1e3 * t / r.supersteps,
+                         "events": (0 if plan is None
+                                    else gg.ex.events)}
+        chaos[name] = row
+    neg = main_path_run(tally, "pagerank, unchecked, always corrupt",
+                        lambda: pr(faulty(g_pr, mode="corrupt",
+                                          attempts=None)), launched=kernels)
+    if torch.equal(neg.graph.vdata["pr"], want):
+        raise AssertionError("negative control: corrupted ships left the "
+                             "values unchanged")
+    chaos["negative control max |diff|"] = float(
+        (neg.graph.vdata["pr"] - want).abs().max())
+    del neg
+    rag = T.TransportPolicy("ragged", integrity=True)
+    f_clean, n_clean = pregel_fused(g_pr, vprog, alg.pagerank_send, "sum",
+                                    default_msg=zero,
+                                    max_supersteps=PR_ITERS, skip_stale=None,
+                                    transport=rag)
+    gf = faulty(g_pr, mode="corrupt", attempts=(0,))
+    f_hit, n_hit = main_path_run(
+        tally, "pagerank_fused, ragged checked, transient",
+        lambda: pregel_fused(gf, vprog, alg.pagerank_send, "sum",
+                             default_msg=zero, max_supersteps=PR_ITERS,
+                             skip_stale=None, transport=rag),
+        launched=kernels)
+    if not (int(n_hit) == int(n_clean) == base.supersteps
+            and torch.equal(f_hit.vdata["pr"], want)
+            and torch.equal(f_clean.vdata["pr"], want)) \
+            or gf.ex.events == 0:
+        raise AssertionError("chaos: pregel_fused under a transient fault "
+                             "differs from the unchecked pregel")
+    chaos["pregel_fused transient events"] = gf.ex.events
+    del f_clean, f_hit
+
+    # one checked ship against an unchecked one: the forward route's shape
+    send_idx = g.s.routes["src"][0]
+    k = send_idx.shape[2]
+    gen = torch.Generator().manual_seed(4)
+    tree = {"pr": torch.rand((P, P, k), generator=gen).to(g.device)}
+    flags = (send_idx >= 0) & (torch.rand((P, P, k), generator=gen)
+                               < 0.5).to(g.device)
+    ex = LocalExchange(p=P)
+    ship = {}
+    for name, tp in (("unchecked", T.DENSE),
+                     ("checked", T.TransportPolicy("dense", integrity=True))):
+        fn = lambda tp=tp: T.ship_transport(ex, tree, flags, policy=tp)  # noqa: E731
+        # 5 calls on the host's clock, and the device's time for a call
+        # replayed as one CUDA graph (no host dispatch; the profiler loses
+        # this many small kernels' records, PERF.md §7)
+        ship[name] = {"ms": cuda_ms(fn), "graph_ms": graph_ms(fn)}
+    ship["route"] = f"[{P}, {P}, {k}] f32, half the entries active"
+    chaos["ship"] = ship
+    del tree, flags
+
+    # the degrade rung removed: the persistent case must fail
+    mut = edited_module(
+        "repro_torch.core.transport",
+        "recv_d = tree_map(lambda x, l: xpose(x).to(l.dtype), tree, recv1)",
+        "recv_d = recv1")
+
+    def persistent_check():
+        r = pr(faulty(g_pr, mode="corrupt", attempts=(0, 1)),
+               transport=T.TransportPolicy("dense", integrity=True))
+        if not torch.equal(r.graph.vdata["pr"], want):
+            raise AssertionError("persistent fault: values differ")
+    chaos["mutant (no degrade rung)"] = must_fail(
+        "no degrade rung", persistent_check,
+        ("ship_transport", mut.ship_transport))
+    table["chaos"] = chaos
+
+    # (b) kill and resume
+    shutil.rmtree(SNAP_DIR, ignore_errors=True)
+    store = snap_mod.SnapshotStore(str(SNAP_DIR / "pagerank"))
+
+    class Tripped:
+        """A preemption guard that trips at its n-th read."""
+
+        def __init__(self, n):
+            self.reads, self.n = 0, n
+
+        @property
+        def requested(self):
+            self.reads += 1
+            return self.reads >= self.n
+
+    killed = main_path_run(tally, "pagerank, killed at 5", lambda: pr(
+        g_pr, checkpoint=store, checkpoint_every=5, guard=Tripped(5)),
+        launched=kernels)
+    if killed.supersteps != 5 or store.all_steps() != [5]:
+        raise AssertionError(f"kill: ran {killed.supersteps} supersteps, "
+                             f"snapshots {store.all_steps()}")
+    saved = dict(store.log[-1])
+    resumed = main_path_run(tally, "pagerank, resumed at 5", lambda: pr(
+        g_pr, checkpoint=store, checkpoint_every=5), launched=kernels)
+    if resumed.supersteps != base.supersteps - 5:
+        raise AssertionError(f"resume ran {resumed.supersteps} supersteps")
+    same_run("kill and resume", resumed, base)
+    kill = {"snapshot_bytes": saved["bytes"],
+            "copy_s": saved["copy_s"], "write_s": saved["write_s"],
+            "read_s": store.last_read_s}
+    del killed, resumed
+    # CC killed after 2 supersteps, restored elastically onto P=2
+    egd = symmetrize(rmat(ELASTIC_SCALE, 16, seed=1))
+    eg = Graph.from_edges(egd.src, egd.dst, num_partitions=P,
+                          device=g.device)
+    estore = snap_mod.SnapshotStore(str(SNAP_DIR / "cc"))
+    alg_cc = dict(default_msg={"m": torch.tensor(alg.IMAX,
+                                                 dtype=torch.int32)},
+                  skip_stale="out")
+    pregel(eg.mapV(alg._cc_init), alg.cc_vprog, alg.cc_send, "min",
+           max_supersteps=2, checkpoint=estore, checkpoint_every=2, **alg_cc)
+    t0 = time.perf_counter()
+    e2, start, _pol, _live = snap_mod.restore_pregel_elastic(
+        estore, num_partitions=2, device=g.device)
+    t_el = time.perf_counter() - t0
+    done = main_path_run(tally, "cc, elastic restore onto P=2", lambda:
+                         pregel(e2, alg.cc_vprog, alg.cc_send, "min",
+                                max_supersteps=100, **alg_cc),
+                         launched=kernels)
+    ids, vals = done.graph.vertices_to_numpy()
+    if e2.s.p != 2 or start != 2 or not np.array_equal(
+            vals["cc"], min_id_labels(egd.num_vertices, egd.src, egd.dst,
+                                      ids)):
+        raise AssertionError("elastic restore: labels differ from scipy's")
+    kill["elastic"] = {
+        "graph": f"symmetrize(rmat({ELASTIC_SCALE},16)), "
+                 f"{egd.num_edges} edges",
+        "restore_s": t_el, "supersteps_after": done.supersteps}
+    del eg, e2, done
+    shutil.rmtree(SNAP_DIR, ignore_errors=True)
+    table["kill"] = kill
+
+    # (c) out of core at working_set_frac 0.5
+    spill_mod.TIME_COPIES = True
+    try:
+        ooc = {}
+        def cc_run(**kw):
+            return pregel(sg.mapV(alg._cc_init), alg.cc_vprog, alg.cc_send,
+                          "min", max_supersteps=100, **alg_cc, **kw)
+
+        for name, run, leaves in (
+                ("pagerank", lambda **kw: pr(g_pr, **kw), ("pr", "deg")),
+                ("cc", cc_run, ("cc",))):
+            torch.cuda.reset_peak_memory_stats()
+            full = run()
+            torch.cuda.synchronize()
+            peak_full = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            half, t = timed(lambda: main_path_run(
+                tally, f"{name}, working set 0.5",
+                lambda: run(working_set_frac=0.5, track_metrics=True),
+                launched=kernels))
+            peak_half = torch.cuda.max_memory_allocated()
+            if half.supersteps != full.supersteps or not all(
+                    torch.equal(half.graph.vdata[x], full.graph.vdata[x])
+                    for x in leaves):
+                raise AssertionError(f"out of core {name}: differs from the "
+                                     "resident run")
+            if name == "cc":
+                got = half.graph.vertices_to_numpy()[1]["cc"]
+                if not np.array_equal(got, cc_want):
+                    raise AssertionError("out of core cc: labels differ from "
+                                         "scipy's")
+            gg = g_pr if name == "pagerank" else sg
+            plan = spill_mod.plan_spill(gg, 0.5)
+            full_b = spill_mod.vdata_nbytes(half.graph.vdata)
+            # tests/spmd_check.py's cap: the hottest ceil(f * total) cells
+            # plus one cell of slack for a clipped tail cell.  A row whose
+            # slots end in a clipped cell may spill it, so with nl clipped
+            # cells cold the slack is nl cells (the reference's bytes are
+            # the same: tests/test_torch_spill.py pins them)
+            stubs = plan.nl if plan.v_blk % plan.block else 1
+            cap1 = full_b * (plan.n_total - plan.n_cold + 1) / plan.n_total
+            cap = full_b * (plan.n_total - plan.n_cold + stubs) / plan.n_total
+            resid = [m["spill_resident_bytes"] for m in half.metrics]
+            if not (resid and max(resid) <= cap and min(resid) < full_b):
+                raise AssertionError(f"out of core {name}: resident bytes "
+                                     f"{max(resid)} over the cap {cap}")
+            rot = [{"d2h_ms": m["spill_copy_ms"],
+                    "h2d_ms": m["restore_copy_ms"],
+                    "stream_bytes": m["stream_bytes"],
+                    "serial_model_ms": 1e3 * m["stream_time_serial"],
+                    "overlap_model_ms": 1e3 * m["stream_time_overlap"]}
+                   for m in half.metrics]
+            ooc[name] = {
+                "supersteps": half.supersteps,
+                "ms_per_superstep": 1e3 * t / half.supersteps,
+                "cells": f"{plan.n_cold} of {plan.n_total} cold, "
+                         f"{plan.block} rows",
+                "resident_bytes_max": max(resid), "cap": cap,
+                "spmd_check_cap": cap1,
+                "rotations_over_spmd_check_cap": sum(r > cap1 for r in resid),
+                "vdata_bytes": full_b,
+                "peak_gib_resident": peak_full / 2**30,
+                "peak_gib_half": peak_half / 2**30,
+                "rotations": rot}
+            del full, half
+    finally:
+        spill_mod.TIME_COPIES = False
+    table["out_of_core"] = ooc
+    return table
+
+
 def phase_4b_graphs(g, gd, sg, sgd, w_cc, tally):
     """SSSP, label propagation and subgraph + CC on CC's graph, coarsen on
     symmetrize(rmat(COARSEN_SCALE, 16)), and the transpose of PageRank's
@@ -2712,7 +3033,6 @@ def main() -> int:
             f"{k} {counts.get(k, 0)}" for k in ("triplet", "apply")))
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
-    del ids_np, cc_want
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  phase 4c: {time.perf_counter() - t_phase:.1f} s")
@@ -2735,6 +3055,26 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  phase 4d: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---------------------------------------------------------- phase 4e
+    t_phase = time.perf_counter()
+    log("phase 4e: fault tolerance and out-of-core residency (the integrity "
+        "ladder under injected faults, kill and resume, elastic restore, "
+        "working set 0.5) on the graphs of phases 2 and 4; " + card)
+    tally_4e = {}
+    log("  phase 4e: " + json.dumps(phase_4e_fault_tolerance(
+        g, sg, ids_np, cc_want, tally_4e)))
+    log("  phase 4e launches, each main-path run counted alone:")
+    for label, counts in tally_4e.items():
+        log(f"    {label}: " + ", ".join(
+            f"{k} {counts.get(k, 0)}" for k in ("triplet", "apply",
+                                                "segment_sum")))
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+    del ids_np, cc_want
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 4e: {time.perf_counter() - t_phase:.1f} s")
 
     # ---------------------------------------------------------- phase 4b
     t_phase = time.perf_counter()
@@ -3110,9 +3450,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    tr = train_launch.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
-                            "--batch", str(TRAIN_BATCH), "--seq",
-                            str(TRAIN_SEQ)])
+    import shutil
+    from repro_torch.core.tree import tree_leaves
+    train_dir = SNAP_DIR / "train"
+    shutil.rmtree(train_dir, ignore_errors=True)
+    train_args = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+                  "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                  "--ckpt-dir", str(train_dir), "--ckpt-every",
+                  str(TRAIN_STEPS - 1)]
+    tr = train_launch.main(train_args)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     cfg = C.get(TRAIN_ARCH)
@@ -3129,7 +3475,41 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated() / 2**30
     n_params = T.param_count(tr["params"])
     steps_s = tr["step_seconds"]
+    # the checkpoint after step 2 (written while step 3 ran): a run resumed
+    # from it for one step (step 3's batch) must give step 3's loss and
+    # parameters bit for bit
+    saves = {c["step"]: c for c in tr["checkpoints"]}
+    if sorted(saves) != [TRAIN_STEPS - 1, TRAIN_STEPS]:
+        raise AssertionError(f"train checkpoints at {sorted(saves)}")
+    shutil.rmtree(train_dir / f"step_{TRAIN_STEPS:08d}")
+    full_params = tr["params"]
     del tr
+    gc.collect()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    tr2 = train_launch.main(train_args)
+    torch.cuda.synchronize()
+    t_resume = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for kname in ("mlstm_fwd", "mlstm_bwd"):
+        launches[kname] += counts[kname]
+        if counts[kname] != n_mlstm:
+            raise AssertionError(f"resumed {kname} launches {counts[kname]}")
+    if tr2["losses"] != losses[TRAIN_STEPS - 1:] or not all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(tr2["params"]),
+                                              tree_leaves(full_params))):
+        raise AssertionError(f"resumed step {TRAIN_STEPS}: loss "
+                             f"{tr2['losses']} vs {losses[-1:]} or the "
+                             "parameters differ")
+    ck = saves[TRAIN_STEPS - 1]
+    log(f"  checkpoint after step {TRAIN_STEPS - 1}: {ck['bytes'] / 2**30:.3f}"
+        f" GiB on disk, device-to-host copy {ck['copy_s']:.3f} s, file write "
+        f"{ck['write_s']:.3f} s (on a thread, beside step {TRAIN_STEPS}); "
+        f"resumed for step {TRAIN_STEPS} in {t_resume:.1f} s (restore, init "
+        f"and the step): loss {tr2['losses'][0]:.6f} and every parameter "
+        f"bit-equal to the uninterrupted run")
+    del tr2, full_params
+    shutil.rmtree(SNAP_DIR, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     # step 1 again from the same initial weights and batch: forward and

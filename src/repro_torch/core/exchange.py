@@ -63,9 +63,10 @@ class Exchange:
         """Mesh-global sum of a per-executor quantity (local value here)."""
         return x
 
-    def home_rows(self, nl: int) -> torch.Tensor:
-        """[nl] int32 global partition ids of this executor's rows."""
-        return torch.arange(nl, dtype=torch.int32)
+    def home_rows(self, nl: int, device=None) -> torch.Tensor:
+        """[nl] int32 global partition ids of this executor's rows, made
+        on `device` (the integrity ladder salts its words with them)."""
+        return torch.arange(nl, dtype=torch.int32, device=device)
 
     @property
     def codec(self) -> WireCodec | None:

@@ -104,8 +104,8 @@ class ShipMetrics:
     ragged: Any = 0.0                # 1: the ragged branch was taken
     route_active_max: Any = 0        # largest per-destination count
     overflow: Any = 0.0              # ragged -> dense fallbacks taken
-    # integrity failures and degraded routes: zero until the integrity
-    # ladder is ported (ROADMAP Queue 1 item 5)
+    # integrity-word failures (retried or degraded) and routes degraded to
+    # the raw dense ship (TransportPolicy.integrity)
     wire_faults: Any = 0.0
     degraded: Any = 0.0
     # [P] per-destination occupancy fractions (0 when nothing shipped):
@@ -172,7 +172,8 @@ def _route_ship(ex, sendbuf: Any, flags: torch.Tensor, *, bound: int | None,
         # a2a on a ring: each chip's diagonal block never leaves it
         bytes_link_modeled=info.bytes_shipped * (p - 1) / max(p, 1),
         ragged=info.ragged, route_active_max=info.route_active_max,
-        overflow=info.overflow, route_active_frac=info.route_active_frac)
+        overflow=info.overflow, wire_faults=info.wire_faults,
+        degraded=info.degraded, route_active_frac=info.route_active_frac)
     return recvbuf, rflags, metrics
 
 
@@ -237,7 +238,7 @@ def ship_to_mirrors(s, values: Any, need: str, ex, *,
     if use_bcast:
         mirror, bshipped, bmetrics = _broadcast_lane(
             s, values, need, ex, mirror, active=active, bound=bound,
-            elem_bytes=elem_bytes)
+            elem_bytes=elem_bytes, integrity=tp.integrity)
         shipped = shipped | bshipped
         metrics = metrics.merge(bmetrics)
 
@@ -254,7 +255,7 @@ def ship_to_mirrors(s, values: Any, need: str, ex, *,
 
 def _broadcast_lane(s, values: Any, need: str, ex, mirror: Any, *,
                     active: torch.Tensor | None, bound: int | None,
-                    elem_bytes: int):
+                    elem_bytes: int, integrity: bool = False):
     """The broadcast set's rows through one all-gather, scattered into
     `mirror` through `s.brecv[need]`; (mirror, slots written,
     ShipMetrics).  Its occupancy facts stay zero: the lane has no
@@ -268,8 +269,8 @@ def _broadcast_lane(s, values: Any, need: str, ex, mirror: Any, *,
     btree = tree_map(lambda v: gather_rows(v, bidx), values)
     btree = tree_map(lambda x: x.masked_fill(~bmask(bflags, x), 0), btree)
     transport_mod.record_ship("fwd", "bcast", f"B={b}")
-    recvb, rfb, binfo = transport_mod.allgather_ship(ex, btree, bflags,
-                                                     bound=bound)
+    recvb, rfb, binfo = transport_mod.allgather_ship(
+        ex, btree, bflags, bound=bound, integrity=integrity)
     brecv = s.brecv[need]                                      # [nl, P, B]
     hit = rfb & (brecv < s.v_mir)
     bscat = torch.where(hit, brecv, s.v_mir).reshape(nl, -1)
@@ -290,7 +291,9 @@ def _broadcast_lane(s, values: Any, need: str, ex, mirror: Any, *,
                                                bflags[:, None], bound),
         bytes_shipped=binfo.bytes_shipped, route_width=0,
         # ring all-gather: every contributed block traverses P-1 links
-        bytes_link_modeled=binfo.bytes_shipped * max(p - 1, 0))
+        bytes_link_modeled=binfo.bytes_shipped * max(p - 1, 0),
+        overflow=binfo.overflow, wire_faults=binfo.wire_faults,
+        degraded=binfo.degraded)
     return mirror, written, metrics
 
 
@@ -325,9 +328,11 @@ def ship_aggregates_home(s, partial: Any, had_msg: torch.Tensor, need: str,
 
     v_blk = s.home_mask.shape[1]
     # home slot of each routed entry in a padded [nl, v_blk + 1] space whose
-    # last column swallows the entries without a value
+    # last column swallows the entries without a value (and a padding
+    # entry whose flag a corrupted wire set: dropped, as JAX drops an
+    # out-of-range scatter)
     rows = torch.arange(nl, device=send_idx.device)[:, None, None] * (v_blk + 1)
-    slot = torch.where(rflags, send_idx, v_blk) + rows
+    slot = torch.where(rflags & (send_idx >= 0), send_idx, v_blk) + rows
 
     def combine_leaf(leaf):
         if leaf.dtype.is_floating_point:

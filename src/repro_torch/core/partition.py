@@ -132,6 +132,21 @@ class GraphStructure:
         return part, rows
 
 
+def place_vertex_rows(s: GraphStructure, vids: np.ndarray,
+                      values: np.ndarray, fill=0) -> np.ndarray:
+    """Scatter per-id vertex facts into `s`'s home layout: a [P, V_blk,
+    ...] buffer with values[i] at vertex vids[i]'s home row and `fill`
+    elsewhere (the elastic restore keys vmask / active by global id, a
+    structure by (partition, row))."""
+    vids = np.asarray(vids, np.int64)
+    values = np.asarray(values)
+    part, row = s.local_row(vids)
+    buf = np.full((s.num_partitions, s.v_blk) + values.shape[1:], fill,
+                  values.dtype)
+    buf[part, row] = values
+    return buf
+
+
 def edge_partition_2d(src: np.ndarray, dst: np.ndarray, p: int) -> np.ndarray:
     """2D hash partitioner: edge (s, d) -> cell (h(s) mod R, h(d) mod C) of
     an R x C = P grid, bounding replication by O(sqrt(P))."""

@@ -30,9 +30,18 @@ Two drivers, as in the reference:
     static capacity and switches dense / ragged on the device; its last
     decision rides the block's carry.
 On the CPU both run the same steps eagerly, through the same buffers.
+
+`pregel` also takes the reference's fault-tolerance keywords: superstep
+snapshots (`checkpoint`, `checkpoint_every`, `guard`, `resume`,
+`core/snapshot.py`) and out-of-core residency (`working_set_frac`,
+`core/spill.py`, whose ring writes the tensors the replays read).  Both
+drivers bracket each superstep with the key of the program the
+reference's jit would run, for a fault injector (`core/fault.py`) that
+counts collectives as the reference traces them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import logging
@@ -42,6 +51,8 @@ import torch
 
 from . import analysis
 from . import capture as capture_mod
+from . import snapshot as snapshot_mod
+from . import spill as spill_mod
 from . import transport as transport_mod
 from . import view as view_mod
 from .graph import Graph
@@ -199,13 +210,30 @@ def _occupancy(vals: list, metrics: dict):
     return occ
 
 
+def _bracket(ex, key):
+    """A fault injector's program bracket (`core.fault`); a real executor
+    has none."""
+    program = getattr(ex, "program", None)
+    return program(key) if program is not None else contextlib.nullcontext()
+
+
+def _program_key(carry, policy) -> tuple:
+    """The program the reference's jit would run a superstep as: the
+    carry's static half (treedef, dtypes, shapes, view plan) and the
+    concrete transport policy."""
+    return capture_mod.flatten(carry)[1], policy
+
+
 def pregel(g: Graph, vprog: Callable, send_msg: Callable,
            gather: str = "sum", *, default_msg: Any,
            max_supersteps: int = 50, skip_stale: str | None = "out",
            incremental: bool = True, changed_fn: Callable | None = None,
            kernel_mode: str = "auto", track_metrics: bool = False,
            payload_bound: int | None = None, transport: Any = None,
-           fuse_apply: Any = "auto") -> PregelResult:
+           fuse_apply: Any = "auto", checkpoint: Any = None,
+           checkpoint_every: int | None = None, guard: Any = None,
+           resume: bool = True,
+           working_set_frac: float | None = None) -> PregelResult:
     """The host-driven BSP loop.  fuse_apply: "auto" fuses the apply half
     when eligible; False / "unfused" pins the unfused apply.
 
@@ -229,8 +257,46 @@ def pregel(g: Graph, vprog: Callable, send_msg: Callable,
     ("transport", "transport_cap", "transport_frac", "ragged",
     "overflow_fallbacks"; the whole concrete policy as "transport_plan"),
     `recompiles` (distinct policies so far, as the reference counts its
-    compiles), and `captures` / `capture_ms`."""
+    compiles), `captures` / `capture_ms`, and the integrity ladder's
+    `wire_faults` / `degraded_routes`.
+
+    checkpoint: a directory or `core.snapshot.SnapshotStore`.  Every
+    `checkpoint_every` supersteps, and at the first boundary after
+    `guard` (a `train.fault.PreemptionGuard`) reports a preemption, after
+    which the loop exits, the carry is snapshotted: the warm graph with
+    its view, the live count and the concrete policy the next superstep
+    would run (saved after adapt_policy).  With resume=True a snapshot in
+    the store is restored before anything is derived from the graph, so
+    re-running the call after a kill continues bit-equal to the
+    uninterrupted run.
+
+    working_set_frac: out-of-core residency (`core/spill.py`).  The
+    hottest fraction in (0, 1] of the home-vertex cells stays on the
+    device between supersteps; the coldest spill to pinned host memory
+    after each superstep and stream back before the next, in place in the
+    tensors the replays read.  Values are bit-equal to the fully resident
+    run; the records gain `stream_bytes`, `compute_time_modeled`,
+    `stream_time_serial`, `stream_time_overlap`, `spill_resident_bytes`
+    and `spill_host_bytes`.  None (default) keeps everything resident."""
     tp = transport_mod.resolve_transport(transport)
+    auto = tp.kind == "auto"
+    # superstep 1 is a full ship, dense by construction
+    cur_tp = transport_mod.DENSE if auto else tp
+
+    # resume swaps in the snapshotted carry before anything is derived
+    # from the graph
+    store = None
+    start = 0
+    if checkpoint is not None:
+        store = (checkpoint
+                 if isinstance(checkpoint, snapshot_mod.SnapshotStore)
+                 else snapshot_mod.SnapshotStore(checkpoint))
+        if resume and store.latest_step() is not None:
+            g, start, saved_tp, _live = snapshot_mod.restore_pregel(store, g)
+            if saved_tp is not None:
+                # the post-adapt policy: the plan the killed run chose
+                cur_tp = saved_tp
+
     step = _step_fn(g, vprog, send_msg, gather, default_msg=default_msg,
                     skip_stale=skip_stale, changed_fn=changed_fn,
                     kernel_mode=kernel_mode, incremental=incremental,
@@ -250,10 +316,15 @@ def pregel(g: Graph, vprog: Callable, send_msg: Callable,
             default_msg=default_msg, kernel_mode=kernel_mode,
             payload_bound=payload_bound) if fuse else "unfused")}
 
-    auto = tp.kind == "auto"
+    ring = None
+    if working_set_frac is not None and working_set_frac < 1.0:
+        ring = spill_mod.SpillRing(plan=spill_mod.plan_spill(
+            g, working_set_frac))
+        g = ring.own(g)
+    ex = g.ex
+    if hasattr(ex, "new_scope"):
+        ex.new_scope()           # a new driver call: a new jit
     watch = tp.kind != "dense"
-    # superstep 1 is a full ship, dense by construction
-    cur_tp = transport_mod.DENSE if auto else tp
     plans_seen = {cur_tp}
     n_visible = max(int(g.vmask.sum()), 1) if auto else 1
     caps0 = dict(capture_mod.stats)
@@ -287,17 +358,61 @@ def pregel(g: Graph, vprog: Callable, send_msg: Callable,
                                   - caps0["capture_s"]),
                 pipeline_ships=float(gs.ships),
                 pipeline_bytes_shipped=float(gs.bytes_shipped))
+            if ring is not None:
+                # the rotation just run: this superstep's spill and the
+                # restore before it
+                host.update(ring.stream_times(gs))
+                host["spill_resident_bytes"] = float(ring.resident_bytes(gs))
+                host["spill_host_bytes"] = float(ring.host_bytes())
+                if ring.timed:
+                    host["spill_copy_ms"] = 1e3 * ring.spill_s
+                    host["restore_copy_ms"] = 1e3 * ring.restore_s
             all_metrics.append(host)
         return n_live, vals
 
-    if max_supersteps < 1:
-        return PregelResult(graph=g, supersteps=0, metrics=all_metrics)
+    def boundary(it: int, gs: Graph, n_live: int, vals, metrics) -> bool:
+        """After superstep `it` (not halted): re-plan, then snapshot when
+        due or preempted; True leaves the loop."""
+        nonlocal cur_tp
+        if auto:
+            fwd_occ, back_occ = _occupancy(vals, metrics)
+            cur_tp = transport_mod.adapt_policy(
+                tp, was_ragged=cur_tp.kind == "ragged",
+                active_frac=n_live / n_visible, fwd_frac=fwd_occ,
+                back_frac=back_occ, prev=cur_tp)
+            plans_seen.add(cur_tp)
+        if store is None:
+            return False
+        preempt = guard is not None and getattr(guard, "requested", False)
+        due = (checkpoint_every is not None
+               and (it + 1 - start) % checkpoint_every == 0)
+        if due or preempt:
+            # the full graph: peek merges the host cells without draining
+            snapshot_mod.save_pregel(
+                store, it + 1, ring.peek(gs) if ring is not None else gs,
+                cur_tp, live=n_live)
+        return preempt
+
+    def finish(gs: Graph, steps: int) -> PregelResult:
+        if ring is not None:
+            gs = ring.materialize(gs)    # exit fully resident
+        return PregelResult(graph=gs, supersteps=steps, metrics=all_metrics)
+
+    it = start
+    if it >= max_supersteps:
+        return finish(g, 0)
     first_tp = cur_tp
-    g, live, metrics = step(g, transport=cur_tp)
+    if ring is not None:
+        g = ring.restore(g)
+    with _bracket(ex, _program_key(_carry(g), cur_tp)):
+        g, live, metrics = step(g, transport=cur_tp)
     steps = 1
+    if ring is not None:
+        g = ring.spill(g)
     n_live, vals = record(g, _progress(live, metrics, watch), metrics)
-    if n_live == 0 or max_supersteps == 1:
-        return PregelResult(graph=g, supersteps=steps, metrics=all_metrics)
+    if (n_live == 0 or boundary(it, g, n_live, vals, metrics)
+            or it + 1 >= max_supersteps):
+        return finish(g, steps)
 
     g1 = g
     capture = _captures(g.device, kernel_mode)
@@ -306,19 +421,17 @@ def pregel(g: Graph, vprog: Callable, send_msg: Callable,
 
     def replayed(policy):
         def run(carry):
-            g2, live, metrics = step(g1.replace(**carry), transport=policy)
+            with _bracket(ex, _program_key(carry, policy)):
+                g2, live, metrics = step(g1.replace(**carry),
+                                         transport=policy)
             return _carry(g2), (_progress(live, metrics, watch), metrics)
         return run
 
     try:
-        while steps < max_supersteps:
-            if auto:
-                fwd_occ, back_occ = _occupancy(vals, metrics)
-                cur_tp = transport_mod.adapt_policy(
-                    tp, was_ragged=cur_tp.kind == "ragged",
-                    active_frac=n_live / n_visible, fwd_frac=fwd_occ,
-                    back_frac=back_occ, prev=cur_tp)
-                plans_seen.add(cur_tp)
+        while it + 1 < max_supersteps:
+            it += 1
+            if ring is not None:
+                g = ring.restore(g)      # in place: the tensors replays read
             nxt = replays.get(cur_tp)
             if nxt is None:
                 # a policy superstep 1 did not run captures at its second
@@ -332,14 +445,16 @@ def pregel(g: Graph, vprog: Callable, send_msg: Callable,
             prog, metrics = rep.run()
             steps += 1
             g = g1.replace(**rep.carry)
+            if ring is not None:
+                g = ring.spill(g)
             n_live, vals = record(g, prog, metrics)
-            if n_live == 0:
+            if n_live == 0 or boundary(it, g, n_live, vals, metrics):
                 break
     finally:
         # the graph's outputs: their pools go, together
         prog = metrics = None
         capture_mod.close_all(replays.values())
-    return PregelResult(graph=g, supersteps=steps, metrics=all_metrics)
+    return finish(g, steps)
 
 
 def _select(run: torch.Tensor, new: Any, old: Any) -> Any:
@@ -384,7 +499,13 @@ def pregel_fused(g: Graph, vprog: Callable, send_msg: Callable,
                     kernel_mode=kernel_mode, incremental=incremental,
                     payload_bound=payload_bound, fuse_apply=fuse_apply,
                     transport=tp)
-    g0, live0, m0 = step(g)
+    ex = g.ex
+    if hasattr(ex, "new_scope"):
+        ex.new_scope()
+    # the reference runs superstep 1 as one program and traces the loop's
+    # body once
+    with _bracket(ex, "pregel_fused superstep 1"):
+        g0, live0, m0 = step(g)
     i0 = torch.ones((), dtype=torch.int32, device=g.device)
     if not bool((live0 > 0) & (i0 < max_supersteps)):
         return g0, i0
@@ -396,7 +517,8 @@ def pregel_fused(g: Graph, vprog: Callable, send_msg: Callable,
         ts = carry.get("ts")
         for _ in range(FUSED_BLOCK):
             run = (live > 0) & (i < max_supersteps)
-            g2, live2, m = step(g0.replace(**state), tstate=ts)
+            with _bracket(ex, "pregel_fused body"):
+                g2, live2, m = step(g0.replace(**state), tstate=ts)
             state = _select(run, _carry(g2), state)
             live = torch.where(run, live2, live)
             i = i + run.to(i.dtype)

@@ -28,8 +28,14 @@ the occupancy the previous superstep observed.
 bit-identical to the transpose.  The broadcast lane (`allgather_ship`)
 moves high-replication mirrors once per source through `all_gather_rows`.
 
-The integrity ladder (`TransportPolicy.integrity`) is not ported: it is
-refused (ROADMAP Queue 1 item 5, with the fault injector it is tested by).
+With `TransportPolicy.integrity` every ship carries a per-route int32
+integrity word (`wire.integrity_word`), recomputed at receive: a failed
+check retries the ship once, and a second failure degrades the route to
+the raw dense transpose for the superstep.  The reference picks its rungs
+with `lax.cond`; here every checked ship runs attempt 0, attempt 1 and the
+degrade rung, and the device selects by the verdicts, so a captured
+superstep reads nothing back (the reference's trace visits all three
+rungs too, so a fault injector sees the same calls and attempt marks).
 """
 from __future__ import annotations
 
@@ -78,7 +84,8 @@ class TransportPolicy:
     # adapt_policy's shrink headroom: a tier steps down only when the
     # occupancy clears the lower tier after this factor
     tier_headroom: float = 1.25
-    # per-route integrity words: not ported (ROADMAP Queue 1 item 5)
+    # per-route integrity words checked at receive: retry once, then ship
+    # the route raw and dense (scaled codecs ship unchecked)
     integrity: bool = False
     # per-destination capacity tiers (a length-P tuple of fractions)
     capacity_fracs: tuple | None = None
@@ -95,19 +102,11 @@ AUTO = TransportPolicy("auto")
 TRANSPORT_NAMES = ("dense", "ragged", "auto")
 
 
-def _refuse_integrity(policy: TransportPolicy) -> None:
-    if policy.integrity:
-        raise NotImplementedError(
-            "TransportPolicy(integrity=True): the integrity ladder is not "
-            "ported yet (ROADMAP Queue 1 item 5, with core/fault.py)")
-
-
 def resolve_transport(spec) -> TransportPolicy:
     """None | "dense" | "ragged" | "auto" | TransportPolicy -> policy."""
     if spec is None:
         return DENSE
     if isinstance(spec, TransportPolicy):
-        _refuse_integrity(spec)
         return spec
     try:
         return {"dense": DENSE, "ragged": RAGGED, "auto": AUTO}[spec]
@@ -277,8 +276,8 @@ class TransportInfo(NamedTuple):
     ragged: Any             # 0/1: the branch taken
     overflow: Any           # 0/1: a count exceeded its capacity
     route_active_max: Any   # int32: the largest per-destination count
-    wire_faults: Any = 0.0  # integrity-check failures (not ported: 0)
-    degraded: Any = 0.0     # routes shipped raw after a failed retry (0)
+    wire_faults: Any = 0.0  # integrity-check failures (retried or degraded)
+    degraded: Any = 0.0     # routes shipped raw after a failed retry
     # [P] f32 per-destination occupancy (max over rows of counts / K)
     route_active_frac: Any = 0.0
 
@@ -464,9 +463,11 @@ def _ship_once(ex, tree, flags: torch.Tensor, *, bound: int | None = None,
         use_ragged = use_ragged & prefer_ragged.to(torch.bool)
     # both branches run and each buffer is selected on the device (the
     # reference's lax.cond): a replayed graph has one fixed kernel order
-    # and must not read the decision back to the host
-    recv_d, rf_d = ship_dense()
+    # and must not read the decision back to the host.  Ragged first, the
+    # order the reference traces its branches in (a fault injector counts
+    # the collectives)
     recv_r, rf_r = ship_ragged()
+    recv_d, rf_d = ship_dense()
     recv = tree_map(lambda r, d: torch.where(use_ragged, r, d), recv_r, recv_d)
     rf = torch.where(use_ragged, rf_r, rf_d)
     bytes_shipped = torch.where(use_ragged, float(rag_bytes),
@@ -487,10 +488,94 @@ def ship_transport(ex, tree, flags: torch.Tensor, *, bound: int | None = None,
     wire's active set: the others may arrive as zeros).  prefer_ragged: a
     0-d bool tensor, the caller's hysteresis (None: ragged whenever it
     fits).  recvflags: receive-side flags known from the route's structure
-    (full ships), which spare the dense path the flags collective."""
-    _refuse_integrity(policy)
-    return _ship_once(ex, tree, flags, bound=bound, policy=policy,
-                      prefer_ragged=prefer_ragged, recvflags=recvflags)
+    (full ships), which spare the dense path the flags collective.
+
+    With `policy.integrity` the ship carries a per-route word, a
+    position-weighted fold over the decoded payload bits and the flags,
+    salted with the destination and sender ids, recomputed at receive.
+    A mismatch anywhere (psummed: uniform over the mesh) retries the ship;
+    a second one degrades the route to a raw full-width dense transpose.
+    Values stay exact, `wire_faults` / `degraded` count the events, and
+    the extra attempts' bytes land in `bytes_shipped`."""
+    kw = dict(bound=bound, policy=policy, prefer_ragged=prefer_ragged,
+              recvflags=recvflags)
+    if not policy.integrity or not tree_leaves(tree):
+        return _ship_once(ex, tree, flags, **kw)
+    codec = ex.codec
+    # a fault injector brackets its corruption by these attempt marks; a
+    # real executor has no hook
+    note = getattr(ex, "note_attempt", lambda _a: None)
+    if not wire_mod.verifiable(codec):
+        note(0)
+        return _ship_once(ex, tree, flags, **kw)
+
+    xpose = ex.ring_transpose if policy.pipeline else ex.transpose
+    nl, p, k = flags.shape
+    dev = flags.device
+    # the send side folds what an intact receiver materialises
+    rt = tree_map(lambda x: wire_mod.roundtrip_leaf(
+        x, codec, bound=bound, active=flags), tree)
+    cols = torch.arange(p, dtype=torch.int32, device=dev).expand(nl, p)
+    rows = ex.home_rows(nl, device=dev)[:, None].expand(nl, p)
+    expect = wire_mod.integrity_word(rt, flags, dest=cols, src=rows)
+
+    def attempt(a: int):
+        note(a)
+        recv, rf, info = _ship_once(ex, tree, flags, **kw)
+        want = xpose(expect[..., None])[..., 0]
+        got = wire_mod.integrity_word(recv, rf, dest=rows, src=cols)
+        bad = (got != want).sum(dtype=torch.int32)
+        # uniform over the mesh: one device's mismatch retries everywhere
+        return recv, rf, info, ex.psum(bad) == 0
+
+    # every rung runs; the device selects (the reference's two lax.conds)
+    recv0, rf0, info0, ok0 = attempt(0)
+    recv_a, rf_a, info_a, ok_a = attempt(1)
+    recv1 = tree_map(lambda x, y: torch.where(ok0, x, y), recv0, recv_a)
+    rf1 = torch.where(ok0, rf0, rf_a)
+    ok1 = ok0 | ok_a
+
+    def pick(f):
+        return torch.where(ok0, _f32(getattr(info0, f), dev),
+                           _f32(getattr(info_a, f), dev))
+
+    # last rung: the raw full-width dense transpose, nothing left to
+    # mis-encode, cast back to the kept rung's dtypes
+    note(2)
+    recv_d = tree_map(lambda x, l: xpose(x).to(l.dtype), tree, recv1)
+    rf_d = recvflags if recvflags is not None else xpose(flags)
+    recv2 = tree_map(lambda x, y: torch.where(ok1, x, y), recv1, recv_d)
+    rf2 = torch.where(ok1, rf1, rf_d)
+
+    raw_bytes = float(sum(x.numel() * x.element_size()
+                          for x in tree_leaves(tree)))
+    if recvflags is None:
+        raw_bytes += nl * p * k
+    word_bytes = float(nl * p * 4)
+    retried = (~ok0).float()
+    degraded = (~ok1).float()
+    # f32 in the reference's order
+    bytes_shipped = (_f32(info0.bytes_shipped, dev)
+                     + retried * pick("bytes_shipped")
+                     + degraded * raw_bytes
+                     + (1.0 + retried) * word_bytes)
+    info = TransportInfo(
+        bytes_shipped=bytes_shipped,
+        ragged=torch.where(degraded > 0, 0.0, pick("ragged")),
+        overflow=torch.maximum(_f32(info0.overflow, dev),
+                               _f32(info_a.overflow, dev)),
+        route_active_max=info0.route_active_max,
+        wire_faults=retried + degraded, degraded=degraded,
+        route_active_frac=info0.route_active_frac)
+    return recv2, rf2, info
+
+
+def _f32(x, device) -> torch.Tensor:
+    """A 0-d f32 tensor of a Python number or tensor (a fill, no
+    host-to-device copy: a captured superstep may make it)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32)
+    return torch.full((), float(x), dtype=torch.float32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -529,13 +614,15 @@ def allgather_ship(ex, tree, flags: torch.Tensor, *, bound: int | None = None,
     The block is staged as [nl, 1, B, ...] through the codec, so its
     quantisation blocks tile B as a routed buffer's do, and every encoded
     leaf and the send flags are packed into ONE uint8 buffer (bits
-    reinterpreted, not converted): one collective a ship."""
-    if integrity:
-        _refuse_integrity(TransportPolicy(integrity=True))
+    reinterpreted, not converted): one collective a ship.  With
+    `integrity` each source block carries one word (no destination salt:
+    a broadcast goes everywhere; the sender salt is checked against the
+    block's column), with the routed ships' retry and degrade rungs."""
     codec = ex.codec
     p = ex.p
     nl, b = flags.shape
-    zfrac = torch.zeros((p,), dtype=torch.float32, device=flags.device)
+    dev = flags.device
+    zfrac = torch.zeros((p,), dtype=torch.float32, device=dev)
     leaves, treedef = tree_flatten(tree)
     if not leaves or b == 0:
         rf = (recvflags if recvflags is not None
@@ -543,55 +630,107 @@ def allgather_ship(ex, tree, flags: torch.Tensor, *, bound: int | None = None,
         return (tree_map(ex.all_gather_rows, tree), rf,
                 TransportInfo(0, 0.0, 0.0, 0, route_active_frac=zfrac))
 
-    bufs, metas = [], []
-    for x in leaves:
-        enc = wire_mod.encode_leaf(x[:, None], codec, bound=bound,
-                                   active=flags[:, None])
-        if enc is None:
-            bufs.append(_as_bytes(x, nl))
-            metas.append((None, x, None))
-        else:
-            pl = enc.payload[:, 0]
-            sc = None if enc.scale is None else enc.scale[:, 0]
-            bufs.append(_as_bytes(pl, nl))
-            if sc is not None:
-                bufs.append(_as_bytes(sc, nl))
-            metas.append((enc.kind, pl, sc))
     ship_flags = recvflags is None
-    if ship_flags:
-        bufs.append(flags.to(torch.uint8))
-    g = ex.all_gather_rows(torch.cat(bufs, dim=-1))        # [nl, P, N]
 
-    off = 0
+    def ship():
+        bufs, metas = [], []
+        for x in leaves:
+            enc = wire_mod.encode_leaf(x[:, None], codec, bound=bound,
+                                       active=flags[:, None])
+            if enc is None:
+                bufs.append(_as_bytes(x, nl))
+                metas.append((None, x, None))
+            else:
+                pl = enc.payload[:, 0]
+                sc = None if enc.scale is None else enc.scale[:, 0]
+                bufs.append(_as_bytes(pl, nl))
+                if sc is not None:
+                    bufs.append(_as_bytes(sc, nl))
+                metas.append((enc.kind, pl, sc))
+        if ship_flags:
+            bufs.append(flags.to(torch.uint8))
+        g = ex.all_gather_rows(torch.cat(bufs, dim=-1))    # [nl, P, N]
 
-    def take(like: torch.Tensor) -> torch.Tensor:
-        nonlocal off
-        tail = tuple(like.shape[1:])
-        nb = int(np.prod(tail, dtype=np.int64)) * like.element_size()
-        seg = g[..., off:off + nb]
-        off += nb
-        if like.dtype == torch.bool:
-            return seg.reshape((nl, p) + tail).to(torch.bool)
-        seg = seg.contiguous().reshape((nl, p) + tail + (like.element_size(),))
-        return seg.view(like.dtype).reshape((nl, p) + tail)
+        off = 0
 
-    out = []
-    for (kind, first, sc), x in zip(metas, leaves):
-        if kind is None:
-            out.append(take(x))
-            continue
-        payload = take(first)
-        scale = None if sc is None else take(sc)
-        out.append(wire_mod.decode_leaf(
-            kind, payload, scale,
-            ElemSpec((nl, p) + tuple(x.shape[1:]), x.dtype), codec))
-    recv = tree_unflatten(out, treedef)
-    rf = (g[..., off:off + b].reshape(nl, p, b).to(torch.bool) if ship_flags
-          else recvflags)
+        def take(like: torch.Tensor) -> torch.Tensor:
+            nonlocal off
+            tail = tuple(like.shape[1:])
+            nb = int(np.prod(tail, dtype=np.int64)) * like.element_size()
+            seg = g[..., off:off + nb]
+            off += nb
+            if like.dtype == torch.bool:
+                return seg.reshape((nl, p) + tail).to(torch.bool)
+            seg = seg.contiguous().reshape((nl, p) + tail
+                                           + (like.element_size(),))
+            return seg.view(like.dtype).reshape((nl, p) + tail)
+
+        out = []
+        for (kind, first, sc), x in zip(metas, leaves):
+            if kind is None:
+                out.append(take(x))
+                continue
+            payload = take(first)
+            scale = None if sc is None else take(sc)
+            out.append(wire_mod.decode_leaf(
+                kind, payload, scale,
+                ElemSpec((nl, p) + tuple(x.shape[1:]), x.dtype), codec))
+        recv = tree_unflatten(out, treedef)
+        rf = (g[..., off:off + b].reshape(nl, p, b).to(torch.bool)
+              if ship_flags else recvflags)
+        return recv, rf
+
     staged = tree_map(lambda x: ElemSpec((nl, 1) + tuple(x.shape[1:]),
                                          x.dtype), tree)
     ag_bytes = allgather_wire_bytes(staged, codec, bound, p,
                                     flags_shipped=ship_flags)
     maxc = flags.sum(-1, dtype=torch.int32).max()
-    return recv, rf, TransportInfo(ag_bytes, 0.0, 0.0, maxc,
-                                   route_active_frac=zfrac)
+    note = getattr(ex, "note_attempt", lambda _a: None)
+    if not integrity or not wire_mod.verifiable(codec):
+        if integrity:
+            note(0)
+        recv, rf = ship()
+        return recv, rf, TransportInfo(ag_bytes, 0.0, 0.0, maxc,
+                                       route_active_frac=zfrac)
+
+    flags3 = flags[:, None]                                  # [nl, 1, B]
+    rt = tree_map(lambda x: wire_mod.roundtrip_leaf(
+        x[:, None], codec, bound=bound, active=flags3), tree)
+    rows = ex.home_rows(nl, device=dev)[:, None]              # [nl, 1]
+    expect = wire_mod.integrity_word(
+        rt, flags3, dest=torch.full((nl, 1), -1, dtype=torch.int32,
+                                    device=dev), src=rows)
+    cols = torch.arange(p, dtype=torch.int32, device=dev).expand(nl, p)
+    no_dest = torch.full((nl, p), -1, dtype=torch.int32, device=dev)
+
+    def attempt(a: int):
+        note(a)
+        recv, rf = ship()
+        want = ex.all_gather_rows(expect)[..., 0]            # [nl, P]
+        got = wire_mod.integrity_word(recv, rf, dest=no_dest, src=cols)
+        return recv, rf, ex.psum((got != want).sum(dtype=torch.int32)) == 0
+
+    recv0, rf0, ok0 = attempt(0)
+    recv_a, rf_a, ok_a = attempt(1)
+    recv1 = tree_map(lambda x, y: torch.where(ok0, x, y), recv0, recv_a)
+    rf1 = torch.where(ok0, rf0, rf_a)
+    ok1 = ok0 | ok_a
+    note(2)
+    recv_d = tree_map(lambda x, l: ex.all_gather_rows(x).to(l.dtype), tree,
+                      recv1)
+    rf_d = recvflags if recvflags is not None else ex.all_gather_rows(flags)
+    recv2 = tree_map(lambda x, y: torch.where(ok1, x, y), recv1, recv_d)
+    rf2 = torch.where(ok1, rf1, rf_d)
+    raw_bytes = float(sum(x.numel() * x.element_size() for x in leaves))
+    if recvflags is None:
+        raw_bytes += float(nl * b)
+    retried = (~ok0).float()
+    degraded = (~ok1).float()
+    info = TransportInfo(
+        bytes_shipped=((1.0 + retried) * float(ag_bytes)
+                       + degraded * raw_bytes
+                       + (1.0 + retried) * float(nl * 4)),
+        ragged=0.0, overflow=0.0, route_active_max=maxc,
+        wire_faults=retried + degraded, degraded=degraded,
+        route_active_frac=zfrac)
+    return recv2, rf2, info

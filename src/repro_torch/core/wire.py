@@ -407,3 +407,105 @@ def bytes_on_wire(tree, codec: WireCodec | None,
                 max=codec.block)
         total = total + (blk_active * (sizes * w + sb)).sum()
     return total
+
+
+# ---------------------------------------------------------------------------
+# Per-route integrity words (DESIGN.md §6)
+# ---------------------------------------------------------------------------
+# Knuth / Murmur3 multiplicative constants as wrapped int32s: they salt the
+# destination and sender ids into the word, so a block delivered to the
+# wrong partition fails on the destination salt and a consistent
+# misdelivery (payload, flags and word from the wrong sender together)
+# fails on the sender salt, which the receiver recomputes from the block's
+# claimed position.
+_GOLD = int(np.uint32(0x9E3779B9).view(np.int32))
+_GOLD2 = int(np.uint32(0x85EBCA6B).view(np.int32))
+
+# int32 views of the narrow float dtypes (bits reinterpreted, then widened
+# with sign extension, as the reference's `astype(int32)` does)
+_INT_VIEW = {1: torch.int8, 2: torch.int16}
+
+
+def verifiable(codec: WireCodec | None) -> bool:
+    """Integrity words need an encoding independent of the buffer's
+    layout: the sender folds decode(encode(x)) of the dense buffer, and a
+    ragged ship encodes the compacted one, whose scale blocks tile other
+    elements.  Plain narrowing and lossless int packing act per element
+    and verify; scaled codecs ship unchecked."""
+    return codec is None or not codec.scaled
+
+
+def roundtrip_leaf(x: torch.Tensor, codec: WireCodec | None, *,
+                   bound: int | None = None,
+                   active: torch.Tensor | None = None) -> torch.Tensor:
+    """decode(encode(x)) without a collective: the values the receiver of
+    an intact ship materialises, which the send side folds into its word
+    (so a legal narrowing never reads as corruption)."""
+    if codec is None:
+        return x
+    enc = encode_leaf(x, codec, bound=bound, active=active)
+    if enc is None:
+        return x
+    return decode_leaf(enc.kind, enc.payload, enc.scale, x, codec)
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 modulo 2^32 (two's complement)."""
+    x = x & 0xFFFFFFFF
+    return torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(torch.int32)
+
+
+def _leaf_words(x: torch.Tensor) -> torch.Tensor:
+    """[nl, P, ...] -> [nl, P, W] int32: the leaf's raw bits as 32-bit
+    words (narrower dtypes widen, 64-bit dtypes split in two, low word
+    first)."""
+    nl, p = x.shape[:2]
+    flat = x.contiguous().reshape(nl, p, -1)
+    if flat.dtype == torch.bool:
+        return flat.to(torch.int32)
+    size = flat.element_size()
+    if size == 4:
+        return flat.view(torch.int32)
+    if size < 4:
+        if not flat.dtype.is_floating_point:
+            return flat.to(torch.int32)
+        return flat.view(_INT_VIEW[size]).to(torch.int32)
+    return flat.view(torch.int32).reshape(nl, p, -1)
+
+
+def _weighted_fold(words: torch.Tensor) -> torch.Tensor:
+    """[nl, P, W] int32 -> [nl, P]: the position-weighted sum modulo 2^32.
+    Odd coefficients keep the fold sensitive to swapped or shifted
+    entries.  Summed in int64, whose wrap-around keeps the sum modulo
+    2^32."""
+    coef = 2 * torch.arange(words.shape[-1], dtype=torch.int64,
+                            device=words.device) + 1
+    return _wrap32((words.to(torch.int64) * coef).sum(-1))
+
+
+def fold_words(tree, flags: torch.Tensor) -> torch.Tensor:
+    """[nl, P] int32 fold over a routed buffer and its freshness flags.
+    Entries outside `flags` are left out on both ends of a ship, so zero
+    padding never aliases real payload."""
+    k = flags.shape[-1]
+    word = _weighted_fold(flags.to(torch.int32)).to(torch.int64)
+    for x in tree_leaves(tree):
+        if x.numel() == 0 or x.dim() < 3:
+            continue
+        words = _leaf_words(x)
+        wpe = words.shape[-1] // k          # 32-bit words per route entry
+        m = flags if wpe == 1 else flags.repeat_interleave(wpe, dim=-1)
+        word = word + _weighted_fold(
+            torch.where(m, words, torch.zeros_like(words)))
+    return _wrap32(word)
+
+
+def integrity_word(tree, flags: torch.Tensor, dest: torch.Tensor,
+                   src: torch.Tensor) -> torch.Tensor:
+    """[nl, P] int32 per-route integrity word.  dest / src: [nl, P] global
+    partition ids each block is for / from (the sender fills dest from its
+    columns and src from its home rows, the receiver the other way
+    round), so zeroed, flipped and misrouted blocks all fail."""
+    return _wrap32(fold_words(tree, flags).to(torch.int64)
+                   + (dest.to(torch.int64) + 1) * _GOLD
+                   + (src.to(torch.int64) + 1) * _GOLD2)

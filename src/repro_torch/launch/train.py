@@ -10,16 +10,20 @@ mLSTM blocks run the CUDA kernels forward and backward, on the CPU their
 plain versions.  Weights are random, drawn on the device from a generator
 seeded with 0; the data is `SyntheticLM` seed 0.  AdamW runs at the
 reference's defaults (warmup max(steps // 20, 5), cosine decay over
-`--steps`).  `--ckpt-dir` raises: checkpointing is not ported yet.
+`--steps`).  `--ckpt-dir` checkpoints every `--ckpt-every` steps (and at
+a preemption and the end) and resumes from the latest checkpoint there,
+with the data stream from the resumed step's batch.
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import logging
 
 from .. import configs as C
 from ..data.tokens import Prefetcher, SyntheticLM
 from ..train import optimizer as opt_mod
+from ..train.checkpoint import Checkpointer
 from ..train.train_loop import TrainConfig, train
 from .serve import resolve_device
 
@@ -34,6 +38,7 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--kernel-mode", default="auto")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -47,12 +52,16 @@ def main(argv: list[str] | None = None) -> dict:
         context_tokens=(args.seq // cfg.frontend_downsample if cfg.is_encdec
                         else cfg.n_context_tokens),
         d_model=cfg.d_model)
+    start = 0
+    if args.ckpt_dir:
+        start = Checkpointer(args.ckpt_dir).latest_step() or 0
     tcfg = TrainConfig(
-        steps=args.steps, checkpoint_dir=args.ckpt_dir,
+        steps=args.steps, checkpoint_every=args.ckpt_every,
+        checkpoint_dir=args.ckpt_dir,
         kernel_mode=args.kernel_mode,
         opt=opt_mod.AdamWConfig(lr=args.lr, total_steps=args.steps,
                                 warmup_steps=max(args.steps // 20, 5)))
-    pf = Prefetcher(data)
+    pf = Prefetcher(data.batch(s) for s in itertools.count(start))
     try:
         out = train(cfg, pf, tcfg, device=dev)
     finally:

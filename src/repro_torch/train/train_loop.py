@@ -3,8 +3,9 @@ fault-tolerance runtime around it.
 
 The port of `repro/train/train_loop.py` on one device.  The sync point is
 `float(loss)` at each step boundary, as in the reference.  Sharding and
-meshes are out of scope; checkpointing needs `SnapshotStore`, which is not
-ported (ROADMAP Queue 1 slice 8), so `checkpoint_dir` raises.
+meshes are out of scope.  With `checkpoint_dir` the loop restores the
+latest checkpoint (`Checkpointer`), saves every `checkpoint_every` steps,
+at a preemption and at the end.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from ..configs.base import ModelConfig
 from ..core.tree import tree_leaves, tree_map
 from ..models import transformer as T
 from . import optimizer as opt_mod
+from .checkpoint import Checkpointer
 from .fault import PreemptionGuard, StepTimer, StragglerDetector
 
 log = logging.getLogger("repro_torch.train")
@@ -27,6 +29,7 @@ log = logging.getLogger("repro_torch.train")
 class TrainConfig:
     steps: int = 100
     log_every: int = 10
+    checkpoint_every: int = 50
     checkpoint_dir: str | None = None
     seed: int = 0
     kernel_mode: str = "auto"
@@ -61,16 +64,24 @@ def init_params(cfg: ModelConfig, seed: int, device) -> dict:
     return tree_map(lambda t: t.requires_grad_(True), params)
 
 
-def train(cfg: ModelConfig, data_iter, tcfg: TrainConfig, *, device) -> dict:
-    """Run the loop on `device` from `init_params(cfg, tcfg.seed, device)`;
-    returns summary metrics."""
-    if tcfg.checkpoint_dir:
-        raise NotImplementedError(
-            "checkpointing needs SnapshotStore, which is not ported yet: "
-            "ROADMAP Queue 1 slice 8")
+def train(cfg: ModelConfig, data_iter, tcfg: TrainConfig, *, device,
+          restore: bool = True) -> dict:
+    """Run the loop on `device` from `init_params(cfg, tcfg.seed, device)`,
+    or from the latest checkpoint in `tcfg.checkpoint_dir` (`restore`);
+    returns summary metrics.  The caller's data iterator yields the
+    batches of the steps the loop runs."""
     device = torch.device(device)
     params = init_params(cfg, tcfg.seed, device)
     opt_state = opt_mod.init(params)
+    ckpt = Checkpointer(tcfg.checkpoint_dir) if tcfg.checkpoint_dir else None
+    start_step = 0
+    if ckpt and restore and ckpt.latest_step() is not None:
+        s = ckpt.latest_step()
+        state = ckpt.restore(s, {"params": params, "opt": opt_state})
+        params = tree_map(lambda t: t.requires_grad_(True), state["params"])
+        opt_state = opt_mod.OptState(*state["opt"])
+        start_step = s
+        log.info("restored checkpoint at step %d", s)
     step_fn = make_train_step(cfg, tcfg.opt, tcfg.kernel_mode)
     guard = PreemptionGuard()
     detector = StragglerDetector(
@@ -79,8 +90,8 @@ def train(cfg: ModelConfig, data_iter, tcfg: TrainConfig, *, device) -> dict:
     losses, times = [], []
     it = iter(data_iter)
     t_start = time.perf_counter()
-    step = 0
-    for step in range(tcfg.steps):
+    step = start_step
+    for step in range(start_step, tcfg.steps):
         batch = {k: torch.from_numpy(v).to(device) for k, v in next(it).items()}
         with StepTimer() as timer:
             params, opt_state, metrics = step_fn(params, opt_state, batch)
@@ -90,9 +101,18 @@ def train(cfg: ModelConfig, data_iter, tcfg: TrainConfig, *, device) -> dict:
         times.append(timer.seconds)
         if step % tcfg.log_every == 0:
             log.info("step %d loss %.4f (%.3fs)", step, loss, timer.seconds)
+        if ckpt and (step + 1) % tcfg.checkpoint_every == 0:
+            ckpt.save(step + 1, {"params": params, "opt": opt_state})
         if guard.requested:
-            log.warning("preemption requested: stopping at step %d", step + 1)
+            log.warning("preemption requested: checkpointing at step %d",
+                        step + 1)
+            if ckpt:
+                ckpt.save(step + 1, {"params": params, "opt": opt_state},
+                          blocking=True)
             break
+    if ckpt:
+        ckpt.save(tcfg.steps, {"params": params, "opt": opt_state},
+                  blocking=True)
     guard.uninstall()
     wall = time.perf_counter() - t_start
     return {
@@ -100,9 +120,11 @@ def train(cfg: ModelConfig, data_iter, tcfg: TrainConfig, *, device) -> dict:
         "first_loss": losses[0] if losses else float("nan"),
         "losses": losses,
         "step_seconds": times,
-        "steps": step + 1,
+        "steps": step + 1 - start_step,
         "wall_seconds": wall,
         "straggler_events": detector.events,
         "params": params,
         "opt_state": opt_state,
+        # the snapshots written: step, bytes, copy and write seconds
+        "checkpoints": list(ckpt.store.log) if ckpt else [],
     }

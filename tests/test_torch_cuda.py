@@ -1517,3 +1517,81 @@ def test_capture_errors_raise(cuda):
         out = rep.run()
         assert float(out) == 2 * 28.0
         assert torch.equal(rep.carry["x"], carry["x"] * 4)
+
+
+# ---------------------------------------------------------------------------
+# Fault tolerance and out-of-core residency on the card
+# ---------------------------------------------------------------------------
+def _faulty(g, **plan):
+    from repro_torch.core.exchange import LocalExchange
+    from repro_torch.core.fault import FaultPlan, FaultyExchange
+    return g.replace(ex=FaultyExchange(LocalExchange(p=P), FaultPlan(**plan)))
+
+
+@pytest.mark.parametrize("attempts", [(0,), (0, 1)],
+                         ids=["transient", "persistent"])
+@pytest.mark.parametrize("transport", ["dense", "ragged"])
+def test_checked_ship_in_captured_superstep_selects_the_rung(
+        transport, attempts, cuda):
+    """PageRank through the captured `pregel` under a checked policy over a
+    fault injector: each rung runs and the device selects by the verdicts,
+    so the values equal the clean run bit for bit, and every superstep's
+    wire_faults / degraded_routes equal the CPU run's (which runs the same
+    programs eagerly)."""
+    from repro_torch.core import pregel
+    from repro_torch.core.transport import TransportPolicy
+    tp = TransportPolicy(transport, capacity_frac=0.5, cap_rounding=8,
+                         integrity=True)
+    runs = {}
+    for dev in ("cpu", cuda):
+        g, vprog, send, gather, kw = _driver_run("pagerank", dev)
+        clean = pregel(g, vprog, send, gather, transport=tp, **kw)
+        r = pregel(_faulty(g, mode="corrupt", attempts=attempts), vprog,
+                   send, gather, transport=tp, track_metrics=True, **kw)
+        assert torch.equal(r.graph.vdata["pr"], clean.graph.vdata["pr"])
+        runs[str(dev)] = [(m["wire_faults"], m["degraded_routes"])
+                          for m in r.metrics]
+    assert runs["cpu"] == runs["cuda"]
+    assert sum(d for _, d in runs["cuda"]) > 0 if attempts == (0, 1) else \
+        sum(f for f, _ in runs["cuda"]) > 0
+
+
+def test_spill_ring_round_trips_in_the_replay_buffers(cuda):
+    """Out of core on the card: the pinned copies go out after each replayed
+    superstep and back before the next, in place in the replay's buffers;
+    PageRank and CC equal the resident run bit for bit, and the ring's
+    byte counts equal the CPU run's."""
+    from repro_torch.core import pregel
+    for name in ("pagerank", "cc"):
+        recs = {}
+        for dev in ("cpu", cuda):
+            g, vprog, send, gather, kw = _driver_run(name, dev)
+            full = pregel(g, vprog, send, gather, **kw)
+            half = pregel(g, vprog, send, gather, working_set_frac=0.5,
+                          track_metrics=True, **kw)
+            assert half.supersteps == full.supersteps
+            for leaf in full.graph.vdata:
+                assert torch.equal(half.graph.vdata[leaf],
+                                   full.graph.vdata[leaf])
+            recs[str(dev)] = [(m["stream_bytes"], m["spill_host_bytes"])
+                              for m in half.metrics]
+        assert recs["cpu"] == recs["cuda"] and recs["cuda"][0][0] > 0
+
+
+def test_snapshot_mid_replay_restores_bit_equal(cuda, tmp_path):
+    """A snapshot taken between replayed supersteps (and one taken while
+    half the cells are on the host) resumes bit-equal to the
+    uninterrupted run: state, view and wire log."""
+    from repro_torch.core import pregel
+    g, vprog, send, gather, kw = _driver_run("pagerank", cuda)
+    base = pregel(g, vprog, send, gather, **kw)
+    for frac in (None, 0.5):
+        d = str(tmp_path / f"ck{frac}")
+        kw5 = dict(kw, max_supersteps=5)
+        first = pregel(g, vprog, send, gather, checkpoint=d,
+                       checkpoint_every=5, working_set_frac=frac, **kw5)
+        assert first.supersteps == 5
+        rest = pregel(g, vprog, send, gather, checkpoint=d,
+                      working_set_frac=frac, **kw)
+        assert first.supersteps + rest.supersteps == base.supersteps
+        _assert_same_state(rest.graph, base.graph)

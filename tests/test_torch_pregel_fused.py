@@ -359,8 +359,9 @@ def test_ref_mode_runs_eagerly_on_the_card():
 
 
 def test_refused_transports_name_the_roadmap(graphs):
-    """Every transport runs; only the integrity ladder is refused, and it
-    names its ROADMAP item."""
+    """Every transport runs, the integrity ladder too (the name is the old
+    refusal's): pregel_fused under a checked ragged policy equals the
+    dense run bit for bit."""
     from repro_torch.core.transport import TransportPolicy
     g, vprog, send, gather, kw = _port_run("cc", graphs[0])
     want, n = pregel_fused(g, vprog, send, gather, transport="dense",
@@ -370,9 +371,10 @@ def test_refused_transports_name_the_roadmap(graphs):
                               default_msg=kw["default_msg"])
         assert int(m) == int(n) and torch.equal(got.vdata["cc"],
                                                 want.vdata["cc"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        pregel_fused(g, vprog, send, gather, default_msg=kw["default_msg"],
-                     transport=TransportPolicy("ragged", integrity=True))
+    got, m = pregel_fused(g, vprog, send, gather,
+                          default_msg=kw["default_msg"],
+                          transport=TransportPolicy("ragged", integrity=True))
+    assert int(m) == int(n) and torch.equal(got.vdata["cc"], want.vdata["cc"])
 
 
 def test_drivers_are_exported_as_in_reference():

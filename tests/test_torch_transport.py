@@ -142,11 +142,33 @@ def test_resolve_and_capacity():
 
 
 def test_integrity_is_refused_and_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        T.resolve_transport(T.TransportPolicy("ragged", integrity=True))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        T.allgather_ship(LocalExchange(2), {"x": torch.zeros(2, 4)},
-                         torch.ones(2, 4, dtype=torch.bool), integrity=True)
+    """The integrity ladder is ported (the name is the old refusal's): an
+    integrity policy resolves, and a checked ship with no fault equals the
+    reference's checked ship and the unchecked one, with the word bytes on
+    top; the broadcast lane's checked ship equals its unchecked one."""
+    chk = T.TransportPolicy("ragged", cap_rounding=4, integrity=True)
+    assert T.resolve_transport(chk) is chk
+    rng = np.random.default_rng(5)
+    tree = _route_tree(rng)
+    flags = rng.random((4, 4, 24)) < 0.3
+    for pol in (chk, T.TransportPolicy("dense", integrity=True)):
+        got, want = _ship_both(tree, flags, pol)
+        _assert_ship_equal(got, want, flags)
+        assert float(got[2].wire_faults) == float(got[2].degraded) == 0.0
+        plain, _ = _ship_both(tree, flags, pol.replace(integrity=False))
+        for k in tree:
+            assert torch.equal(got[0][k], plain[0][k])
+        # two attempts' words ride besides the payload only on a retry
+        assert float(got[2].bytes_shipped) == float(plain[2].bytes_shipped) \
+            + 4 * 4 * 4
+    ex = LocalExchange(2)
+    x = {"x": torch.arange(8.0).reshape(2, 4)}
+    fl = torch.tensor([[True, False, True, True], [False, True, True, True]])
+    r0, f0, i0 = T.allgather_ship(ex, x, fl)
+    r1, f1, i1 = T.allgather_ship(ex, x, fl, integrity=True)
+    assert torch.equal(r0["x"], r1["x"]) and torch.equal(f0, f1)
+    assert float(i1.wire_faults) == 0.0
+    assert float(i1.bytes_shipped) == float(i0.bytes_shipped) + 2 * 4
 
 
 def test_adapt_policy_hysteresis_and_tiers():
