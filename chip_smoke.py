@@ -170,10 +170,12 @@ Phases (any failure exits non-zero before the result line):
      with the median of 5 x 20 calls and the device time beside it, and
      the bound at the three-term TF32 rate (495 / 3 TFLOP/s) beside the
      f32 one;
-  8. training xlstm-350m at its full config (24 layers, 179 M f32
-     parameters, random weights from a seed) through
+  8. training xlstm-350m at its full config (24 layers, random weights
+     from a seed) through
      `python -m repro_torch.launch.train`'s entry point: batch 8, seq 1024,
-     3 AdamW steps, 18 mLSTM forward and 18 backward launches per step,
+     3 AdamW steps, 36 mLSTM forward launches (18, and 18 again in the
+     backward's per-super-layer recompute, which leaves the sLSTM blocks
+     out) and 18 backward per step,
      finite losses; then step 1 again from the same weights and batch:
      through the kernels with every mLSTM forward and backward call held in
      place against its plain version on the same inputs and cotangent, and
@@ -181,7 +183,36 @@ Phases (any failure exits non-zero before the result line):
      checkpoints after step 2 (`--ckpt-dir`, `Checkpointer`), and a run
      resumed from that snapshot for step 3 must give its loss and every
      parameter bit for bit (the snapshot's bytes, copy and write seconds
-     logged).
+     logged);
+  9. (a) the flash attention backward kernel against
+     `ref.flash_attention_backward` on the same inputs and cotangent at
+     recurrentgemma-2b's windowed call ([2, 10, 2048, 256] against
+     [2, 1, 4096, 256], kv_offset 2048), its chunk-0 call on the strided
+     views (read in place, no copy), stablelm-1.6b's causal
+     [1, 32, 4096, 64] and a non-causal GQA-4 cross shape ([1, 32, 4096,
+     128] against [1, 8, 1664, 128]): the grids and shared memory
+     `bwd_plan` chose (== what the build lays out), each gradient within
+     a relative-norm limit, two runs bit-equal, kernel, plain and
+     scaled_dot_product_attention-backward times (5 calls, the median of
+     5 x 20 calls and the device time) and the bound; a mutant that drops
+     one head of each GQA group from dK/dV must fail; at each shape the
+     forward kernel's output (at Dh 256 its CUDA-core body) per element
+     against `ref.flash_attention` within one bf16 spacing, which the
+     plain version without any one of `plan`'s key splits, or without one
+     key tile, must break; (b) training
+     recurrentgemma-2b at its full config (26 layers, random weights from
+     a seed) through `python -m repro_torch.launch.train`'s entry point:
+     batch 1, seq 4096, 3 AdamW steps, 32 flash forward launches (8 local
+     attention layers x 2 calls, twice under the per-super-layer
+     recompute) and 16 backward launches a step, finite losses, the peak
+     device memory; then step 1 again from the same weights and batch:
+     through the kernels with every flash call held in place, its output
+     per element against the plain forward (the recompute's calls too) and
+     its gradients against the plain backward on the same inputs and
+     cotangent, and
+     through the plain versions, whose loss must agree; then 8 decode
+     steps from those weights (RG-LRU states and ring caches on the card,
+     finite logits).
 Phase 2 also runs spmv (the PageRank send as one SpMV through the triplet
 kernel) against its plain version and a CSR `torch.sparse.mm`, and the
 triplet kernel on the PageRank send's rows encoded by `wire.encode_resident`
@@ -193,6 +224,7 @@ It then prints the kernel table as one JSON line and, last, the device line
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import subprocess
@@ -238,6 +270,35 @@ MLSTM_SHAPES = [("slice: xlstm-350m, batch 8, seq 1024", 8, 4, 1024, 256, 64),
 # relative 1e-6 (the normaliser's max(|den|, exp(-m)) switches branch under
 # rounding), so no limit that a sound run meets would fail a wrong one.
 TRAIN_LOSS_LIMIT = 1e-3
+# phase 9 (a): the flash backward against the f32 plain backward, relative
+# norm per gradient.  P and dS enter the tensor cores as one bf16 term each
+# (relative rounding up to 2^-9, of either sign) and both sides round each
+# gradient to bf16 once, so a sound kernel sits a few 2^-9 / sqrt(3) away;
+# 1e-2 is about 5 x 2^-9.  Dropping one head of a GQA group moves dK and
+# dV by about 1 / sqrt(group) of their size.
+FLASH_GRAD_REL_LIMIT = 1e-2
+FLASH_BWD_SHAPES = [
+    # name, B, Hq, Hkv, Lq, Lk, Dh, causal, kv_offset
+    ("recurrentgemma-2b windowed call", 2, 10, 1, 2048, 4096, 256, True,
+     2048),
+    ("recurrentgemma-2b chunk-0 call, strided views", 1, 10, 1, 2048, 2048,
+     256, True, 0),
+    ("stablelm-1.6b causal", 1, 32, 32, 4096, 4096, 64, True, 0),
+    ("GQA 4 cross, non-causal", 1, 32, 8, 4096, 1664, 128, False, 0)]
+# the dK/dV loop with one head of each group dropped (phase 9's mutant)
+BWD_HEADS = ("  const int heads = group;  // the group's query heads, summed "
+             "in order", "  const int heads = group - 1;")
+# phase 9 (b): recurrentgemma-2b's training step
+RG_ARCH, RG_BATCH, RG_SEQ, RG_STEPS, RG_DECODE = ("recurrentgemma-2b", 1,
+                                                  4096, 3, 8)
+# step 1's loss through the kernels vs through the plain versions, relative
+# (scripts/lm_loss_spread.py on an NVIDIA H100 80GB HBM3, 700 W): kernels
+# 12.8882122 vs plain 12.8879404, 2.1e-5; the plain loss itself moves by
+# 7.0e-5 and 1.1e-5 when the weights move by a relative 1e-6 and 1e-5 N(0,
+# 1).  So the limit is 3e-4, ~4x the largest rounding spread.  As phase
+# 8's, it checks that the model runs the same function through the
+# kernels; every flash backward call held in place checks the kernel.
+RG_TRAIN_LOSS_LIMIT = 3e-4
 # phase 3b: the narrow-resident codecs, and the contracts of the reference's
 # tests (test_wire.py:test_pagerank_int8_wire_error_and_bytes_regression,
 # test_view.py:test_narrow_resident_f32_pagerank_norm_err)
@@ -2269,6 +2330,373 @@ def phase_4b_quickstart(qs_mod, dev, tally):
         f"its 7 lines == the JAX quickstart's")
 
 
+def bwd_mutant_source(dh: int, source=None) -> str:
+    """csrc/flash_attention_bwd.cu (from `source`, the backward's source
+    function; `flash_attention.bwd_source` when None) with one head of each
+    group dropped from the dK/dV sums (phase 9's mutant)."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    src = (source or flash_mod.bwd_source)(dh)
+    if src.count(BWD_HEADS[0]) != 1:
+        raise AssertionError("the dK/dV head loop line is not in the source")
+    return src.replace(*BWD_HEADS)
+
+
+def rel_norm(a, b) -> float:
+    return float((a.float() - b.float()).norm()
+                 / b.float().norm().clamp_min(1e-30))
+
+
+def plain_without_keys(q, k, v, lo: int, hi: int, *, causal: bool,
+                       kv_offset: int = 0):
+    """The plain attention (`ref.flash_attention`'s f32 softmax) with keys
+    [lo, hi) masked as well: the mutant of phase 9's forward check.  Rows
+    that see no key give 0.  Output in q's dtype."""
+    import torch
+    b, hq, lq, dh = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    keys = torch.arange(lk, device=q.device)
+    mask = ((keys < lo) | (keys >= hi))[None, :].expand(lq, lk)
+    if causal:
+        mask = mask & (torch.arange(lq, device=q.device)[:, None] + kv_offset
+                       >= keys[None, :])
+    s = torch.einsum("bhgqd,bhkd->bhgqk",
+                     q.float().reshape(b, hkv, g, lq, dh) * dh ** -0.5,
+                     k.float())
+    s = torch.where(mask, s, -1e30)
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return (out / torch.where(l == 0.0, 1.0, l)).reshape(q.shape).to(q.dtype)
+
+
+def flash_forward_check(name, q, k, v, out, kw) -> dict:
+    """The forward's output `out` per element against the plain version
+    within `flash_limit`; the plain version without any one of the plan's
+    key splits, or without one key tile halfway along the visible keys,
+    must break that limit (phase 9 (a))."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ref
+    p = flash_mod.plan(q.shape, k.shape, q.dtype, **kw)
+    want = ref.flash_attention(q, k, v, **kw)
+    lim = flash_limit(want)
+    diff = (out.float() - want.float()).abs()
+    if bool((diff > lim).any()):
+        raise AssertionError(f"flash[{name}]: {int((diff > lim).sum())} "
+                             f"outputs beyond their limit (max |err| "
+                             f"{float(diff.max())})")
+    mid = p.kv_end // 2 // p.block_k * p.block_k
+    drops = [*p.splits, (mid, min(mid + p.block_k, p.kv_end))]
+    for lo, hi in drops:
+        mut = plain_without_keys(q, k, v, lo, hi, **kw)
+        if not bool(((mut.float() - want.float()).abs() > lim).any()):
+            raise AssertionError(f"flash[{name}]: the plain version without "
+                                 f"keys {lo}:{hi} passes the limit")
+        del mut
+    return {"body": p.body, "max_abs_err": float(diff.max()),
+            "splits": len(p.splits), "drops": drops}
+
+
+def phase_9a_flash_backward(gen, dev, results) -> None:
+    """The flash backward kernel at its four shapes, and the forward there
+    (see the docstring)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ref
+    bwd = flash_mod.flash_attention_bwd
+    for name, b, hq, hkv, lq, lk, dh, causal, off in FLASH_BWD_SHAPES:
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+        if "strided" in name:
+            # as _windowed_attention's chunk-0 call: rows 0, nc, ... of the
+            # chunked queries and the current halves of the key pairs
+            nc = 2
+            q = rnd(b * nc, hq, lq, dh)[::nc]
+            k, v = (rnd(b * nc, hkv, 2 * lk, dh)[::nc, :, lk:]
+                    for _ in range(2))
+        else:
+            q, k, v = rnd(b, hq, lq, dh), rnd(b, hkv, lk, dh), \
+                rnd(b, hkv, lk, dh)
+        kw = dict(causal=causal, kv_offset=off)
+        out = flash_mod.flash_attention(q, k, v, **kw)
+        fwd = flash_forward_check(name, q, k, v, out, kw)
+        dout = rnd(b, hq, lq, dh)
+        ins = (q, k, v, out, dout)
+        p = flash_mod.bwd_plan(q.shape, k.shape, **kw,
+                               strides=tuple(t.stride() for t in ins))
+        lay = flash_mod.bwd_layout(dh)
+        if (lay["smem_dq"], lay["smem_dkv"], lay["ncol"]) != (
+                p.smem_dq, p.smem_dkv, p.ncol):
+            raise AssertionError(f"flash_bwd[{name}]: the build lays out "
+                                 f"{lay}, bwd_plan {p}")
+        copies = bwd.copies
+        got = bwd(*ins, **kw)
+        again = bwd(*ins, **kw)
+        want = ref.flash_attention_backward(*ins, **kw)
+        torch.cuda.synchronize()
+        if bwd.copies != copies or any(p.copy):
+            raise AssertionError(f"flash_bwd[{name}]: {bwd.copies - copies} "
+                                 "inputs copied")
+        if not all(map(torch.equal, got, again)):
+            raise AssertionError(f"flash_bwd[{name}]: two runs differ")
+        rels = {n: rel_norm(g, w) for n, g, w in zip(("dq", "dk", "dv"), got,
+                                                      want)}
+        if not all(bool(torch.isfinite(g.float()).all()) for g in got) or \
+                max(rels.values()) > FLASH_GRAD_REL_LIMIT:
+            raise AssertionError(f"flash_bwd[{name}]: relative errors {rels}"
+                                 f" (limit {FLASH_GRAD_REL_LIMIT})")
+        err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+        mutant = None
+        if hq != hkv:
+            # one head of each group dropped from dK/dV: must break the limit
+            orig = flash_mod.bwd_source
+            flash_mod.bwd_source = functools.partial(bwd_mutant_source,
+                                                     source=orig)
+            try:
+                mg = bwd(*ins, **kw)
+            finally:
+                flash_mod.bwd_source = orig
+            mutant = {n: rel_norm(g, w) for n, g, w in
+                      zip(("dq", "dk", "dv"), mg, want)}
+            if max(mutant["dk"], mutant["dv"]) <= FLASH_GRAD_REL_LIMIT:
+                raise AssertionError(f"flash_bwd[{name}]: the dropped-head "
+                                     f"mutant passes ({mutant})")
+            del mg
+        # the forward kernel at the same shape (at Dh 256 its CUDA-core body)
+        fwd_body = fwd["body"]
+        fwd_ms = cuda_ms(lambda: flash_mod.flash_attention(q, k, v, **kw))
+        kern = lambda: bwd(*ins, **kw)  # noqa: E731
+        ms, med = cuda_ms(kern), median_ms(kern)
+        dms, dms_by = device_ms(kern)
+        plain_ms = cuda_ms(lambda: ref.flash_attention_backward(*ins, **kw),
+                           3)
+        # the library: SDPA's backward alone, its forward not timed
+        lq_, lk_, lv_ = (t.detach().requires_grad_() for t in (q, k, v))
+        if causal and off == 0 and lq == lk:
+            lib_kw = dict(is_causal=True)
+        elif causal:
+            lib_kw = dict(attn_mask=torch.arange(lq, device=dev)[:, None] + off
+                          >= torch.arange(lk, device=dev)[None, :])
+        else:
+            lib_kw = {}
+        lib_out = F.scaled_dot_product_attention(lq_, lk_, lv_, **lib_kw,
+                                                 enable_gqa=True)
+        lib = lambda: torch.autograd.grad(  # noqa: E731
+            lib_out, (lq_, lk_, lv_), dout, retain_graph=True)
+        lib_rel = max(rel_norm(g, w) for g, w in zip(lib(), want))
+        lib_ms, lib_med = cuda_ms(lib), median_ms(lib)
+        lib_dms, lib_dms_by = device_ms(lib)
+        pairs = visible_pairs(lq, lk, causal, off)
+        flops = 10 * b * hq * dh * pairs
+        nbytes = 2 * (4 * b * hq * lq * dh + 4 * b * hkv * lk * dh)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+        mask = "causal" if causal else "non-causal"
+        row = {"variant": f"{name}: q [{b}, {hq}, {lq}, {dh}], k/v [{b}, "
+                          f"{hkv}, {lk}, {dh}], {mask}, kv_offset {off} "
+                          f"(bf16; bound peak "
+                          f"{BF16_FLOPS / 1e12:.0f} TFLOP/s bf16, "
+                          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)",
+               "max_abs_err": err,
+               "tol": f"relative norm per gradient <= {FLASH_GRAD_REL_LIMIT}",
+               "grad_rel_err": rels, "mutant_rel_err": mutant,
+               "ms": ms, "median_ms": med, "device_ms": dms,
+               "device_ms_by": dms_by, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+               "library_median_ms": lib_med, "library_device_ms": lib_dms,
+               "library_device_ms_by": lib_dms_by, "library_rel_err": lib_rel,
+               "grid_dq": p.grid_dq, "grid_dkv": p.grid_dkv,
+               "smem": [p.smem_dq, p.smem_dkv], "copies": 0,
+               "forward_body": fwd_body, "forward_ms": fwd_ms,
+               "forward_max_abs_err": fwd["max_abs_err"],
+               "forward_tol": "per output 2^-7*|plain| + 1e-6 (one bf16 "
+                              "spacing)",
+               "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+        log(f"  flash_bwd[{name}]: plan dQ grid {p.grid_dq}, dK/dV grid "
+            f"{p.grid_dkv} ({p.ncol} column CTA(s) of {p.dc}), smem "
+            f"{p.smem_dq} / {p.smem_dkv} B (== the build's), 0 inputs "
+            f"copied; relative error " + ", ".join(
+                f"{n} {e:.3g}" for n, e in rels.items())
+            + f" (limit {FLASH_GRAD_REL_LIMIT}), two runs bit-equal"
+            + ("" if mutant is None else "; dropped-head mutant "
+               + ", ".join(f"{n} {e:.3g}" for n, e in mutant.items())
+               + " (fails)"))
+        log(f"    kernel {ms:.4f} ms (median of 5 x 20 calls {med:.4f}, "
+            f"device {ms_str(dms)} ({dms_by})), plain {plain_ms:.4f} ms, "
+            f"sdpa backward {lib_ms:.4f} ms (median {lib_med:.4f}, device "
+            f"{ms_str(lib_dms)} ({lib_dms_by}); |sdpa - plain| rel "
+            f"{lib_rel:.3g}; it reads the log-sum-exp its forward saved, "
+            f"which this kernel recomputes, and its forward is not timed"
+            f"{'; boolean mask' if 'attn_mask' in lib_kw else ''}); "
+            f"{flops / 1e9:.1f} GFLOP (5 products over {pairs} visible "
+            f"pairs a head), {nbytes / 1e6:.0f} MB -> bound {b_ms:.4f} ms "
+            f"({b_by}), {100 * b_ms / ms:.1f}% of it; the forward kernel "
+            f"here ({fwd_body} body) {fwd_ms:.4f} ms")
+        log(f"    forward ({fwd_body} body, {fwd['splits']} key split(s)) "
+            f"vs plain per output: max |err| {fwd['max_abs_err']:.3g} "
+            f"(limit one bf16 spacing); the plain version without keys "
+            + ", ".join(f"{a}:{b_}" for a, b_ in fwd["drops"])
+            + " breaks it (each)")
+        results.setdefault("flash_attention_bwd", []).append(row)
+        del q, k, v, out, dout, ins, got, again, want, lq_, lk_, lv_, lib_out
+        torch.cuda.empty_cache()
+
+
+def phase_9b_train(dev, launches) -> None:
+    """recurrentgemma-2b's training through the launch entry point, step 1
+    again held in place, and decode (see the docstring)."""
+    import numpy as np
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.tokens import SyntheticLM
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import transformer as T
+    from repro_torch.train import train_loop as tl
+    cfg = C.get(RG_ARCH)
+    n_local = sum(cfg.layer_pattern[i % len(cfg.layer_pattern)]
+                  == "local_attn" for i in range(cfg.n_layers))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    tr = train_launch.main(["--arch", RG_ARCH, "--steps", str(RG_STEPS),
+                            "--batch", str(RG_BATCH), "--seq", str(RG_SEQ)])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # a step: 2 calls a local-attention layer (the windowed call and
+    # chunk 0's), run again in the backward's recompute; one backward each
+    want = {"flash_attention": 4 * n_local * RG_STEPS,
+            "flash_attention_bwd": 2 * n_local * RG_STEPS}
+    for kname, n in want.items():
+        if counts[kname] != n:
+            raise AssertionError(f"{kname} launches {counts[kname]}, "
+                                 f"expected {n}")
+    launches["flash_attention"] += counts["flash_attention"]
+    launches["flash_attention_bwd"] = counts["flash_attention_bwd"]
+    losses = tr["losses"]
+    if len(losses) != RG_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"training losses {losses}")
+    n_params = T.param_count(tr["params"])
+    steps_s = tr["step_seconds"]
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  {cfg.name}: {n_params / 1e9:.3f} B params, {cfg.n_layers} layers "
+        f"({n_local} local attention, window {cfg.window}); batch {RG_BATCH}"
+        f" x seq {RG_SEQ}; losses {[round(x, 4) for x in losses]}; step "
+        f"seconds {[round(x, 3) for x in steps_s]} (synchronised), "
+        f"{RG_BATCH * RG_SEQ / steps_s[-1]:.0f} tokens/s at the last step; "
+        f"peak device memory {peak:.2f} GiB; flash launches "
+        f"{counts['flash_attention']} forward, "
+        f"{counts['flash_attention_bwd']} backward "
+        f"({want['flash_attention'] // RG_STEPS} + "
+        f"{want['flash_attention_bwd'] // RG_STEPS} a step)")
+
+    # step 1 again from the same weights and batch, every flash call's
+    # backward held in place against the plain backward on its inputs and
+    # cotangent (the calls of the recompute are not differentiated: their
+    # graph only refills what the first forward let go)
+    params = tl.init_params(cfg, 0, dev)
+    batch = {k: torch.from_numpy(a).to(dev) for k, a in SyntheticLM(
+        cfg.vocab, RG_SEQ, RG_BATCH, seed=0).batch(0).items()}
+    in_place = []
+    kernel_attention = ops.flash_attention
+
+    def held_in_place(q, k, v, *, causal=True, scale=None, kv_offset=0,
+                      mode="auto"):
+        out = kernel_attention(q, k, v, causal=causal, scale=scale,
+                               kv_offset=kv_offset, mode=mode)
+        kw = dict(causal=causal, scale=scale, kv_offset=kv_offset)
+        # the forward, per output against the plain version on the same
+        # inputs (the recompute's calls too), as phase 6
+        with torch.no_grad():
+            want = kernel_attention(q, k, v, **kw, mode="ref")
+            diff = (out.float() - want.float()).abs()
+            if bool((diff > flash_limit(want)).any()):
+                raise AssertionError(f"flash forward in place, call "
+                                     f"{len(in_place)}: max |err| "
+                                     f"{float(diff.max())}")
+        rec = {"fwd": float(diff.max())}
+        in_place.append(rec)
+        del want, diff
+        if not out.requires_grad:
+            return out
+        ins = [t.detach() for t in (q, k, v, out)]
+
+        def check(dout):
+            kg = flash_mod.flash_attention_bwd(*ins, dout, **kw)
+            pg = ref.flash_attention_backward(*ins, dout, **kw)
+            rec["rel"] = max(rel_norm(a, b) for a, b in zip(kg, pg))
+            if rec["rel"] > FLASH_GRAD_REL_LIMIT:
+                raise AssertionError(f"flash backward in place, call "
+                                     f"{len(in_place) - 1}: relative error "
+                                     f"{rec['rel']}")
+
+        out.register_hook(check)
+        return out
+
+    ops.flash_attention = held_in_place
+    try:
+        loss = T.loss_fn(params, batch, cfg, mode="auto")
+        loss.backward()
+    finally:
+        ops.flash_attention = kernel_attention
+    loss_k = float(loss.detach())
+    del loss
+    checked = [r["rel"] for r in in_place if "rel" in r]
+    if len(in_place) != 4 * n_local or len(checked) != 2 * n_local:
+        raise AssertionError(f"{len(in_place)} flash calls, {len(checked)} "
+                             "backward calls held in place")
+    for t in tree_leaves(params):
+        t.grad = None
+    with torch.no_grad():
+        loss_r = float(T.loss_fn(params, batch, cfg, mode="ref"))
+    if not abs(loss_k - loss_r) <= RG_TRAIN_LOSS_LIMIT * abs(loss_r):
+        raise AssertionError(f"step 1 loss, kernels {loss_k} vs plain "
+                             f"{loss_r}")
+    log(f"  step 1, kernels vs plain: loss {loss_k:.6f} vs {loss_r:.6f} "
+        f"(relative {abs(loss_k - loss_r) / abs(loss_r):.3g}, limit "
+        f"{RG_TRAIN_LOSS_LIMIT}; the training run's step 1 read "
+        f"{losses[0]:.6f}); in place, all {len(in_place)} flash forward "
+        f"calls: max |err| {max(r['fwd'] for r in in_place):.3g} (limit one "
+        f"bf16 spacing per output); all {len(checked)} flash backward "
+        f"calls: relative error max {max(checked):.3g} (limit "
+        f"{FLASH_GRAD_REL_LIMIT})")
+
+    # decode from those weights: RG-LRU states and ring caches on the card
+    with torch.no_grad():
+        toks = batch["tokens"][:, :RG_DECODE]
+        state = T.init_decode_state(cfg, RG_BATCH, RG_SEQ, device=dev)
+        logits = []
+        t0 = time.perf_counter()
+        for pos in range(RG_DECODE):
+            lg, state = T.decode_step(params, state, toks[:, pos:pos + 1],
+                                      pos, cfg)
+            logits.append(lg)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        dec = torch.cat(logits, 1)
+        full = T.forward(params, {"tokens": toks}, cfg)
+    on_card = all(t.is_cuda for st in state.values() for slot in st.values()
+                  for t in slot.values())
+    if dec.shape != (RG_BATCH, RG_DECODE, cfg.vocab) or not on_card or \
+            not bool(torch.isfinite(dec).all()):
+        raise AssertionError(f"decode logits {tuple(dec.shape)}, state on "
+                             f"the card {on_card}")
+    d = (dec - full).abs()
+    log(f"  decode {RG_DECODE} steps from those weights: {t_dec:.3f} s "
+        f"({t_dec / RG_DECODE * 1e3:.1f} ms a step), logits finite, states "
+        f"and ring caches (length {cfg.window}) on the card; vs the "
+        f"forward on the same {RG_DECODE} tokens max |diff| "
+        f"{float(d.max()):.4g}, mean {float(d.mean()):.4g}")
+    del params, batch, state, dec, full
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2342,6 +2770,14 @@ def main() -> int:
     k_bf = mt.fused_plan(g_bf_t, alg.pagerank_send, "sum").kernel
     sources += [("triplet", tri_mod.source(k_bf, "sum", "dst", False,
                                            torch.bfloat16, False, 2))]
+    # phase 9: the forward at the backward shapes' head dims, the backward
+    # and its dropped-head mutant
+    sources += [("flash_attention", flash_mod.source(dh))
+                for dh in (64, 256)]
+    sources += [("flash_attention_bwd", flash_mod.bwd_source(dh))
+                for dh in (64, 128, 256)]
+    sources += [("flash_attention_bwd", bwd_mutant_source(dh))
+                for dh in (128, 256)]
     sources += [("mlstm", mlstm_mod.plan(min(c, l), dh).source())
                 for _, _, _, l, dh, c in MLSTM_SHAPES]
     # phase 4b's UDFs: SSSP's send and apply, label propagation's dm-16
@@ -3464,11 +3900,17 @@ def main() -> int:
     cfg = C.get(TRAIN_ARCH)
     n_mlstm = sum(cfg.layer_pattern[i % len(cfg.layer_pattern)] == "mlstm"
                   for i in range(cfg.n_layers))
+    # the forward runs again for the layers of the super-layers, which the
+    # backward recomputes (remat, as the reference's jax.checkpoint)
+    period = len(cfg.layer_pattern)
+    n_remat = sum(cfg.layer_pattern[i % period] == "mlstm" for i in
+                  range(cfg.n_layers // period * period))
+    per_step = {"mlstm_fwd": n_mlstm + n_remat, "mlstm_bwd": n_mlstm}
     for kname in ("mlstm_fwd", "mlstm_bwd"):
         launches[kname] = counts[kname]
-        if counts[kname] != n_mlstm * TRAIN_STEPS:
+        if counts[kname] != per_step[kname] * TRAIN_STEPS:
             raise AssertionError(f"{kname} launches {counts[kname]}, expected "
-                                 f"{n_mlstm * TRAIN_STEPS}")
+                                 f"{per_step[kname] * TRAIN_STEPS}")
     losses = tr["losses"]
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
         raise AssertionError(f"training losses {losses}")
@@ -3493,7 +3935,7 @@ def main() -> int:
     counts = ops.launch_counts()
     for kname in ("mlstm_fwd", "mlstm_bwd"):
         launches[kname] += counts[kname]
-        if counts[kname] != n_mlstm:
+        if counts[kname] != per_step[kname]:
             raise AssertionError(f"resumed {kname} launches {counts[kname]}")
     if tr2["losses"] != losses[TRAIN_STEPS - 1:] or not all(
             torch.equal(a, b) for a, b in zip(tree_leaves(tr2["params"]),
@@ -3513,7 +3955,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     # step 1 again from the same initial weights and batch: forward and
-    # backward through the kernels, each mLSTM call held in place against
+    # backward through the kernels, each mLSTM call (the recompute's too,
+    # forward only: its graph is not differentiated) held in place against
     # the plain version on its own inputs (forward) and cotangent
     # (backward; zero on the rows where the normaliser's branch is
     # ambiguous, which are counted), then the loss through the plain
@@ -3565,8 +4008,10 @@ def main() -> int:
         ops.mlstm_chunked = kernel_mlstm
     loss_k = float(loss.detach())
     del loss
-    if len(in_place) != n_mlstm or any("bwd" not in r for r in in_place):
-        raise AssertionError(f"{len(in_place)} mlstm calls held in place")
+    bwd_held = [r["bwd"] for r in in_place if "bwd" in r]
+    if len(in_place) != n_mlstm + n_remat or len(bwd_held) != n_mlstm:
+        raise AssertionError(f"{len(in_place)} mlstm calls held in place, "
+                             f"{len(bwd_held)} backward")
     with torch.no_grad():
         loss_r = float(T.loss_fn(params, batch, cfg, mode="ref"))
     if not abs(loss_k - loss_r) <= TRAIN_LOSS_LIMIT * abs(loss_r):
@@ -3577,25 +4022,39 @@ def main() -> int:
         f"seconds {[round(x, 3) for x in steps_s]} (synchronised), "
         f"{TRAIN_BATCH * TRAIN_SEQ / steps_s[-1]:.0f} tokens/s at the last "
         f"step; peak device memory {peak:.2f} GiB; mlstm launches "
-        f"{launches['mlstm_fwd']} forward, {launches['mlstm_bwd']} backward")
+        f"{launches['mlstm_fwd']} forward ({n_mlstm} + {n_remat} "
+        f"recomputed a step), {launches['mlstm_bwd']} backward")
     log(f"  step 1, kernels vs plain: loss {loss_k:.6f} vs {loss_r:.6f} "
         f"(|diff| {abs(loss_k - loss_r):.3g}, limit {TRAIN_LOSS_LIMIT} "
         f"relative; the training run's step 1 read {losses[0]:.6f}); in "
         f"place, all {len(in_place)} mLSTM calls:"
         f" forward worst err/limit {max(r['fwd'] for r in in_place):.3g}, "
-        f"backward relative error max "
-        f"{max(r['bwd'] for r in in_place):.3g} (limit "
+        f"backward ({len(bwd_held)} calls) relative error max "
+        f"{max(bwd_held):.3g} (limit "
         f"{MLSTM_GRAD_REL_LIMIT}; cotangent zeroed on "
-        f"{sum(r['ambiguous'] for r in in_place)} of "
+        f"{sum(r['ambiguous'] for r in in_place if 'bwd' in r)} of "
         f"{n_mlstm * TRAIN_BATCH * cfg.n_heads * TRAIN_SEQ} rows whose "
         f"normaliser branch is within rounding)")
     del params, batch
     log(f"  phase 8: {time.perf_counter() - t_phase:.1f} s")
 
+    # ---------------------------------------------------------- phase 9
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 9: the flash attention backward kernel vs plain, then "
+        f"train {RG_ARCH}, batch {RG_BATCH}, seq {RG_SEQ}, {RG_STEPS} steps")
+    phase_9a_flash_backward(gen, dev, results)
+    phase_9b_train(dev, launches)
+    log(f"  phase 9: {time.perf_counter() - t_phase:.1f} s")
+
     replaces = {"triplet": "src/repro/kernels/triplet.py:447",
                 "apply": "src/repro/kernels/superstep.py:179",
                 "segment_sum": "src/repro/kernels/segment_sum.py:101",
                 "flash_attention": "src/repro/kernels/flash_attention.py:121",
+                # no Pallas kernel: the reference differentiates its plain
+                # attention
+                "flash_attention_bwd": "src/repro/kernels/ref.py:181",
                 "mlstm_fwd": "src/repro/kernels/mlstm.py:102",
                 "mlstm_bwd": "src/repro/kernels/mlstm.py:102",
                 "spmv": "src/repro/kernels/spmv.py:59"}

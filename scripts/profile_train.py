@@ -1,33 +1,50 @@
-"""Where an xlstm-350m training step's time goes on the card.
+"""Where a training step's time goes on the card.
 
-    python3 scripts/profile_train.py
+    python3 scripts/profile_train.py [--arch xlstm-350m] [--batch 8]
+        [--seq 1024]
+    python3 scripts/profile_train.py --arch recurrentgemma-2b --batch 1 \\
+        --seq 4096
 
-Draws xlstm-350m in full on the card (`train_loop.init_params`, seed 0;
-24 layers, 179 M f32 parameters) and trains on `SyntheticLM` seed 0 at
-batch 8, seq 1024 with AdamW: one step to warm up, three timed untraced
-(host clock around each step, which ends in `float(loss)`).  Then, still
-untraced, it times the two block kinds alone on the same shapes: forward +
-backward of one block from a random input and cotangent (synchronised, mean
-of three), for the 6 sLSTM blocks' and the 18 mLSTM blocks' share of the
-untraced step.  Last come the traced runs (`torch.profiler`, CPU + CUDA
-activities; a trace slows every launch, so nothing is timed after one):
-one training step, for its device busy time (summed kernel time; the port
-launches on one stream), its kernel count, the idle share of an untraced
-step (1 - busy / untraced wall), the device time by kernel name and the
-mLSTM kernels' (`mlstm_*`) share; and one block of each kind, for its
-kernel count.  The peak device memory is that of the timed untraced steps
-(`torch.cuda.max_memory_allocated`).  Needs one CUDA card.
+Draws the config in full on the card (`train_loop.init_params`, seed 0)
+and trains on `SyntheticLM` seed 0 with AdamW through
+`train_loop.make_train_step` (the per-super-layer recompute on): one step
+to warm up, three timed untraced (host clock around each step, which ends
+in `float(loss)`), with their losses and peak device memory
+(`torch.cuda.max_memory_allocated`).  Then, still untraced, it times each
+recurrent block kind of the config alone on the same shapes (sLSTM, mLSTM,
+RG-LRU): forward + backward of one block from a random input and cotangent
+(synchronised, mean of three), for the kind's share of the untraced step.
+Last come the traced runs (`torch.profiler`, CPU + CUDA activities; a
+trace slows every launch, so nothing is timed after one): one training
+step, for its device busy time (summed kernel time; the port launches on
+one stream), its kernel count, the idle share of an untraced step (1 -
+busy / untraced wall), the device time of the top kernels by name and the
+share of each of the port's kernel families (`mlstm_*`, the flash forward
+`flash_simt` / `flash_tc` / `flash_decode`, the flash backward
+`flash_bwd_*`); and one block of each kind, for its kernel count.  Prints
+the card's name and power limit.  Needs one CUDA card.
 """
+import argparse
+import subprocess
 import sys
 import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
-ARCH, BATCH, SEQ, WARM, TIMED = "xlstm-350m", 8, 1024, 1, 3
+WARM, TIMED = 1, 3
+# kernel families by name: the names their __global__ functions start with
+FAMILIES = {"mLSTM": ("mlstm_",), "flash forward": ("flash_simt", "flash_tc",
+                                                   "flash_decode"),
+            "flash backward": ("flash_bwd_",)}
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="xlstm-350m")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=1024)
+    args = ap.parse_args()
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -42,13 +59,17 @@ def main() -> int:
     from repro_torch.train import optimizer as opt
     from repro_torch.train import train_loop as tl
 
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
     dev = torch.device("cuda")
-    cfg = C.get(ARCH)
+    cfg = C.get(args.arch)
+    batch_n, seq = args.batch, args.seq
     params = tl.init_params(cfg, 0, dev)
     ostate = opt.init(params)
     step = tl.make_train_step(cfg, opt.AdamWConfig(total_steps=10,
                                                    warmup_steps=5))
-    data = SyntheticLM(cfg.vocab, SEQ, BATCH, seed=0)
+    data = SyntheticLM(cfg.vocab, seq, batch_n, seed=0)
 
     def run(i):
         nonlocal params, ostate
@@ -56,27 +77,32 @@ def main() -> int:
                  for k, a in data.batch(i).items()}
         t0 = time.perf_counter()
         params, ostate, m = step(params, ostate, batch)
-        float(m["loss"])
-        return time.perf_counter() - t0
+        loss = float(m["loss"])
+        return time.perf_counter() - t0, loss
 
     for i in range(WARM):
         run(i)
     torch.cuda.reset_peak_memory_stats()
-    walls = [run(WARM + i) for i in range(TIMED)]
+    timed = [run(WARM + i) for i in range(TIMED)]
     peak = torch.cuda.max_memory_allocated() / 2**30
+    walls = [t for t, _ in timed]
     wall = sum(walls) / TIMED
+    print(f"{cfg.name}, batch {batch_n}, seq {seq}; card {card}")
 
-    # the two block kinds alone, forward + backward of one block
+    # the recurrent block kinds alone, forward + backward of one block
     gen = torch.Generator(device=dev).manual_seed(1)
-    x = torch.randn((BATCH, SEQ, cfg.d_model), generator=gen, device=dev)
-    dy = torch.randn((BATCH, SEQ, cfg.d_model), generator=gen, device=dev)
+    x = torch.randn((batch_n, seq, cfg.d_model), generator=gen, device=dev)
+    dy = torch.randn((batch_n, seq, cfg.d_model), generator=gen, device=dev)
     kinds = {"slstm": (R.init_slstm, lambda p, h: R.slstm_block(p, h)),
              "mlstm": (R.init_mlstm, lambda p, h: R.mlstm_block(
-                 p, h, chunk=cfg.mlstm_chunk))}
+                 p, h, chunk=cfg.mlstm_chunk)),
+             "rglru": (R.init_rglru, lambda p, h: R.rglru_block(p, h))}
     n_of = {k: sum(cfg.layer_pattern[i % len(cfg.layer_pattern)] == k
                    for i in range(cfg.n_layers)) for k in kinds}
     fwd_bwd = {}
     for kind, (init, block) in kinds.items():
+        if not n_of[kind]:
+            continue
         p = {k: t.requires_grad_(True) for k, t in init(
             cfg, generator=gen, device=dev).items()}
         xin = x.clone().requires_grad_(True)
@@ -98,25 +124,30 @@ def main() -> int:
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        traced = run(WARM + TIMED)
+        traced, _ = run(WARM + TIMED)
+        torch.cuda.synchronize()
     rows = [(e.key, e.device_time_total, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) / 1e6
     n_kernels = sum(r[2] for r in rows)
-    print(f"{cfg.name} train step, batch {BATCH}, seq {SEQ}: untraced wall "
-          f"{wall:.3f} s per step ({', '.join(f'{w:.3f}' for w in walls)}),"
-          f" traced wall {traced:.3f} s; device busy {busy * 1e3:.1f} ms in "
-          f"{n_kernels} kernels; idle share of an untraced step "
-          f"{1 - busy / wall:.1%}; {BATCH * SEQ / wall:.0f} tokens/s; peak "
-          f"device memory {peak:.2f} GiB")
-    ml = [r for r in rows if r[0].startswith("mlstm_")]
-    ml_ms = sum(r[1] for r in ml) / 1e3
-    print(f"  mLSTM kernels: {ml_ms:.3f} ms in {sum(r[2] for r in ml)} "
-          f"launches, {ml_ms / 1e3 / busy:.1%} of device busy, "
-          f"{ml_ms / 1e3 / wall:.2%} of the untraced wall: "
-          + ", ".join(f"{n} {us / 1e3:.3f} ms" for n, us, _ in ml))
+    print(f"train step: untraced wall {wall:.3f} s per step "
+          f"({', '.join(f'{w:.3f}' for w in walls)}), losses "
+          f"{[round(loss, 4) for _, loss in timed]}, traced wall "
+          f"{traced:.3f} s; device busy {busy * 1e3:.1f} ms in {n_kernels} "
+          f"kernels; idle share of an untraced step {1 - busy / wall:.1%}; "
+          f"{batch_n * seq / wall:.0f} tokens/s; peak device memory "
+          f"{peak:.2f} GiB")
+    for fam, prefixes in FAMILIES.items():
+        fr = [r for r in rows if any(pre in r[0] for pre in prefixes)]
+        if not fr:
+            continue
+        ms = sum(r[1] for r in fr) / 1e3
+        print(f"  {fam} kernels: {ms:.3f} ms in {sum(r[2] for r in fr)} "
+              f"launches, {ms / 1e3 / busy:.1%} of device busy, "
+              f"{ms / 1e3 / wall:.2%} of the untraced wall: "
+              + ", ".join(f"{n} {us / 1e3:.3f} ms" for n, us, _ in fr))
     for name, us, k in rows[:15]:
         print(f"  {us / 1e3:10.3f} ms  {k:7d}x  {name[:90]}")
     for kind, one in fwd_bwd.items():

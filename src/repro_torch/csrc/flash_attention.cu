@@ -70,9 +70,9 @@
 // all three).
 //
 // CUDA-core body (flash_simt; plan's "cuda_core"): f32, and head
-// dimensions that are not a multiple of 16.  Up to 16 rows, four warps,
-// warp w owns rows w, w+4, w+8, w+12, over a 3-stage ring of 32-key K/V
-// tiles.  Lane j scores key j of a tile for the warp's rows (q scaled in
+// dimensions that are not a multiple of 16 or are above 128 (to 256).
+// Up to 16 rows, four warps, warp w owns rows w, w+4, w+8, w+12, over a
+// 3-stage ring of 32-key K/V tiles.  Lane j scores key j of a tile for the warp's rows (q scaled in
 // f32 before the product, fmaf; the build has --fmad=false), then the warp
 // adds p V with the lanes over the output columns.
 #include <cuda.h>
@@ -95,6 +95,9 @@
 #define TC_BN 64     // keys per tile, tensor-core body
 #define TC_ROWS 64   // rows per CTA, tensor-core body
 #define P_TERMS 3    // bf16 terms of P in P V (the mma bodies)
+// the mma bodies hold O and a tile's P V in registers, DH / 2 f32 a thread
+// each: built up to DH 128 (kernels/flash_attention.py:TC_MAX_DH)
+#define MMA_BODIES (DH % 16 == 0 && DH <= 128)
 
 // One call's arguments, as kernels/flash_attention.py packs them.
 struct Args {
@@ -642,7 +645,7 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
-#if DH % 16 == 0
+#if MMA_BODIES
 // Shared-memory layout of a 64-row tile of Q, K or V (row = query row or
 // key, DH bf16 columns), the 128-byte swizzle of the wgmma descriptors:
 // blocks of 64 columns, each 64 rows x 128 bytes, the 16-byte chunk c of
@@ -1324,7 +1327,7 @@ static void allow_smem(K kernel, int smem, int* allowed) {
   }
 }
 
-#if DH % 16 == 0
+#if MMA_BODIES
 // TMA descriptor of K or V ([B, Hkv, Lk, DH] bf16 with element strides sl,
 // sh, sb): boxes of 64 columns x 64 keys, 128-byte swizzle.  The driver's
 // encoder comes through the runtime (the library links no -lcuda).  A
@@ -1360,7 +1363,7 @@ extern "C" int launch(const Args* args, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid(a.pos_tiles * a.head_tiles * a.n_splits, a.hkv, a.b);
   if (a.body != 0) {
-#if DH % 16 == 0
+#if MMA_BODIES
     if (a.dtype != 1) return (int)cudaErrorInvalidValue;
     if (a.body == 1) {
       CUtensorMap tmk, tmv;

@@ -15,8 +15,10 @@ Replaces `src/repro/kernels/flash_attention.py:flash_attention`
   wgmma over a 3-stage ring of 64-key K/V tiles that the TMA unit fills;
   the keys are split only where the row tiles leave SMs without a CTA.
   Bound: operations.
-- "cuda_core": f32, or Dh not a multiple of 16: the CUDA-core kernel over
-  row tiles of up to 16 rows, its keys split the same way.
+- "cuda_core": f32, Dh not a multiple of 16, or Dh above 128 (the mma
+  bodies hold O and a tile's P V in registers: 2 x Dh / 2 f32 a thread):
+  the CUDA-core kernel over row tiles of up to 16 rows, its keys split the
+  same way.
 
 The kernel reads q, k and v through their (batch, head, position) strides
 and needs unit stride only on Dh: the wrapper copies an input only when its
@@ -25,6 +27,12 @@ last stride is not 1 or its rows are not 16-byte aligned.  `launches`,
 tensors the wrapper runs the plain version (`kernels/ref.py`); on CUDA
 tensors it launches the kernel or raises.  See the source for the design
 notes.
+
+The gradient: `flash_attention_bwd` wraps csrc/flash_attention_bwd.cu (a
+dQ kernel, then a dK/dV kernel; `bwd_plan` lays out both), and on CUDA
+tensors that require grad `flash_attention` runs forward and backward
+through `_Flash`, a `torch.autograd.Function`.  On CPU tensors both are the
+plain versions, and autograd differentiates the plain forward.
 """
 from __future__ import annotations
 
@@ -55,6 +63,13 @@ SIMT_ROWS, SIMT_BK = 16, 32    # CUDA-core body: rows per CTA, keys per tile
 TC_ROWS, TC_BN = 64, 64        # mma bodies: rows per CTA (decode 16), keys
                                # per tile
 DECODE_ROWS = 16               # group x Lq at or below which "decode" runs
+TC_MAX_DH = 128                # the mma bodies' largest head dimension
+MAX_DH = 256                   # the largest head dimension any body takes
+# csrc/flash_attention_bwd.cu: cp.async stages; query rows of a dQ CTA and
+# keys of its tiles; keys of a dK/dV CTA and query rows of its tiles; the
+# head dimension above which two dK/dV CTAs share a key tile's columns
+BWD_STAGES, DQ_ROWS, DQ_BK, KV_KEYS, KV_BQ = 2, 64, 32, 64, 32
+BWD_SPLIT_DH = 128
 
 plain = ref.flash_attention
 
@@ -127,7 +142,8 @@ def plan(q_shape, k_shape, dtype, *, causal: bool, kv_offset: int = 0,
     (q's, k's, v's, in elements; contiguous when None) decide which inputs
     the wrapper copies first.  The shape picks the body."""
     group, dh = q_shape[1] // k_shape[1], q_shape[3]
-    body = ("cuda_core" if dtype != torch.bfloat16 or dh % 16 else
+    body = ("cuda_core" if dtype != torch.bfloat16 or dh % 16
+            or dh > TC_MAX_DH else
             "decode" if group * q_shape[2] <= DECODE_ROWS else "tensor_core")
     return _layout(body, q_shape, k_shape, dtype, causal=causal,
                    kv_offset=kv_offset, strides=strides)
@@ -242,9 +258,10 @@ def _prepare(shapes, dtypes, on_cuda, strides, aligned, causal: bool,
     hkv, lk = k_shape[1], k_shape[2]
     if dtypes[0] not in _DTYPE_CODE:
         raise ValueError(f"flash_attention: dtype {dtypes[0]}; bf16 or f32")
-    if hq % hkv or dh % 8 or dh > 128:
+    if hq % hkv or dh % 8 or dh > MAX_DH:
         raise ValueError(f"flash_attention: Hq {hq}, Hkv {hkv}, Dh {dh}: "
-                         "Hq a multiple of Hkv, Dh a multiple of 8 <= 128")
+                         f"Hq a multiple of Hkv, Dh a multiple of 8 <= "
+                         f"{MAX_DH}")
     for name, shape, dt, cuda in zip("kv", shapes[1:], dtypes[1:],
                                      on_cuda):
         if not cuda or dt != dtypes[0] or tuple(shape) != (b, hkv, lk, dh):
@@ -262,14 +279,23 @@ def _prepare(shapes, dtypes, on_cuda, strides, aligned, causal: bool,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float | None = None,
                     kv_offset: int = 0) -> torch.Tensor:
-    """Arguments and result as `kernels.ref.flash_attention`."""
+    """Arguments and result as `kernels.ref.flash_attention`; on CUDA
+    tensors that require grad, differentiable through the backward
+    kernel."""
     if not q.is_cuda:
         return plain(q, k, v, causal=causal, scale=scale, kv_offset=kv_offset)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Flash.apply(q, k, v, bool(causal), scale, kv_offset)
+    return _forward(q, k, v, bool(causal), scale, kv_offset)
+
+
+def _forward(q, k, v, causal: bool, scale, kv_offset: int) -> torch.Tensor:
     call = _prepare((q.shape, k.shape, v.shape), (q.dtype, k.dtype, v.dtype),
                     (k.is_cuda, v.is_cuda),
                     (q.stride(), k.stride(), v.stride()),
                     (q.data_ptr() % 16 == 0, k.data_ptr() % 16 == 0,
-                     v.data_ptr() % 16 == 0), bool(causal), kv_offset, scale)
+                     v.data_ptr() % 16 == 0), causal, kv_offset, scale)
     return _run(q, k, v, call)
 
 
@@ -303,3 +329,171 @@ def _run(q, k, v, call: _Call) -> torch.Tensor:
 flash_attention.launches = 0
 flash_attention.copies = 0           # inputs copied before a launch
 flash_attention.bodies = collections.Counter()   # launches by plan body
+
+
+class _Flash(torch.autograd.Function):
+    """The forward kernel, and its gradient through the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, kv_offset):
+        out = _forward(q, k, v, causal, scale, kv_offset)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.args = (causal, scale, kv_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        causal, scale, kv_offset = ctx.args
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, causal=causal,
+                                         scale=scale, kv_offset=kv_offset)
+        return dq, dk, dv, None, None, None
+
+
+# ------------------------------------------------------------- backward
+@functools.lru_cache(maxsize=None)
+def bwd_source(dh: int) -> str:
+    """The backward kernels' source specialised to head dimension `dh`."""
+    return f"#define DH {dh}\n" + build.template("flash_attention_bwd")
+
+
+# csrc/flash_attention_bwd.cu:Args: 10 pointers, 15 strides, B Hq Hkv Lq
+# Lk Lq_pad causal kv_offset ncol smem_dq smem_dkv, scale
+_BWD_PTRS = struct.Struct("<10Q")
+_BWD_TAIL = struct.Struct("<15q11if")
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How one backward call runs.  dQ CTAs own `DQ_ROWS` query rows of
+    one head and walk key tiles of `DQ_BK`; dK/dV CTAs own `KV_KEYS` keys
+    of one KV head and `dc` of the Dh output columns, and walk the group's
+    heads and query tiles of `KV_BQ`.  The log-sum-exp and D scratch is
+    [B, Hq, lq_pad]."""
+    dh: int
+    lq: int
+    lk: int
+    causal: bool
+    kv_offset: int
+    lq_pad: int
+    dc: int
+    ncol: int
+    grid_dq: tuple
+    grid_dkv: tuple
+    smem_dq: int
+    smem_dkv: int
+    copy: tuple          # q, k, v, out, dout copied first
+
+    def dq_keys(self, qt: int) -> tuple[int, int]:
+        """The keys [0, hi) that dQ CTA row tile `qt` walks, in tiles of
+        DQ_BK (the last may run past Lk; past keys are masked)."""
+        last = min(self.lq, (qt + 1) * DQ_ROWS) - 1
+        hi = self.lk
+        if self.causal:
+            hi = max(0, min(hi, last + self.kv_offset + 1))
+        return 0, _cdiv(hi, DQ_BK) * DQ_BK
+
+    def dkv_queries(self, kt: int) -> tuple[int, int]:
+        """The query rows [lo, hi) that dK/dV CTA key tile `kt` walks for
+        each head of its group, in tiles of KV_BQ."""
+        first = max(0, kt * KV_KEYS - self.kv_offset) if self.causal else 0
+        lo = first // KV_BQ * KV_BQ
+        if first >= self.lq:
+            return lo, lo
+        return lo, _cdiv(self.lq, KV_BQ) * KV_BQ
+
+
+def bwd_plan(q_shape, k_shape, *, causal: bool, kv_offset: int = 0,
+             strides=None, aligned=(True,) * 5) -> BwdPlan:
+    """The backward's grids, shared memory and walks for q [B, Hq, Lq, Dh]
+    and k/v [B, Hkv, Lk, Dh] in bf16; `strides` (q's, k's, v's, out's,
+    dout's; contiguous when None) and `aligned` (their data pointers on 16
+    bytes) decide which inputs the wrapper copies first."""
+    b, hq, lq, dh = q_shape
+    hkv, lk = k_shape[1], k_shape[2]
+    lq_pad = _cdiv(lq, DQ_ROWS) * DQ_ROWS
+    ncol = 2 if dh > BWD_SPLIT_DH else 1
+    dc = dh // ncol
+    rs = 2 * dh + 16
+    smem_dq = 2 * DQ_ROWS * rs + BWD_STAGES * 2 * DQ_BK * rs + 2 * DQ_ROWS * 4
+    smem_dkv = 2 * KV_KEYS * rs + BWD_STAGES * (2 * KV_BQ * rs + 2 * KV_BQ * 4)
+    shapes = (q_shape, k_shape, k_shape, q_shape, q_shape)
+    copy = tuple(not a if strides is None else
+                 not (a and readable(sh, st, 2))
+                 for sh, st, a in zip(shapes, strides or shapes, aligned))
+    return BwdPlan(dh=dh, lq=lq, lk=lk, causal=bool(causal),
+                   kv_offset=kv_offset, lq_pad=lq_pad, dc=dc, ncol=ncol,
+                   grid_dq=(lq_pad // DQ_ROWS, hq, b),
+                   grid_dkv=(_cdiv(lk, KV_KEYS), hkv * ncol, b),
+                   smem_dq=smem_dq, smem_dkv=smem_dkv,
+                   copy=copy)
+
+
+def bwd_library(dh: int):
+    """The backward library built for head dimension `dh`."""
+    return build.load_entries("flash_attention_bwd", bwd_source(dh), {
+        "launch": _ARGTYPES, "layout": [ctypes.c_void_p]})
+
+
+def bwd_layout(dh: int) -> dict:
+    """What the built library lays out (its `layout` entry)."""
+    buf = (ctypes.c_int * 8)()
+    bwd_library(dh).layout(ctypes.cast(buf, ctypes.c_void_p))
+    keys = ("smem_dq", "smem_dkv", "ncol", "dq_rows", "dq_bk", "kv_keys",
+            "kv_bq", "stages")
+    return dict(zip(keys, buf))
+
+
+def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
+                        scale: float | None = None, kv_offset: int = 0):
+    """(dq, dk, dv) of `flash_attention(q, k, v)` = out at cotangent
+    `dout`, as `kernels.ref.flash_attention_backward`.  On CUDA tensors:
+    bf16, Dh a multiple of 16 to 128 or of 32 to 256 (above 128 two CTAs
+    take half the columns each); inputs read through their strides
+    (copied only where a row is not 16-byte aligned or Dh not unit
+    stride, counted in `copies`)."""
+    if not q.is_cuda:
+        return ref.flash_attention_backward(q, k, v, out, dout, causal=causal,
+                                            scale=scale, kv_offset=kv_offset)
+    b, hq, lq, dh = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    ins = (q, k, v, out, dout)
+    want = ((b, hq, lq, dh), (b, hkv, lk, dh), (b, hkv, lk, dh),
+            (b, hq, lq, dh), (b, hq, lq, dh))
+    if hq % hkv or dh % (32 if dh > BWD_SPLIT_DH else 16) or dh > MAX_DH \
+            or any(
+            not t.is_cuda or t.dtype != torch.bfloat16 or tuple(t.shape) != w
+            for t, w in zip(ins, want)):
+        raise ValueError(
+            "flash_attention_bwd: q/out/dout [B, Hq, Lq, Dh] and k/v "
+            "[B, Hkv, Lk, Dh], CUDA bf16, Hq a multiple of Hkv, Dh a "
+            f"multiple of 16 to {BWD_SPLIT_DH} or of 32 to {MAX_DH}; got "
+            + ", ".join(f"{t.device} {t.dtype} {tuple(t.shape)}" for t in ins))
+    p = bwd_plan(q.shape, k.shape, causal=causal, kv_offset=kv_offset,
+                 strides=tuple(t.stride() for t in ins),
+                 aligned=tuple(t.data_ptr() % 16 == 0 for t in ins))
+    if any(p.copy):
+        ins = tuple(t.clone(memory_format=torch.contiguous_format) if c
+                    else t for t, c in zip(ins, p.copy))
+        flash_attention_bwd.copies += sum(p.copy)
+    dq = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+    dk = torch.empty(k.shape, dtype=torch.bfloat16, device=q.device)
+    dv = torch.empty(v.shape, dtype=torch.bfloat16, device=q.device)
+    if lq == 0 or lk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    stats = torch.empty((2, b, hq, p.lq_pad), dtype=torch.float32,
+                        device=q.device)
+    strides = [s for t in ins for s in t.stride()[:3]]
+    args = _BWD_PTRS.pack(*(t.data_ptr() for t in ins), dq.data_ptr(),
+                          dk.data_ptr(), dv.data_ptr(), stats[0].data_ptr(),
+                          stats[1].data_ptr()) + _BWD_TAIL.pack(
+        *strides, b, hq, hkv, lq, lk, p.lq_pad, int(causal), kv_offset,
+        p.ncol, p.smem_dq, p.smem_dkv, dh ** -0.5 if scale is None else scale)
+    lib = bwd_library(dh)
+    build.check(lib.launch(args, _stream(q.device)), "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+flash_attention_bwd.copies = 0       # inputs copied before a launch

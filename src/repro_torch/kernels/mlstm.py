@@ -324,10 +324,13 @@ class _MlstmChunked(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
+        # saved_tensors read once: under a non-reentrant checkpoint each
+        # read unpacks (recomputes) them, and a second read is an error
         q, k, v, logi, logf, out, *saved = ctx.saved_tensors
         grads = backward(q, k, v, logi, logf, out, dout, saved,
                          chunk=ctx.chunk)
-        return (*(g.to(x.dtype) for g, x in zip(grads, ctx.saved_tensors)),
+        return (*(g.to(x.dtype) for g, x in zip(grads,
+                                                (q, k, v, logi, logf))),
                 None)
 
 

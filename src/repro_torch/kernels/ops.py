@@ -61,7 +61,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     scale: float | None = None, kv_offset: int = 0,
                     mode: str = "auto"):
     """GQA attention, q [B, Hq, Lq, Dh], k/v [B, Hkv, Lk, Dh] -> [B, Hq,
-    Lq, Dh] in q's dtype, with the Pallas kernel's semantics."""
+    Lq, Dh] in q's dtype, with the Pallas kernel's semantics.
+    Differentiable on both devices: on the CPU (and in "ref") autograd
+    differentiates the plain version; on CUDA tensors the gradient is the
+    backward kernel (`kernels.flash_attention.flash_attention_bwd`)."""
     fn = ref.flash_attention if _plain(mode) else _flash.flash_attention
     return fn(q, k, v, causal=causal, scale=scale, kv_offset=kv_offset)
 
@@ -89,6 +92,7 @@ _COUNTED = {"triplet": _triplet.fused_triplet,
             "apply": _superstep.fused_apply,
             "segment_sum": _segsum.segment_sum,
             "flash_attention": _flash.flash_attention,
+            "flash_attention_bwd": _flash.flash_attention_bwd,
             "mlstm_fwd": _mlstm.forward,
             "mlstm_bwd": _mlstm.backward,
             "spmv": _spmv.spmv}

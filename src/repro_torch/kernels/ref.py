@@ -367,6 +367,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, hq, lq, dh).to(q.dtype)
 
 
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             dout: torch.Tensor, *, causal: bool = True,
+                             scale: float | None = None,
+                             kv_offset: int = 0):
+    """(dq, dk, dv) of `flash_attention` at cotangent `dout`, in f32 from
+    the f32 softmax with its masking (NEG_BIG, p = 0 on masked keys, a
+    row with every key masked gives zero gradient), and
+    D = rowsum(dout * out) from the given `out`, as the kernel reads it:
+    dS = P (dP - D), dq = scale dS k, dk = dS^T (scale q), dv = P^T dout,
+    dk and dv summed over each KV head's group.  Grads in the inputs'
+    dtypes."""
+    b, hq, lq, dh = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"Hq {hq} is not a multiple of Hkv {hkv}")
+    g = hq // hkv
+    scale = dh ** -0.5 if scale is None else scale
+    qf = q.float().reshape(b, hkv, g, lq, dh) * scale
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float())
+    mask = torch.ones((lq, lk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = (torch.arange(lq, device=q.device)[:, None] + kv_offset
+                >= torch.arange(lk, device=q.device)[None, :])
+    s = torch.where(mask, s, NEG_BIG)
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = p.sum(-1, keepdim=True)
+    p = p / torch.where(l == 0.0, 1.0, l)
+    do = dout.float().reshape(b, hkv, g, lq, dh)
+    dd = (do * out.float().reshape(b, hkv, g, lq, dh)).sum(-1, keepdim=True)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, do)
+    ds = p * (torch.einsum("bhgqd,bhkd->bhgqk", do, v.float()) - dd)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.float()) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf)
+    return (dq.reshape(b, hq, lq, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 def flash_partial(q, k, v, lo: int, hi: int, *, causal: bool = True,
                   scale: float | None = None, kv_offset: int = 0):
     """The softmax state of every query row over the keys [lo, hi) alone,

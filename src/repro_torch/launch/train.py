@@ -4,13 +4,17 @@
       --steps 3 --batch 8 --seq 1024
   PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m \\
       --smoke --device cpu --steps 2 --batch 2 --seq 64
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch recurrentgemma-2b --steps 3 --batch 1 --seq 4096
 
-`--device` defaults to the card and raises without one; on the card the
-mLSTM blocks run the CUDA kernels forward and backward, on the CPU their
-plain versions.  Weights are random, drawn on the device from a generator
-seeded with 0; the data is `SyntheticLM` seed 0.  AdamW runs at the
-reference's defaults (warmup max(steps // 20, 5), cosine decay over
-`--steps`).  `--ckpt-dir` checkpoints every `--ckpt-every` steps (and at
+`--arch` defaults to stablelm-1.6b.  `--device` defaults to the card and
+raises without one; on the card the mLSTM blocks and attention (flash)
+run the CUDA kernels forward and backward, on the CPU their plain
+versions; each super-layer is recomputed in the backward, as the
+reference's `remat=True` does.  Weights are random, drawn on the device
+from a generator seeded with 0; the data is `SyntheticLM` seed 0.  AdamW
+runs at the reference's defaults (warmup max(steps // 20, 5), cosine
+decay over `--steps`).  `--ckpt-dir` checkpoints every `--ckpt-every` steps (and at
 a preemption and the end) and resumes from the latest checkpoint there,
 with the data stream from the resumed step's batch.
 """

@@ -6,9 +6,10 @@ tensors whose key paths equal the reference's value tree
 reference's weights across by path.  Each cast sits where the reference
 has it: f32 parameters, bf16 inputs to every einsum, f32 norm, rope,
 softmax and logits.  Attention over a context goes through
-`kernels.ops.flash_attention` (the CUDA kernel on the card); the decode
-step's self-attention over its cache stays plain torch, as the reference
-keeps it plain jnp.
+`kernels.ops.flash_attention` (the CUDA kernels on the card, forward and
+backward), sliding-window attention too (`_windowed_attention`, the
+reference's chunking step for step); the decode step's self-attention over
+its cache stays plain torch, as the reference keeps it plain jnp.
 """
 from __future__ import annotations
 
@@ -86,11 +87,8 @@ def attention(p: dict, x: torch.Tensor, positions: torch.Tensor, *, cfg,
               causal: bool = True, window: int | None = None, kv=None,
               kv_offset: int = 0, mode: str = "auto"):
     """Self attention.  kv=(k_cache, v_cache) attends over the cache with
-    the new keys written at kv_offset.  Returns (out, (k, v))."""
-    if window is not None:
-        raise NotImplementedError(
-            "sliding-window attention (_windowed_attention) is not ported "
-            "yet: ROADMAP Queue 1 slice 10")
+    the new keys written at kv_offset; `window` makes it local (sliding,
+    without a cache).  Returns (out, (k, v))."""
     q = rope(project_heads(x, p["wq"]), positions, cfg.rope_theta)
     k = rope(project_heads(x, p["wk"]), positions, cfg.rope_theta)
     v = project_heads(x, p["wv"])
@@ -104,9 +102,46 @@ def attention(p: dict, x: torch.Tensor, positions: torch.Tensor, *, cfg,
                                    kv_offset=kv_offset, mode=mode)
         new_kv = (k_full, v_full)
     else:
-        out = kops.flash_attention(q, k, v, causal=causal, mode=mode)
+        if window is not None:
+            out = _windowed_attention(q, k, v, window, mode)
+        else:
+            out = kops.flash_attention(q, k, v, causal=causal, mode=mode)
         new_kv = (k, v)
     return merge_heads(out, p["wo"], x.dtype), new_kv
+
+
+def _windowed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        window: int, mode: str) -> torch.Tensor:
+    """Sliding-window causal attention by chunks of `window`: the queries
+    of chunk c see the keys of chunks c-1 and c (kv_offset = window), and
+    chunk 0, whose "previous" half is zeros that the offset mask does not
+    hide, is recomputed against its own chunk.  Its call reads q, k and v
+    as strided views of the chunked tensors."""
+    b, h, l, dh = q.shape
+    w = window
+    if l <= w:
+        return kops.flash_attention(q, k, v, causal=True, mode=mode)
+    if l % w:
+        raise ValueError(f"sequence {l} is not a multiple of window {w}")
+    nc = l // w
+    hkv = k.shape[1]
+    qc = q.reshape(b, h, nc, w, dh).transpose(1, 2).reshape(b * nc, h, w, dh)
+
+    def pairs(x):
+        # [chunk c-1 ; chunk c] for every chunk c, chunk -1 zeros
+        xc = x.reshape(b, hkv, nc, w, dh)
+        prev = torch.cat([torch.zeros_like(xc[:, :, :1]), xc[:, :, :-1]], 2)
+        return torch.cat([prev, xc], 3).transpose(1, 2).reshape(
+            b * nc, hkv, 2 * w, dh)
+
+    k2, v2 = pairs(k), pairs(v)
+    out = kops.flash_attention(qc, k2, v2, causal=True, kv_offset=w,
+                               mode=mode)
+    out0 = kops.flash_attention(qc[::nc], k2[::nc, :, w:], v2[::nc, :, w:],
+                                causal=True, kv_offset=0, mode=mode)
+    out = torch.cat([out0.reshape(b, 1, h, w, dh),
+                     out.reshape(b, nc, h, w, dh)[:, 1:]], 1)
+    return out.transpose(1, 2).reshape(b, h, l, dh)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

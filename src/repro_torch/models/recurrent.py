@@ -1,7 +1,7 @@
-"""Recurrent sequence mixing of xLSTM: mLSTM (matrix memory) and sLSTM.
+"""Recurrent sequence mixing: xLSTM's mLSTM (matrix memory) and sLSTM, and
+Griffin's RG-LRU.
 
-The port of the mLSTM and sLSTM halves of `repro/models/recurrent.py`
-(RG-LRU waits: ROADMAP Queue 1 slice 10), with the reference's casts: bf16
+The port of `repro/models/recurrent.py`, with the reference's casts: bf16
 projections, f32 gates, state and output gate.
 
 * mLSTM, full sequence: the chunkwise scan goes through
@@ -14,6 +14,10 @@ projections, f32 gates, state and output gate.
   (clip, softplus, sigmoid) run once over the whole sequence before the
   loop, elementwise as in the reference's step, so the loop keeps only the
   recurrent ops.
+* RG-LRU, full sequence: the diagonal recurrence h_t = a_t h_{t-1} + b_t
+  as `jax.lax.associative_scan`'s recursion on the time axis (`_scan`),
+  step for step, so autograd saves O(L) pairs and no time loop runs.
+* RG-LRU, one token: `rglru_step`, the reference's step.
 """
 from __future__ import annotations
 
@@ -176,3 +180,99 @@ def slstm_step(p: dict, x: torch.Tensor, state: dict):
     zx, lit, lft, og = _slstm_gates(p, x[:, 0])
     st = _slstm_cell(p["r"].float(), zx, lit, lft, og, state)
     return L.dense(st["h"].to(x.dtype), p["wout"])[:, None], st
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (Griffin / RecurrentGemma)
+# ---------------------------------------------------------------------------
+def init_rglru(cfg, *, generator: torch.Generator, device,
+               lead: tuple = ()) -> dict:
+    d, dr = cfg.d_model, cfg.d_recurrent
+    kw = dict(generator=generator, device=device)
+    return {"w_in": L.normal(lead + (d, dr), d ** -0.5, **kw),
+            "w_gate": L.normal(lead + (d, dr), d ** -0.5, **kw),
+            "conv_w": L.normal(lead + (4, dr), 0.25, **kw),
+            "wr": L.normal(lead + (dr, dr), dr ** -0.5, **kw),
+            "wi": L.normal(lead + (dr, dr), dr ** -0.5, **kw),
+            "lam": torch.ones(lead + (dr,), dtype=torch.float32,
+                              device=device),
+            "w_out": L.normal(lead + (dr, d), dr ** -0.5, **kw)}
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softplus: logaddexp(x, 0)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _scan(a: torch.Tensor, b: torch.Tensor):
+    """Inclusive scan of (a, b) pairs on dim 1 under (a1, b1) o (a2, b2) =
+    (a1 a2, a2 b1 + b2), in `jax.lax.associative_scan`'s order: combine
+    the pairs (0,1), (2,3), ...; scan those; combine each result but the
+    last with the next even input; prepend element 0; interleave."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    oa, ob = _scan(a[:, 0:-1:2] * a[:, 1::2],
+                   a[:, 1::2] * b[:, 0:-1:2] + b[:, 1::2])
+    stop = -1 if n % 2 == 0 else None
+    ea = torch.cat([a[:, :1], oa[:, :stop] * a[:, 2::2]], 1)
+    eb = torch.cat([b[:, :1], a[:, 2::2] * ob[:, :stop] + b[:, 2::2]], 1)
+
+    def interleave(even, odd):
+        out = even.new_empty((even.shape[0], n) + tuple(even.shape[2:]))
+        out[:, 0::2] = even
+        out[:, 1::2] = odd
+        return out
+
+    return interleave(ea, oa), interleave(eb, ob)
+
+
+def _rglru_core(p: dict, u: torch.Tensor, h0: torch.Tensor | None = None):
+    """The gated linear recurrence over u [B, L, Dr] -> h [B, L, Dr] f32."""
+    r = torch.sigmoid(L.dense(u, p["wr"]).float())
+    i = torch.sigmoid(L.dense(u, p["wi"]).float())
+    log_a = -8.0 * r * _softplus(p["lam"].float())              # <= 0
+    a = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6)) \
+        * (i * u.float())
+    if h0 is not None:
+        gated = torch.cat([gated[:, :1] + a[:, :1] * h0[:, None],
+                           gated[:, 1:]], 1)
+    return _scan(a, gated)[1]
+
+
+def rglru_block(p: dict, x: torch.Tensor,
+                h0: torch.Tensor | None = None) -> torch.Tensor:
+    """Griffin's recurrent block: (gelu gate) x (width-4 causal conv, then
+    the RG-LRU), out projection.  x [B, L, D] -> [B, L, D]."""
+    u = L.dense(x, p["w_in"])
+    gate = F.gelu(L.dense(x, p["w_gate"]).float(), approximate="tanh")
+    upad = F.pad(u, (0, 0, 3, 0))
+    w = p["conv_w"].to(u.dtype)
+    conv = sum(upad[:, 3 - j:upad.shape[1] - j] * w[3 - j] for j in range(4))
+    h = _rglru_core(p, conv, h0)
+    return L.dense((gate * h).to(x.dtype), p["w_out"])
+
+
+def rglru_init_state(b: int, dr: int, *, lead: tuple = (),
+                     device=None) -> dict:
+    return {"h": torch.zeros(lead + (b, dr), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros(lead + (b, 3, dr), dtype=torch.float32,
+                                device=device)}
+
+
+def rglru_step(p: dict, x: torch.Tensor, state: dict):
+    """Single-token decode.  x [B, 1, D] -> ([B, 1, D], state')."""
+    xt = x[:, 0]
+    u = L.dense(xt, p["w_in"]).float()
+    gate = F.gelu(L.dense(xt, p["w_gate"]).float(), approximate="tanh")
+    hist = torch.cat([state["conv"], u[:, None]], 1)          # [B, 4, Dr]
+    conv = torch.einsum("bjd,jd->bd", hist, p["conv_w"].float())
+    r = torch.sigmoid(conv @ p["wr"].float())
+    i = torch.sigmoid(conv @ p["wi"].float())
+    log_a = -8.0 * r * _softplus(p["lam"].float())
+    h2 = torch.exp(log_a) * state["h"] + torch.sqrt(torch.clamp(
+        1 - torch.exp(2 * log_a), min=1e-6)) * (i * conv)
+    out = L.dense((gate * h2).to(x.dtype), p["w_out"])
+    return out[:, None], {"h": h2, "conv": hist[:, 1:]}

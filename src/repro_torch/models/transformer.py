@@ -5,28 +5,37 @@ The port of `repro/models/transformer.py`, in the reference's stacked
 layout: layer i of a model with layer period P lives in `blocks/slot{i % P}`
 at index i // P of a leading n_super axis (period lcm(pattern,
 cross_attn_every), so every slot has one structure), and a Python loop over
-n_super takes the place of `lax.scan`.  Ported: attention blocks (global
-and local) with dense MLPs and cross-attention sublayers, for decoding; and
-mLSTM and sLSTM blocks, for the full-sequence forward (training) and for
-decoding.  The training forward through attention blocks needs the flash
-backward; it, MoE, RG-LRU and encoder-decoder models raise
-NotImplementedError (ROADMAP Queue 1 slice 10).
+n_super takes the place of `lax.scan`.  Ported: attention blocks (global,
+and local through `_windowed_attention`) with dense MLPs and
+cross-attention sublayers, and mLSTM, sLSTM and RG-LRU blocks, for the
+full-sequence forward (training) and for decoding.  MoE blocks,
+encoder-decoder models and the training forward of configs with context
+tokens raise NotImplementedError (ROADMAP Queue 1 item 7).
 
-The forward keeps every activation for the backward: the reference's
-`jax.checkpoint` around each super-layer is a memory knob, and xlstm-350m's
-batch 8 x seq 1024 step fits one 80 GB card without recompute.
+`forward` and `loss_fn` take the reference's `remat` (default True): each
+super-layer runs under `torch.utils.checkpoint`, so its activations are
+recomputed in the backward, as the reference's `jax.checkpoint` around
+`super_layer` recomputes them; the remainder layers keep theirs, as in the
+reference.  sLSTM blocks keep theirs too: their forward is a loop over
+time that launches per step, so recomputing it would double the step's
+host-bound part for the little memory it holds.  The checkpointed regions
+are the runs of other blocks between them.  The values are the same
+either way.
 
-Cross-attention (`_cross_attention`) is where decoding reaches the flash
-kernel: its keys and values come from a fixed context, recomputed every
-step as in the reference.  The mLSTM blocks' forward reaches the mLSTM
-kernels, and their backward the backward kernel.
+Attention reaches the flash kernels (forward, and on the card the backward
+kernel through its autograd Function); cross-attention's keys and values
+come from a fixed context, recomputed every decode step as in the
+reference.  The mLSTM blocks' forward reaches the mLSTM kernels, and their
+backward the backward kernel.
 """
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.tree import tree_leaves
@@ -34,7 +43,7 @@ from ..kernels import ops as kops
 from . import layers as L
 from . import recurrent as R
 
-_PENDING = "is not ported yet: ROADMAP Queue 1 slice 10"
+_PENDING = "is not ported yet: ROADMAP Queue 1 item 7"
 
 
 def _pattern(cfg: ModelConfig) -> tuple[list[str], int, int]:
@@ -61,32 +70,30 @@ _ATTN = ("attn", "local_attn")
 _RECURRENT = ("mlstm", "slstm")
 
 
-def _check_supported(cfg: ModelConfig, kind: str, *,
-                     training: bool = False) -> None:
+def _check_supported(cfg: ModelConfig) -> None:
     if cfg.is_encdec:
         raise NotImplementedError(f"encoder-decoder models {_PENDING}")
-    if kind not in _ATTN + _RECURRENT:
-        raise NotImplementedError(f"{kind} blocks {_PENDING}")
     if cfg.family == "moe":
         raise NotImplementedError(f"MoE blocks {_PENDING}")
-    if training and kind in _ATTN:
-        raise NotImplementedError(
-            f"the training forward through {kind} blocks needs the flash "
-            f"backward, which {_PENDING}")
 
 
 def _init_block(cfg: ModelConfig, kind: str, *, with_cross: bool,
                 lead: tuple, generator: torch.Generator, device) -> dict:
     """One block's parameters, stacked on `lead` leading axes."""
-    _check_supported(cfg, kind)
+    _check_supported(cfg)
     kw = dict(generator=generator, device=device)
     ones = lambda: L.init_rms(cfg.d_model, device=device).expand(  # noqa: E731
         lead + (cfg.d_model,)).clone()
     if kind in _RECURRENT:
         init = R.init_mlstm if kind == "mlstm" else R.init_slstm
         return {"ln1": ones(), "mix": init(cfg, lead=lead, **kw)}
-    p: dict[str, Any] = {"ln1": ones(),
-                         "attn": L.init_attention(cfg, lead=lead, **kw)}
+    if kind == "rglru":
+        p: dict[str, Any] = {"ln1": ones(),
+                             "mix": R.init_rglru(cfg, lead=lead, **kw)}
+    elif kind in _ATTN:
+        p = {"ln1": ones(), "attn": L.init_attention(cfg, lead=lead, **kw)}
+    else:
+        raise ValueError(kind)
     if cfg.d_ff:
         p["ln2"] = ones()
         p["mlp"] = L.init_mlp(cfg, lead=lead, **kw)
@@ -133,46 +140,82 @@ def param_count(params: dict) -> int:
 # ---------------------------------------------------------------------------
 # Forward (training)
 # ---------------------------------------------------------------------------
-def _apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
+def _apply_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                 cfg: ModelConfig, kind: str, *,
+                 cross_ctx: torch.Tensor | None = None,
                  mode: str = "auto") -> torch.Tensor:
     """Full-sequence block application, x [B, L, D] -> x'."""
-    _check_supported(cfg, kind, training=True)
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "mlstm":
         return x + R.mlstm_block(p["mix"], h, chunk=cfg.mlstm_chunk,
                                  mode=mode)
-    return x + R.slstm_block(p["mix"], h)
+    if kind == "slstm":
+        return x + R.slstm_block(p["mix"], h)
+    if kind == "rglru":
+        x = x + R.rglru_block(p["mix"], h)
+    else:
+        window = cfg.window if kind == "local_attn" else None
+        a, _ = L.attention(p["attn"], h, positions, cfg=cfg, window=window,
+                           mode=mode)
+        x = x + a
+        if "xattn" in p and cross_ctx is not None:
+            hx = L.rms_norm(x, p["lnx"], cfg.norm_eps)
+            x = x + _cross_attention(p["xattn"], hx, cross_ctx, cfg, mode)
+    if "mlp" in p:
+        x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x
 
 
-def _run_stack(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
-               mode: str = "auto") -> torch.Tensor:
+def _run_stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
+               cfg: ModelConfig, *, mode: str = "auto",
+               remat: bool = True) -> torch.Tensor:
     types, n_super, rem = _pattern(cfg)
+
+    def run(x, s, slots):
+        for j in slots:
+            x = _apply_block(_index(params["blocks"][f"slot{j}"], s), x,
+                             positions, cfg, types[j], mode=mode)
+        return x
+
+    # the super-layer's slots in runs, sLSTM or not: the sLSTM runs are
+    # not recomputed (see the module docstring)
+    runs = [list(g) for _, g in itertools.groupby(
+        range(len(types)), key=lambda j: types[j] == "slstm")]
+    recompute = remat and torch.is_grad_enabled()
     for s in range(n_super):
-        for j, t in enumerate(types):
-            x = _apply_block(_index(params["blocks"][f"slot{j}"], s), x, cfg,
-                             t, mode=mode)
+        for slots in runs:
+            if recompute and types[slots[0]] != "slstm":
+                x = torch.utils.checkpoint.checkpoint(run, x, s, slots,
+                                                      use_reentrant=False)
+            else:
+                x = run(x, s, slots)
     for i in range(rem):
-        x = _apply_block(params["rem"][f"layer{i}"], x, cfg,
+        x = _apply_block(params["rem"][f"layer{i}"], x, positions, cfg,
                          types[i % len(types)], mode=mode)
     return x
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig, *,
-            mode: str = "auto") -> torch.Tensor:
+            mode: str = "auto", remat: bool = True) -> torch.Tensor:
     """batch {"tokens" [B, S]} -> f32 logits [B, S, vocab]."""
-    if cfg.is_encdec or cfg.n_context_tokens:
-        raise NotImplementedError(f"the training forward of {cfg.name} "
-                                  f"{_PENDING}")
-    x = L.embed(params["embed"], batch["tokens"])
-    x = _run_stack(params, x, cfg, mode=mode)
+    _check_supported(cfg)
+    if cfg.n_context_tokens:
+        raise NotImplementedError(f"the training forward with context "
+                                  f"tokens ({cfg.name}) {_PENDING}")
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = L.embed(params["embed"], tokens)
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device).expand(b, s)
+    x = _run_stack(params, x, positions, cfg, mode=mode, remat=remat)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return L.lm_logits(params["embed"], x)
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *,
-            mode: str = "auto") -> torch.Tensor:
+            mode: str = "auto", remat: bool = True) -> torch.Tensor:
     """Mean next-token cross entropy of batch {"tokens", "labels"[, "mask"]}."""
-    logits = forward(params, batch, cfg, mode=mode)
+    logits = forward(params, batch, cfg, mode=mode, remat=remat)
     return L.softmax_xent(logits, batch["labels"], batch.get("mask"))
 
 
@@ -181,12 +224,15 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 def _init_block_state(cfg: ModelConfig, kind: str, batch: int, kv_len: int,
                       *, lead: tuple, device) -> dict:
-    _check_supported(cfg, kind)
+    _check_supported(cfg)
     if kind == "mlstm":
         return R.mlstm_init_state(batch, cfg.n_heads, cfg.head_dim,
                                   lead=lead, device=device)
     if kind == "slstm":
         return R.slstm_init_state(batch, cfg.d_model, lead=lead,
+                                  device=device)
+    if kind == "rglru":
+        return R.rglru_init_state(batch, cfg.d_recurrent, lead=lead,
                                   device=device)
     cache_len = (min(kv_len, cfg.window) if kind == "local_attn" and cfg.window
                  else kv_len)
@@ -233,14 +279,18 @@ def _apply_block_decode(p: dict, x: torch.Tensor, pos: int, state: dict,
     """One token through one block: x [B, 1, D] -> x'.  Writes this
     position's keys and values into `state`'s caches, or the block's new
     recurrent state into `state`, in place."""
-    _check_supported(cfg, kind)
+    _check_supported(cfg)
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    if kind in _RECURRENT:
-        step = R.mlstm_step if kind == "mlstm" else R.slstm_step
+    if kind in _RECURRENT + ("rglru",):
+        step = {"mlstm": R.mlstm_step, "slstm": R.slstm_step,
+                "rglru": R.rglru_step}[kind]
         y, new = step(p["mix"], h, state)
         for k, t in new.items():
             state[k].copy_(t)
-        return x + y
+        x = x + y
+        if "mlp" in p:
+            x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps))
+        return x
     cache_len = state["k"].shape[2]
     slot = pos % cache_len              # ring buffer (= pos at full length)
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,

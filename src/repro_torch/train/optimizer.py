@@ -7,7 +7,12 @@ included).  Not `torch.optim.AdamW`, whose schedule and clipping are not
 the reference's.  The reference's update is functional; this one updates
 the parameters and moments in place (under no_grad, with `torch._foreach_*`
 over the leaves in sorted key order), which saves three copies of the
-parameters, and returns them.
+parameters, and returns them.  It takes the leaves in groups of at most
+`GROUP_BYTES` (a larger leaf alone), so its three temporaries (the clipped
+gradient, the denominator, the step) hold one group at a time: at
+recurrentgemma-2b's 11.6 GB of f32 parameters, whole-tree temporaries
+would take the step past one 80 GB card.  The arithmetic is elementwise,
+so grouping changes no value.
 """
 from __future__ import annotations
 
@@ -18,6 +23,8 @@ from typing import NamedTuple
 import torch
 
 from ..core.tree import tree_leaves, tree_map
+
+GROUP_BYTES = 1 << 30          # f32 bytes of one update group
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +67,21 @@ def global_norm(tree) -> torch.Tensor:
     return torch.stack(norms).square().sum().sqrt()
 
 
+def _groups(leaves: list) -> list[tuple[int, int]]:
+    """[lo, hi) ranges of consecutive leaves of at most GROUP_BYTES of f32
+    each (a leaf above it alone)."""
+    out, lo, size = [], 0, 0
+    for i, t in enumerate(leaves):
+        n = t.numel() * 4
+        if i > lo and size + n > GROUP_BYTES:
+            out.append((lo, i))
+            lo, size = i, 0
+        size += n
+    if leaves:
+        out.append((lo, len(leaves)))
+    return out
+
+
 @torch.no_grad()
 def update(cfg: AdamWConfig, params: dict, grads: dict, state: OptState):
     """-> (params, state, metrics); params and the moments change in place."""
@@ -69,18 +91,23 @@ def update(cfg: AdamWConfig, params: dict, grads: dict, state: OptState):
     lr = schedule(cfg, step)
     b1c = 1 - cfg.b1 ** step
     b2c = 1 - cfg.b2 ** step
-    p, m, v = (tree_leaves(t) for t in (params, state.m, state.v))
-    g = torch._foreach_mul([t.float() for t in tree_leaves(grads)], scale)
-    torch._foreach_mul_(m, cfg.b1)
-    torch._foreach_add_(m, g, alpha=1 - cfg.b1)
-    torch._foreach_mul_(v, cfg.b2)
-    torch._foreach_addcmul_(v, g, g, value=1 - cfg.b2)
-    denom = torch._foreach_div(v, b2c)
-    torch._foreach_sqrt_(denom)
-    torch._foreach_add_(denom, cfg.eps)
-    delta = torch._foreach_div(m, b1c)
-    torch._foreach_div_(delta, denom)
-    torch._foreach_add_(delta, p, alpha=cfg.weight_decay)
-    torch._foreach_add_(p, delta, alpha=-lr)
+    leaves = [tree_leaves(t) for t in (params, state.m, state.v, grads)]
+    for lo, hi in _groups(leaves[0]):
+        p, m, v, gr = (x[lo:hi] for x in leaves)
+        g = torch._foreach_mul([t.float() for t in gr], scale)
+        torch._foreach_mul_(m, cfg.b1)
+        torch._foreach_add_(m, g, alpha=1 - cfg.b1)
+        torch._foreach_mul_(v, cfg.b2)
+        torch._foreach_addcmul_(v, g, g, value=1 - cfg.b2)
+        del g
+        denom = torch._foreach_div(v, b2c)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, cfg.eps)
+        delta = torch._foreach_div(m, b1c)
+        torch._foreach_div_(delta, denom)
+        del denom
+        torch._foreach_add_(delta, p, alpha=cfg.weight_decay)
+        torch._foreach_add_(p, delta, alpha=-lr)
+        del delta
     return params, OptState(state.m, state.v, step), {"grad_norm": gnorm,
                                                       "lr": lr}

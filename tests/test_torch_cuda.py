@@ -765,13 +765,17 @@ FLASH_SHAPES = [
     (1, 8, 2, 4, 700, 64, True, 500),         # decode, causal over splits
     (1, 2, 2, 64, 200, 128, True, 136),       # one full tensor-core tile
     (1, 2, 2, 130, 260, 128, True, 130),      # two tiles and 2 rows
+    (1, 4, 2, 40, 200, 192, True, 100),       # Dh 192: CUDA cores in bf16
+    (1, 10, 1, 70, 150, 256, True, 80),       # Dh 256, MQA group 10, splits
+    (1, 10, 1, 1, 300, 256, True, 299),       # Dh 256 decode, as the ring
 ]
 
 
 def _flash_body(shape, dtype):
-    """The body `plan` documents for a shape (group x Lq query rows)."""
+    """The body `plan` documents for a shape (group x Lq query rows; above
+    Dh 128 the CUDA-core body)."""
     b, hq, hkv, lq, lk, dh = shape[:6]
-    if dtype == "bfloat16" and dh % 16 == 0:
+    if dtype == "bfloat16" and dh % 16 == 0 and dh <= 128:
         return "decode" if hq // hkv * lq <= 16 else "tensor_core"
     return "cuda_core"
 
@@ -857,6 +861,91 @@ def test_flash_kernel_dead_rows_and_layouts(cuda):
         flash_mod.flash_attention(q[..., :12].contiguous(),
                                   k[..., :12].contiguous(),
                                   v[..., :12].contiguous())
+
+
+# ---------------------------------------------------- flash backward kernel
+FLASH_BWD_SHAPES = [
+    (2, 4, 2, 64, 64, 32, True, 0),
+    (1, 10, 1, 128, 256, 256, True, 128),     # the windowed call, small
+    (1, 4, 4, 77, 131, 16, True, 5),          # ragged tiles
+    (1, 6, 2, 33, 65, 128, False, 0),
+    (1, 2, 1, 70, 70, 64, True, -3),          # dead rows
+    (2, 8, 2, 200, 700, 192, True, 400),      # Dh 192: two column CTAs
+    (1, 4, 1, 1, 300, 64, True, 299),         # one query row
+    (1, 2, 2, 40, 300, 32, True, 100),        # keys no query sees
+]
+
+
+@pytest.mark.parametrize("shape", FLASH_BWD_SHAPES, ids=str)
+def test_flash_backward_matches_plain(shape, cuda):
+    """The backward kernel against `ref.flash_attention_backward` on the
+    same bf16 inputs and cotangent: each gradient within 1e-2 relative norm
+    (chip_smoke.py's FLASH_GRAD_REL_LIMIT: P and dS enter the tensor cores
+    as one bf16 term each), finite, zero on dead rows and on keys no query
+    sees, two runs bit-equal, one launch a call."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    b, hq, hkv, lq, lk, dh, causal, off = shape
+    rng = np.random.default_rng(lq * 7 + lk)
+    q, k, v, dout = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                     .to(cuda, torch.bfloat16) for s in (
+                         (b, hq, lq, dh), (b, hkv, lk, dh), (b, hkv, lk, dh),
+                         (b, hq, lq, dh)))
+    kw = dict(causal=causal, kv_offset=off)
+    out = flash_mod.flash_attention(q, k, v, **kw)
+    before = flash_mod.flash_attention_bwd.launches
+    got = flash_mod.flash_attention_bwd(q, k, v, out, dout, **kw)
+    again = flash_mod.flash_attention_bwd(q, k, v, out, dout, **kw)
+    want = ref.flash_attention_backward(q, k, v, out, dout, **kw)
+    torch.cuda.synchronize()
+    assert flash_mod.flash_attention_bwd.launches == before + 2
+    assert all(map(torch.equal, got, again))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert bool(torch.isfinite(g.float()).all())
+        rel = (g.float() - w.float()).norm() / w.float().norm().clamp_min(
+            1e-30)
+        assert float(rel) <= 1e-2
+    if off < 0:
+        assert not bool(got[0][:, :, :-off].any())
+    if causal and lk > lq + off:
+        assert not bool(got[1][:, :, lq + off:].any())
+
+
+def test_flash_autograd_runs_the_backward_kernel(cuda):
+    """Sliding-window attention on the card: the windowed call and chunk
+    0's strided call each launch the forward once and the backward once,
+    no input is copied, and the gradients agree with autograd of the plain
+    version within 1e-2 relative norm."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.models import layers as L
+    rng = np.random.default_rng(11)
+    base = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        cuda, torch.bfloat16) for s in ((2, 4, 128, 64), (2, 1, 128, 64),
+                                        (2, 1, 128, 64), (2, 4, 128, 64))]
+    fwd, bwd = flash_mod.flash_attention, flash_mod.flash_attention_bwd
+    counts = (fwd.launches, bwd.launches, fwd.copies, bwd.copies)
+    ins = [t.clone().requires_grad_() for t in base[:3]]
+    out = L._windowed_attention(*ins, 32, "auto")
+    grads = torch.autograd.grad(out, ins, base[3])
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches, fwd.copies, bwd.copies) == (
+        counts[0] + 2, counts[1] + 2, counts[2], counts[3])
+    pins = [t.clone().requires_grad_() for t in base[:3]]
+    want = torch.autograd.grad(L._windowed_attention(*pins, 32, "ref"), pins,
+                               base[3])
+    for g, w in zip(grads, want):
+        rel = (g.float() - w.float()).norm() / w.float().norm()
+        assert float(rel) <= 1e-2
+
+
+def test_flash_backward_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels import flash_attention as flash_mod
+    for dh, dt in ((32, torch.float32), (40, torch.bfloat16),
+                   (144, torch.bfloat16)):
+        q = torch.zeros((1, 2, 8, dh), dtype=dt, device=cuda)
+        k = torch.zeros((1, 1, 8, dh), dtype=dt, device=cuda)
+        with pytest.raises(ValueError, match="flash_attention_bwd"):
+            flash_mod.flash_attention_bwd(q, k, k, q, q, causal=True)
 
 
 def test_serve_smoke_on_card_goes_through_the_kernel(cuda):
@@ -998,9 +1087,11 @@ def test_spmv_on_card_matches_plain(active, hub, cuda):
 
 def test_train_smoke_on_card_goes_through_the_kernels(cuda):
     """xlstm-350m SMOKE: two training steps on the card launch the mLSTM
-    forward and backward kernels 3 times each per step (3 mLSTM layers) and
-    follow the CPU run of the same weights and batches: losses within
-    2e-3 relative (bf16 einsums round differently on the two devices)."""
+    backward kernel 3 times per step (3 mLSTM layers) and the forward 6
+    (the per-super-layer recompute, remat=True, runs each again in the
+    backward) and follow the CPU run of the same weights and batches:
+    losses within 2e-3 relative (bf16 einsums round differently on the two
+    devices)."""
     from repro_torch import configs as C
     from repro_torch.data.tokens import SyntheticLM
     from repro_torch.train import optimizer as opt
@@ -1024,7 +1115,7 @@ def test_train_smoke_on_card_goes_through_the_kernels(cuda):
     ops.reset_launch_counts()
     g = two_steps(gpu, cuda)
     counts = ops.launch_counts()
-    assert counts["mlstm_fwd"] == counts["mlstm_bwd"] == 3 * 2
+    assert counts["mlstm_bwd"] == 3 * 2 and counts["mlstm_fwd"] == 2 * 3 * 2
     np.testing.assert_allclose(g, two_steps(cpu, "cpu"), rtol=2e-3)
 
 

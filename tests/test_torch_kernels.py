@@ -648,7 +648,8 @@ def test_wrappers_on_cpu_run_plain_and_launch_nothing():
     assert torch.equal(seg_mod.segment_sum(msgs, s.edge_mask, s.agg_ptr["dst"]),
                        ref.segment_sum(msgs, s.edge_mask, s.agg_ptr["dst"]))
     assert ops.launch_counts() == {"triplet": 0, "apply": 0, "segment_sum": 0,
-                                   "flash_attention": 0, "mlstm_fwd": 0,
+                                   "flash_attention": 0,
+                                   "flash_attention_bwd": 0, "mlstm_fwd": 0,
                                    "mlstm_bwd": 0, "spmv": 0}
     with pytest.raises(ValueError):
         ops.triplet(*args, mode="pallas")

@@ -1,4 +1,6 @@
-"""The port's LM serve path against the reference, on the CPU.
+"""The port's LM serve path against the reference, on the CPU, and the
+layers the training path adds (sliding-window attention, the SMOKE trees
+of the attention and RG-LRU configs).
 
 Layers take the same numpy inputs and parameters on both sides.  The whole
 slice runs llama-3.2-vision-11b's SMOKE config (5 layers, d 64, 16 context
@@ -7,6 +9,9 @@ across by key path: both sides are teacher-forced with the reference's
 greedy tokens and every step's logits must agree.  Tolerances: 2e-6 for the
 f32 norm; 2e-2 relative (atol 2e-2) wherever a value passes a bf16 einsum,
 whose rounding XLA and torch place differently (the bf16 step is 2^-8).
+Sliding-window attention takes f32 inputs on both sides (its own math, not
+bf16 rounding, is the point): 2e-5 forward, 1e-4 relative norm for its
+gradient (f32 sums in other orders through two softmaxes).
 """
 import functools
 import re
@@ -186,8 +191,94 @@ def test_serve_defaults_to_the_card(monkeypatch):
         serve.run(ARCH, smoke=True, batch=1, prompt_len=1, gen=1)
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "moonshot-v1-16b-a3b",
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b",
                                   "seamless-m4t-medium"])
 def test_unported_blocks_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.init_model(C.get(arch, smoke=True), generator=None, device="meta")
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "stablelm-1.6b"])
+def test_params_from_reference_carries_smoke_trees(arch):
+    """Every leaf of the reference's SMOKE init lands at its key path with
+    its values: the RG-LRU blocks (slot0/1, rem/layer0/1) and the local and
+    global attention blocks."""
+    jcfg = JC.get(arch, smoke=True)
+    values, _ = JL.split_params(JT.init_model(jax.random.PRNGKey(1), jcfg))
+    values = jax.tree.map(np.asarray, values)
+    params = convert.params_from_reference(values, C.get(arch, smoke=True),
+                                           "cpu")
+
+    def paths(tree, pre=()):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from paths(v, pre + (k,))
+            else:
+                yield pre + (k,), v
+
+    got, want = dict(paths(params)), dict(paths(values))
+    assert set(got) == set(want)
+    for path, v in want.items():
+        np.testing.assert_array_equal(got[path].numpy(), v)
+    if arch == "recurrentgemma-2b":
+        assert got[("rem", "layer1", "mix", "lam")].shape == \
+            (jcfg.d_recurrent,)
+        assert got[("blocks", "slot2", "attn", "wk")].shape == \
+            (1, jcfg.d_model, 1, jcfg.head_dim)
+
+
+def _window_inputs(b, hq, hkv, l, dh, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=s).astype(np.float32) for s in
+            ((b, hq, l, dh), (b, hkv, l, dh), (b, hkv, l, dh),
+             (b, hq, l, dh))]
+
+
+@pytest.mark.parametrize("b,hq,l,w", [(1, 2, 128, 32), (2, 4, 96, 32),
+                                      (1, 2, 32, 32)])
+def test_windowed_attention_and_its_gradient_match_reference(b, hq, l, w):
+    """MQA (one KV head), L = 4w, 3w and L = w (the plain causal call):
+    the port's `_windowed_attention` and its gradient (autograd through
+    both flash calls, the strided chunk-0 views and the splice) against
+    the reference's and jax.vjp of it; also the banded mask of
+    tests/test_models.py:test_windowed_attention_matches_banded_reference
+    (query i sees keys (i // w - 1) w <= j <= i)."""
+    q, k, v, dout = _window_inputs(b, hq, 1, l, 16, seed=l + b)
+    ins = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    got = L._windowed_attention(*ins, w, "auto")
+    grads = torch.autograd.grad(got, ins, torch.from_numpy(dout))
+    want, vjp = jax.vjp(lambda *a: JL._windowed_attention(*a, w, "ref"),
+                        *map(jnp.asarray, (q, k, v)))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+    for g, jg in zip(grads, vjp(jnp.asarray(dout))):
+        jg = np.asarray(jg)
+        assert np.linalg.norm(g.numpy() - jg) <= 1e-4 * np.linalg.norm(jg)
+    i, j = np.arange(l)[:, None], np.arange(l)[None, :]
+    mask = (j <= i) & (j >= (i // w - 1) * w)
+    s = np.einsum("bhid,bhjd->bhij", q, np.repeat(k, hq, 1)) * 16 ** -0.5
+    s = np.where(mask, s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    band = np.einsum("bhij,bhjd->bhid", p / p.sum(-1, keepdims=True),
+                     np.repeat(v, hq, 1))
+    np.testing.assert_allclose(got.detach().numpy(), band, rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_windowed_attention_reads_chunk_zero_as_strided_views(monkeypatch):
+    """The chunk-0 call gets views of the chunked tensors (no copy); the
+    windowed call gets kv_offset = w."""
+    calls = []
+    plain = L.kops.flash_attention
+
+    def spy(q, k, v, **kw):
+        calls.append((q.is_contiguous(), k.is_contiguous(), kw))
+        return plain(q, k, v, **kw)
+
+    monkeypatch.setattr(L.kops, "flash_attention", spy)
+    q, k, v, _ = _window_inputs(2, 2, 1, 64, 16, seed=0)
+    L._windowed_attention(*map(torch.from_numpy, (q, k, v)), 16, "auto")
+    assert [c[2]["kv_offset"] for c in calls] == [16, 0]
+    assert calls[0][:2] == (True, True) and calls[1][:2] == (False, False)
+    with pytest.raises(ValueError, match="multiple of window"):
+        L._windowed_attention(*map(torch.from_numpy, (q, k, v)), 24, "auto")
