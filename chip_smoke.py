@@ -190,25 +190,29 @@ Phases (any failure exits non-zero before the result line):
      [2, 1, 4096, 256], kv_offset 2048), its chunk-0 call on the strided
      views (read in place, no copy), stablelm-1.6b's causal
      [1, 32, 4096, 64] and a non-causal GQA-4 cross shape ([1, 32, 4096,
-     128] against [1, 8, 1664, 128]): the grids and shared memory
-     `bwd_plan` chose (== what the build lays out), each gradient within
-     a relative-norm limit, two runs bit-equal, kernel, plain and
-     scaled_dot_product_attention-backward times (5 calls, the median of
-     5 x 20 calls and the device time) and the bound; a mutant that drops
-     one head of each GQA group from dK/dV must fail; at each shape the
-     forward kernel's output (at Dh 256 its CUDA-core body) per element
-     against `ref.flash_attention` within one bf16 spacing, which the
-     plain version without any one of `plan`'s key splits, or without one
-     key tile, must break; (b) training
-     recurrentgemma-2b at its full config (26 layers, random weights from
-     a seed) through `python -m repro_torch.launch.train`'s entry point:
-     batch 1, seq 4096, 3 AdamW steps, 32 flash forward launches (8 local
-     attention layers x 2 calls, twice under the per-super-layer
-     recompute) and 16 backward launches a step, finite losses, the peak
-     device memory; then step 1 again from the same weights and batch:
-     through the kernels with every flash call held in place, its output
-     per element against the plain forward (the recompute's calls too) and
-     its gradients against the plain backward on the same inputs and
+     128] against [1, 8, 1664, 128]), reading the log-sum-exp the forward
+     wrote: the grids and shared memory `bwd_plan` chose (== what the build
+     lays out), each gradient within a relative-norm limit, two runs
+     bit-equal, kernel, plain and scaled_dot_product_attention-backward
+     times (5 calls, the median of 5 x 20 calls and the device time) and
+     the bound; a mutant that drops one head of each GQA group from dK/dV
+     must fail; at each shape the forward kernel's output (at Dh 256 its
+     wide tensor-core body) per element against `ref.flash_attention`
+     within one bf16 spacing, which the plain version without any one of
+     `plan`'s key splits, or without one key tile, must break, and its
+     log-sum-exp per row against `ref.flash_lse`; the forward's times
+     beside SDPA's forward on the same inputs, the bound, and at Dh 256 the
+     CUDA-core body's on the same inputs (the body it replaced); (b)
+     training recurrentgemma-2b at its full config (26 layers, random
+     weights from a seed) through `python -m repro_torch.launch.train`'s
+     entry point: batch 1, seq 4096, 3 AdamW steps, 32 flash forward
+     launches (8 local attention layers x 2 calls, twice under the
+     per-super-layer recompute), every one on the wide body, and 16
+     backward launches a step, finite losses, the peak device memory;
+     then step 1 again from the same weights and batch: through the
+     kernels with every flash call held in place, its output per element
+     against the plain forward (the recompute's calls too) and its
+     gradients against the plain backward on the same inputs and
      cotangent, and
      through the plain versions, whose loss must agree; then 8 decode
      steps from those weights (RG-LRU states and ring caches on the card,
@@ -285,9 +289,13 @@ FLASH_BWD_SHAPES = [
      256, True, 0),
     ("stablelm-1.6b causal", 1, 32, 32, 4096, 4096, 64, True, 0),
     ("GQA 4 cross, non-causal", 1, 32, 8, 4096, 1664, 128, False, 0)]
-# the dK/dV loop with one head of each group dropped (phase 9's mutant)
-BWD_HEADS = ("  const int heads = group;  // the group's query heads, summed "
-             "in order", "  const int heads = group - 1;")
+# the dK/dV walk with one head of each group dropped (phase 9's mutant)
+BWD_HEADS = ("  const int n_heads = group;  // the group's query heads, each "
+             "summed in order", "  const int n_heads = group - 1;")
+# phase 9 (a): the forward's log-sum-exp against the plain one per row:
+# f32 sums of the same terms in other orders (the tensor cores' truncated
+# sums of exact bf16 products in the mma bodies); the lse is O(10)
+FLASH_LSE_REL, FLASH_LSE_ABS = 1e-5, 1e-4
 # phase 9 (b): recurrentgemma-2b's training step
 RG_ARCH, RG_BATCH, RG_SEQ, RG_STEPS, RG_DECODE = ("recurrentgemma-2b", 1,
                                                   4096, 3, 8)
@@ -2397,6 +2405,41 @@ def flash_forward_check(name, q, k, v, out, kw) -> dict:
             "splits": len(p.splits), "drops": drops}
 
 
+def flash_body_launcher(body, q, k, v, kw):
+    """A call of the flash forward through plan body `body` (its
+    `_layout`), which the shape must allow: the before/after of a
+    redesigned body at the same inputs."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as flash_mod
+    strides = (q.stride(), k.stride(), v.stride())
+    p = flash_mod._layout(body, q.shape, k.shape, q.dtype, strides=strides,
+                          **kw)
+    lib = build.load("flash_attention", flash_mod.source(q.shape[3]),
+                     flash_mod._ARGTYPES)
+    call = flash_mod._make_call(
+        p, (q.shape, k.shape, v.shape), strides, q.dtype,
+        tuple(t.data_ptr() % 16 == 0 for t in (q, k, v)), scale=None,
+        launch=lib.launch, **kw)
+    return lambda: flash_mod._run(q, k, v, call, False)[0]
+
+
+def lse_check(name, q, k, lse, kw) -> float:
+    """The forward's log-sum-exp per row against `ref.flash_lse`: within
+    FLASH_LSE_REL |plain| + FLASH_LSE_ABS, +inf exactly on the rows that
+    see no key; returns the max |err| over the live rows."""
+    import torch
+    from repro_torch.kernels import ref
+    want = ref.flash_lse(q, k, **kw)
+    dead = torch.isinf(want)
+    if not torch.equal(torch.isinf(lse), dead) or bool((lse[dead] < 0).any()):
+        raise AssertionError(f"flash lse[{name}]: +inf rows differ")
+    diff = (lse[~dead] - want[~dead]).abs()
+    if bool((diff > FLASH_LSE_REL * want[~dead].abs() + FLASH_LSE_ABS).any()):
+        raise AssertionError(f"flash lse[{name}]: max |err| "
+                             f"{float(diff.max())}")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
 def phase_9a_flash_backward(gen, dev, results) -> None:
     """The flash backward kernel at its four shapes, and the forward there
     (see the docstring)."""
@@ -2419,20 +2462,31 @@ def phase_9a_flash_backward(gen, dev, results) -> None:
             q, k, v = rnd(b, hq, lq, dh), rnd(b, hkv, lk, dh), \
                 rnd(b, hkv, lk, dh)
         kw = dict(causal=causal, kv_offset=off)
-        out = flash_mod.flash_attention(q, k, v, **kw)
+        body_runs = dict(flash_mod.flash_attention.bodies)
+        out, lse = flash_mod.flash_attention_lse(q, k, v, **kw)
+        if not torch.equal(out, flash_mod.flash_attention(q, k, v, **kw)):
+            raise AssertionError(f"flash[{name}]: the output with the lse "
+                                 "differs from the one without")
         fwd = flash_forward_check(name, q, k, v, out, kw)
+        ran = flash_mod.flash_attention.bodies[fwd["body"]] \
+            - body_runs.get(fwd["body"], 0)
+        if ran != 2 or (dh > flash_mod.TC_MAX_DH
+                        and fwd["body"] != "tensor_core_wide"):
+            raise AssertionError(f"flash[{name}]: body {fwd['body']} ran "
+                                 f"{ran} times")
+        lse_err = lse_check(name, q, k, lse, kw)
         dout = rnd(b, hq, lq, dh)
         ins = (q, k, v, out, dout)
         p = flash_mod.bwd_plan(q.shape, k.shape, **kw,
                                strides=tuple(t.stride() for t in ins))
         lay = flash_mod.bwd_layout(dh)
-        if (lay["smem_dq"], lay["smem_dkv"], lay["ncol"]) != (
-                p.smem_dq, p.smem_dkv, p.ncol):
+        if (lay["smem_dq"], lay["smem_dkv"], lay["rows"], lay["split"]) != (
+                p.smem_dq, p.smem_dkv, p.rows, int(p.split)):
             raise AssertionError(f"flash_bwd[{name}]: the build lays out "
                                  f"{lay}, bwd_plan {p}")
         copies = bwd.copies
-        got = bwd(*ins, **kw)
-        again = bwd(*ins, **kw)
+        got = bwd(*ins, lse=lse, **kw)
+        again = bwd(*ins, lse=lse, **kw)
         want = ref.flash_attention_backward(*ins, **kw)
         torch.cuda.synchronize()
         if bwd.copies != copies or any(p.copy):
@@ -2455,7 +2509,7 @@ def phase_9a_flash_backward(gen, dev, results) -> None:
             flash_mod.bwd_source = functools.partial(bwd_mutant_source,
                                                      source=orig)
             try:
-                mg = bwd(*ins, **kw)
+                mg = bwd(*ins, lse=lse, **kw)
             finally:
                 flash_mod.bwd_source = orig
             mutant = {n: rel_norm(g, w) for n, g, w in
@@ -2464,15 +2518,10 @@ def phase_9a_flash_backward(gen, dev, results) -> None:
                 raise AssertionError(f"flash_bwd[{name}]: the dropped-head "
                                      f"mutant passes ({mutant})")
             del mg
-        # the forward kernel at the same shape (at Dh 256 its CUDA-core body)
-        fwd_body = fwd["body"]
-        fwd_ms = cuda_ms(lambda: flash_mod.flash_attention(q, k, v, **kw))
-        kern = lambda: bwd(*ins, **kw)  # noqa: E731
-        ms, med = cuda_ms(kern), median_ms(kern)
-        dms, dms_by = device_ms(kern)
-        plain_ms = cuda_ms(lambda: ref.flash_attention_backward(*ins, **kw),
-                           3)
-        # the library: SDPA's backward alone, its forward not timed
+        del want
+        pairs = visible_pairs(lq, lk, causal, off)
+        # the library: SDPA on prepared inputs, its forward and its
+        # backward alone
         lq_, lk_, lv_ = (t.detach().requires_grad_() for t in (q, k, v))
         if causal and off == 0 and lq == lk:
             lib_kw = dict(is_causal=True)
@@ -2481,65 +2530,116 @@ def phase_9a_flash_backward(gen, dev, results) -> None:
                           >= torch.arange(lk, device=dev)[None, :])
         else:
             lib_kw = {}
+
+        def lib_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(q, k, v, **lib_kw,
+                                                      enable_gqa=True)
+
+        # the forward kernel at the same shape, the CUDA-core body (the
+        # one before the wide body) where the shape allows it, and SDPA's
+        kern_fwd = lambda: flash_mod.flash_attention(q, k, v, **kw)  # noqa: E731
+        fwd_ms, fwd_med = cuda_ms(kern_fwd), median_ms(kern_fwd)
+        fwd_dms, fwd_dms_by = device_ms(kern_fwd)
+        core = core_ms = core_dms = None
+        if fwd["body"] == "tensor_core_wide":
+            core = flash_body_launcher("cuda_core", q, k, v, kw)
+            core_err = float((core().float() - out.float()).abs().max())
+            core_ms = cuda_ms(core, 2)
+            core_dms, _ = device_ms(core, 5)
+        fwd_lib_ms, fwd_lib_med = cuda_ms(lib_fwd), median_ms(lib_fwd)
+        fwd_lib_dms, fwd_lib_dms_by = device_ms(lib_fwd)
+        fwd_plain_ms = cuda_ms(lambda: ref.flash_attention(q, k, v, **kw), 3)
+        fwd_flops = 4 * b * hq * dh * pairs
+        fwd_bytes = 2 * (2 * b * hq * lq * dh + 2 * b * hkv * lk * dh)
+        fb_ms, fb_by = bound(fwd_bytes, fwd_flops, BF16_FLOPS)
+        kern = lambda: bwd(*ins, lse=lse, **kw)  # noqa: E731
+        ms, med = cuda_ms(kern), median_ms(kern)
+        dms, dms_by = device_ms(kern)
+        plain_ms = cuda_ms(lambda: ref.flash_attention_backward(*ins, **kw),
+                           3)
         lib_out = F.scaled_dot_product_attention(lq_, lk_, lv_, **lib_kw,
                                                  enable_gqa=True)
         lib = lambda: torch.autograd.grad(  # noqa: E731
             lib_out, (lq_, lk_, lv_), dout, retain_graph=True)
-        lib_rel = max(rel_norm(g, w) for g, w in zip(lib(), want))
         lib_ms, lib_med = cuda_ms(lib), median_ms(lib)
         lib_dms, lib_dms_by = device_ms(lib)
-        pairs = visible_pairs(lq, lk, causal, off)
         flops = 10 * b * hq * dh * pairs
         nbytes = 2 * (4 * b * hq * lq * dh + 4 * b * hkv * lk * dh)
         b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
         mask = "causal" if causal else "non-causal"
-        row = {"variant": f"{name}: q [{b}, {hq}, {lq}, {dh}], k/v [{b}, "
-                          f"{hkv}, {lk}, {dh}], {mask}, kv_offset {off} "
-                          f"(bf16; bound peak "
-                          f"{BF16_FLOPS / 1e12:.0f} TFLOP/s bf16, "
-                          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)",
-               "max_abs_err": err,
+        shape = (f"{name}: q [{b}, {hq}, {lq}, {dh}], k/v [{b}, {hkv}, {lk}, "
+                 f"{dh}], {mask}, kv_offset {off} (bf16; bound peak "
+                 f"{BF16_FLOPS / 1e12:.0f} TFLOP/s bf16, "
+                 f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+        row = {"variant": shape, "max_abs_err": err,
                "tol": f"relative norm per gradient <= {FLASH_GRAD_REL_LIMIT}",
                "grad_rel_err": rels, "mutant_rel_err": mutant,
                "ms": ms, "median_ms": med, "device_ms": dms,
                "device_ms_by": dms_by, "plain_ms": plain_ms,
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                "library_median_ms": lib_med, "library_device_ms": lib_dms,
-               "library_device_ms_by": lib_dms_by, "library_rel_err": lib_rel,
+               "library_device_ms_by": lib_dms_by,
                "grid_dq": p.grid_dq, "grid_dkv": p.grid_dkv,
-               "smem": [p.smem_dq, p.smem_dkv], "copies": 0,
-               "forward_body": fwd_body, "forward_ms": fwd_ms,
+               "smem": [p.smem_dq, p.smem_dkv], "split": p.split,
+               "copies": 0, "forward_body": fwd["body"], "forward_ms": fwd_ms,
+               "forward_device_ms": fwd_dms,
                "forward_max_abs_err": fwd["max_abs_err"],
                "forward_tol": "per output 2^-7*|plain| + 1e-6 (one bf16 "
                               "spacing)",
+               "lse_max_abs_err": lse_err,
                "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
         log(f"  flash_bwd[{name}]: plan dQ grid {p.grid_dq}, dK/dV grid "
-            f"{p.grid_dkv} ({p.ncol} column CTA(s) of {p.dc}), smem "
-            f"{p.smem_dq} / {p.smem_dkv} B (== the build's), 0 inputs "
-            f"copied; relative error " + ", ".join(
+            f"{p.grid_dkv} ({'column halves' if p.split else '2 x 64 rows'}"
+            f" a CTA), smem {p.smem_dq} / {p.smem_dkv} B (== the build's), "
+            f"0 inputs copied; relative error " + ", ".join(
                 f"{n} {e:.3g}" for n, e in rels.items())
             + f" (limit {FLASH_GRAD_REL_LIMIT}), two runs bit-equal"
             + ("" if mutant is None else "; dropped-head mutant "
                + ", ".join(f"{n} {e:.3g}" for n, e in mutant.items())
                + " (fails)"))
-        log(f"    kernel {ms:.4f} ms (median of 5 x 20 calls {med:.4f}, "
+        log(f"    backward {ms:.4f} ms (median of 5 x 20 calls {med:.4f}, "
             f"device {ms_str(dms)} ({dms_by})), plain {plain_ms:.4f} ms, "
             f"sdpa backward {lib_ms:.4f} ms (median {lib_med:.4f}, device "
-            f"{ms_str(lib_dms)} ({lib_dms_by}); |sdpa - plain| rel "
-            f"{lib_rel:.3g}; it reads the log-sum-exp its forward saved, "
-            f"which this kernel recomputes, and its forward is not timed"
-            f"{'; boolean mask' if 'attn_mask' in lib_kw else ''}); "
+            f"{ms_str(lib_dms)} ({lib_dms_by}); it reads the log-sum-exp its "
+            f"forward saved, as this kernel does, and its forward is not "
+            f"timed{'; boolean mask' if 'attn_mask' in lib_kw else ''}); "
             f"{flops / 1e9:.1f} GFLOP (5 products over {pairs} visible "
             f"pairs a head), {nbytes / 1e6:.0f} MB -> bound {b_ms:.4f} ms "
-            f"({b_by}), {100 * b_ms / ms:.1f}% of it; the forward kernel "
-            f"here ({fwd_body} body) {fwd_ms:.4f} ms")
-        log(f"    forward ({fwd_body} body, {fwd['splits']} key split(s)) "
-            f"vs plain per output: max |err| {fwd['max_abs_err']:.3g} "
-            f"(limit one bf16 spacing); the plain version without keys "
+            f"({b_by}), {100 * b_ms / ms:.1f}% of it")
+        log(f"    forward ({fwd['body']} body, {fwd['splits']} key split(s)) "
+            f"{fwd_ms:.4f} ms (median {fwd_med:.4f}, device {ms_str(fwd_dms)} "
+            f"({fwd_dms_by}))"
+            + ("" if core is None else
+               f"; the CUDA-core body at the same inputs {core_ms:.4f} ms "
+               f"(device {ms_str(core_dms)}; max |diff| to the wide body's "
+               f"output {core_err:.3g})")
+            + f"; sdpa forward {fwd_lib_ms:.4f} ms (median {fwd_lib_med:.4f},"
+            f" device {ms_str(fwd_lib_dms)} ({fwd_lib_dms_by})); plain "
+            f"{fwd_plain_ms:.4f} ms; {fwd_flops / 1e9:.1f} GFLOP -> bound "
+            f"{fb_ms:.4f} ms ({fb_by}), {100 * fb_ms / fwd_ms:.1f}% of it")
+        log(f"    forward vs plain per output: max |err| "
+            f"{fwd['max_abs_err']:.3g} (limit one bf16 spacing); the plain "
+            f"version without keys "
             + ", ".join(f"{a}:{b_}" for a, b_ in fwd["drops"])
-            + " breaks it (each)")
+            + f" breaks it (each); lse vs plain per row max |err| "
+            f"{lse_err:.3g} (limit {FLASH_LSE_REL} |lse| + {FLASH_LSE_ABS}, "
+            f"+inf rows equal)")
         results.setdefault("flash_attention_bwd", []).append(row)
-        del q, k, v, out, dout, ins, got, again, want, lq_, lk_, lv_, lib_out
+        if fwd["body"] == "tensor_core_wide":
+            results.setdefault("flash_attention_wide", []).append({
+                "variant": shape, "max_abs_err": fwd["max_abs_err"],
+                "tol": "per output 2^-7*|plain| + 1e-6 (one bf16 spacing)",
+                "lse_max_abs_err": lse_err, "ms": fwd_ms,
+                "median_ms": fwd_med, "device_ms": fwd_dms,
+                "device_ms_by": fwd_dms_by, "plain_ms": fwd_plain_ms,
+                "bound_ms": fb_ms, "bound_by": fb_by,
+                "library_ms": fwd_lib_ms, "library_median_ms": fwd_lib_med,
+                "library_device_ms": fwd_lib_dms,
+                "cuda_core_ms": core_ms, "cuda_core_device_ms": core_dms,
+                "gflop": fwd_flops / 1e9})
+        del q, k, v, out, lse, dout, ins, got, again, lq_, lk_, lv_, lib_out
+        del core
         torch.cuda.empty_cache()
 
 
@@ -2563,10 +2663,13 @@ def phase_9b_train(dev, launches) -> None:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    bodies = dict(flash_mod.flash_attention.bodies)
     tr = train_launch.main(["--arch", RG_ARCH, "--steps", str(RG_STEPS),
                             "--batch", str(RG_BATCH), "--seq", str(RG_SEQ)])
     torch.cuda.synchronize()
     counts = ops.launch_counts()
+    ran = {k: n - bodies.get(k, 0)
+           for k, n in flash_mod.flash_attention.bodies.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     # a step: 2 calls a local-attention layer (the windowed call and
     # chunk 0's), run again in the backward's recompute; one backward each
@@ -2576,6 +2679,11 @@ def phase_9b_train(dev, launches) -> None:
         if counts[kname] != n:
             raise AssertionError(f"{kname} launches {counts[kname]}, "
                                  f"expected {n}")
+    # every forward call at Dh 256 (Rg = 10 x 2048) runs the wide body
+    if ran.get("tensor_core_wide", 0) != want["flash_attention"] or \
+            sum(ran.values()) != want["flash_attention"]:
+        raise AssertionError(f"flash forward bodies {ran}")
+    launches["flash_attention_wide"] = ran["tensor_core_wide"]
     launches["flash_attention"] += counts["flash_attention"]
     launches["flash_attention_bwd"] = counts["flash_attention_bwd"]
     losses = tr["losses"]
@@ -2629,7 +2737,8 @@ def phase_9b_train(dev, launches) -> None:
         ins = [t.detach() for t in (q, k, v, out)]
 
         def check(dout):
-            kg = flash_mod.flash_attention_bwd(*ins, dout, **kw)
+            _, lse = flash_mod.flash_attention_lse(*ins[:3], **kw)
+            kg = flash_mod.flash_attention_bwd(*ins, dout, lse=lse, **kw)
             pg = ref.flash_attention_backward(*ins, dout, **kw)
             rec["rel"] = max(rel_norm(a, b) for a, b in zip(kg, pg))
             if rec["rel"] > FLASH_GRAD_REL_LIMIT:
@@ -4052,6 +4161,10 @@ def main() -> int:
                 "apply": "src/repro/kernels/superstep.py:179",
                 "segment_sum": "src/repro/kernels/segment_sum.py:101",
                 "flash_attention": "src/repro/kernels/flash_attention.py:121",
+                # the same pallas_call at Dh above 128 (recurrentgemma's
+                # 256): the wide body of csrc/flash_attention.cu
+                "flash_attention_wide":
+                    "src/repro/kernels/flash_attention.py:121",
                 # no Pallas kernel: the reference differentiates its plain
                 # attention
                 "flash_attention_bwd": "src/repro/kernels/ref.py:181",
@@ -4059,7 +4172,7 @@ def main() -> int:
                 "mlstm_bwd": "src/repro/kernels/mlstm.py:102",
                 "spmv": "src/repro/kernels/spmv.py:59"}
     csrc = {"mlstm_fwd": "mlstm_tc", "mlstm_bwd": "mlstm_tc",
-            "spmv": "triplet"}
+            "spmv": "triplet", "flash_attention_wide": "flash_attention"}
     # the triplet kernel's encoded-row variants: the reference's have_scale
     # body of the same pallas_call (_make_kernel :246, _spread_scale_tile
     # :233), and its bf16 tiles

@@ -112,7 +112,7 @@ def main() -> int:
         call = fm._make_call(p, (q.shape, k.shape, v.shape),
                              (q.stride(), k.stride(), v.stride()), q.dtype,
                              aligned, scale=None, launch=launch, **kw)
-        return lambda: fm._run(q, k, v, call)
+        return lambda: fm._run(q, k, v, call, False)[0]
 
     def split(p, keys):
         """Plan p with its keys cut into splits of `keys`."""

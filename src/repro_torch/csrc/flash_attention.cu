@@ -46,11 +46,12 @@
 // before it is added to O in f32 (across a whole row of keys the
 // truncation is relative to the running O, not to what each key adds).
 //
-// Tensor-core body (flash_tc; plan's "tensor_core"): bf16, DH a multiple
-// of 16, more than 16 rows; 64 rows per CTA (one warpgroup of 128
-// threads).  Bound: operations, 4 B Hq Lq Lk Dh (halved when causal) at
-// 989 TFLOP/s.  Q, and a 3-stage ring of 64-key K/V tiles that one thread
-// asks the TMA unit for (tensor maps built per call from the strides,
+// Tensor-core body (flash_tc; plan's "tensor_core", and "tensor_core_wide"
+// above DH 128): bf16, DH a multiple of 16 to 256, more than 16 rows; 64
+// rows per CTA.  Bound: operations, 4 B Hq Lq Lk Dh (halved when causal)
+// at 989 TFLOP/s; P V's three bf16 terms make the tensor cores do 2x the
+// bound's work.  Q, and a ring of 64-key K/V tiles that one thread asks
+// the TMA unit for (tensor maps built per call from the strides,
 // mbarriers counting the bytes), in the 128-byte swizzled layout
 // (tile_off); S = Q K^T as wgmma m64n64k16 with both operands in shared
 // memory, issued for tile t + 1 before the softmax of tile t so that the
@@ -58,31 +59,53 @@
 // from registers and V read MN-major from shared memory.  Tiles wholly
 // above the shifted diagonal are never loaded; only tiles that cross it,
 // Lk or the split's end are masked.  Row tiles run heaviest first.
+//   To DH 128 one warpgroup (128 threads) holds O and a tile's P V, DH / 2
+// f32 a thread each, over a 3-stage ring.  Above it that is 256 at DH
+// 256, over the 255-register limit, so two warpgroups (NWG, 256 threads)
+// share the rows and each holds half of O's columns (DHP / 2: 64 + 64 f32
+// a thread at DH 256, with the 32 of an S tile and the 48 of P's three
+// bf16 terms; 238 registers, no spills).  S is computed once a tile: each
+// warpgroup takes half of the DH reduction, writes its f32 partial to
+// shared memory and adds the other's (a + b == b + a, so both hold the
+// same bits and run the same softmax).  Chosen over one warpgroup
+// computing S and handing P over, which leaves the other idle for a third
+// of the tensor-core work and hands 3 x 8 KB of P terms over in place of
+// 16 KB of S.  The ring has 2 stages there: Q 32 KB, 2 x 64 KB of K/V
+// and the 32 KB exchange make 192 KB at DH 256 (3 stages would need 224
+// KB with no room for the exchange), one CTA an SM.  A 128-row CTA (two
+// warpgroup pairs) would halve K/V traffic at group 10 but needs 512
+// threads x ~240 registers, twice the register file.  Registers, shared
+// memory and CTAs an SM of each build: scripts/flash_resources.py.
 //
-// Decode body (flash_decode; plan's "decode"): bf16, DH a multiple of 16,
-// at most 16 rows (the serve step: group 4 x Lq 1).  Bound: bytes (~4
-// operations per byte of K/V against the card's bf16 ridge of 295).  Warps
-// take 16 keys each of a 64-key tile and run mma.sync m16n8k16: S = Q K^T,
-// then O^T = V^T P^T, which puts the few query rows on the n8 side of the
-// product.  On the CUDA cores (flash_simt) the same step is issue-bound
-// on a convert and an FMA per K/V element and row, and on the wgmma body
-// its 64-row tiles are 60 rows of padding (scripts/flash_sweep.py times
-// all three).
+// Decode body (flash_decode; plan's "decode"): bf16, DH a multiple of 16
+// to 128, at most 16 rows (the serve step: group 4 x Lq 1).  Bound: bytes
+// (~4 operations per byte of K/V against the card's bf16 ridge of 295).
+// Warps take 16 keys each of a 64-key tile and run mma.sync m16n8k16: S =
+// Q K^T, then O^T = V^T P^T, which puts the few query rows on the n8 side
+// of the product.  On the CUDA cores (flash_simt) the same step is
+// issue-bound on a convert and an FMA per K/V element and row, and on the
+// wgmma body its 64-row tiles are 60 rows of padding
+// (scripts/flash_sweep.py times all three).
 //
-// CUDA-core body (flash_simt; plan's "cuda_core"): f32, and head
-// dimensions that are not a multiple of 16 or are above 128 (to 256).
+// CUDA-core body (flash_simt; plan's "cuda_core"): f32, head dimensions
+// that are not a multiple of 16, and bf16 above 128 at 16 rows or fewer.
 // Up to 16 rows, four warps, warp w owns rows w, w+4, w+8, w+12, over a
 // 3-stage ring of 32-key K/V tiles.  Lane j scores key j of a tile for the warp's rows (q scaled in
 // f32 before the product, fmaf; the build has --fmad=false), then the warp
 // adds p V with the lanes over the output columns.
-#include <cuda.h>
-#include <cudaTypedefs.h>
-#include <cuda_runtime.h>
+//
+// Log-sum-exp.  Where the wrapper passes `lse` (the autograd forward),
+// every body writes each row's log-sum-exp there, f32 [B, Hq, Lq] in units
+// of log2 of S * scale (m + log2(l), m and S in those units), +inf for a
+// row that sees no key, so that the backward's P = exp2(s - lse) is 0
+// there; the split merge writes the merged one.  Without it nothing is
+// stored.
 #include <cuda_bf16.h>
 #include <float.h>
 #include <math.h>
 #include <stdint.h>
 #include <type_traits>
+#include "hopper.cuh"
 
 #ifndef DH
 #error "DH (the head dimension) is defined by kernels/flash_attention.py"
@@ -95,9 +118,15 @@
 #define TC_BN 64     // keys per tile, tensor-core body
 #define TC_ROWS 64   // rows per CTA, tensor-core body
 #define P_TERMS 3    // bf16 terms of P in P V (the mma bodies)
-// the mma bodies hold O and a tile's P V in registers, DH / 2 f32 a thread
-// each: built up to DH 128 (kernels/flash_attention.py:TC_MAX_DH)
-#define MMA_BODIES (DH % 16 == 0 && DH <= 128)
+#define WIDE_THREADS 256  // flash_tc above DH 128: two warpgroups
+#define WIDE_STAGES 2     // flash_tc above DH 128: K/V ring stages
+#define LOG2E 1.4426950408889634f
+// flash_tc and flash_decode hold O and a tile's P V in registers, DH / 2
+// f32 a thread each with one warpgroup: flash_decode is built up to DH 128
+// (kernels/flash_attention.py:TC_MAX_DH), flash_tc to 256 with two
+// warpgroups above 128 (NWG)
+#define TC_BODY (DH % 16 == 0 && DH <= 256)
+#define DECODE_BODY (DH % 16 == 0 && DH <= 128)
 
 // One call's arguments, as kernels/flash_attention.py packs them.
 struct Args {
@@ -107,6 +136,7 @@ struct Args {
   void* o;
   float* part;   // [row tiles][splits][rows][DH + 2] partial acc, m, l
   int* count;    // [row tiles] arrivals, zero between calls
+  float* lse;    // [B, Hq, Lq] log-sum-exp out, or null
   long long qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl;  // element strides
   int b, hq, hkv, lq, lk;
   float scale;
@@ -114,9 +144,9 @@ struct Args {
   int hc, tq, head_tiles, pos_tiles;
   int kv_end, split_keys, n_splits;
   int smem, dtype, body;  // dtype 0 f32, 1 bf16; body 0 CUDA cores, 1
-                          // wgmma, 2 decode (mma.sync)
+                          // wgmma, 2 decode (mma.sync), 3 wide wgmma
 };
-static_assert(sizeof(Args) == 192, "Args must match the wrapper's packing");
+static_assert(sizeof(Args) == 200, "Args must match the wrapper's packing");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -146,14 +176,6 @@ __device__ __forceinline__ void load_f32(const T* p, float* out) {
   }
 }
 
-// 2^x on the special-function unit, subnormal results flushed to 0: the
-// softmax's exp2(s - m) with s <= m (p of masked keys is set to 0 apart)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
@@ -161,21 +183,6 @@ __device__ __forceinline__ float warp_max(float x) {
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
-}
-
-// 16 bytes global -> shared without registers; src_bytes 0 fills zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // The CTA's key range: its split, cut at the causal end of its last row.
@@ -290,6 +297,18 @@ __device__ __forceinline__ bool tile_row_live(const Args& a, int pt, int ht,
          pt * a.tq + r % a.tq < a.lq;
 }
 
+// Row r's log-sum-exp into a.lse (where the wrapper asked for it): m + log2
+// l in units of log2 (m2, the running max in those units), +inf where l
+// is 0 (a row that sees no key).
+__device__ __forceinline__ void write_lse(const Args& a, int b, int hk,
+                                          int pt, int ht, int r, float m2,
+                                          float l) {
+  if (a.lse == nullptr) return;
+  const int group = a.hq / a.hkv;
+  a.lse[((long long)b * a.hq + hk * group + ht * a.hc + r / a.tq) * a.lq +
+        pt * a.tq + r % a.tq] = l > 0.0f ? m2 + log2f(l) : INFINITY;
+}
+
 // The last CTA of a row tile merges the parts' partial states and writes
 // the rows, then resets the tile's counter.  Warps take rows, lanes
 // columns.  LOG2: m is in units of log2 (the mma bodies'), else of ln.
@@ -297,10 +316,12 @@ template <typename T, bool LOG2>
 __device__ void merge_splits(const Args& a, const float* base, int parts,
                              long long tile, int b, int hk, int pt, int ht) {
   float acc[(DH + 31) / 32], m, l;
-  for (int r = threadIdx.x >> 5; r < a.hc * a.tq; r += THREADS / 32) {
+  for (int r = threadIdx.x >> 5; r < a.hc * a.tq; r += blockDim.x >> 5) {
     if (!tile_row_live(a, pt, ht, r)) continue;
     merge_row<LOG2, true>(base, parts, a.hc * a.tq, r, acc, &m, &l);
     write_row<T>(a, b, hk, pt, ht, r, acc, l);
+    if ((threadIdx.x & 31) == 0)
+      write_lse(a, b, hk, pt, ht, r, LOG2 ? m : m * LOG2E, l);
   }
   if (threadIdx.x == 0) a.count[tile] = 0;
 }
@@ -482,6 +503,8 @@ __global__ void __launch_bounds__(THREADS) flash_simt(const Args a) {
         const int col = lane * NC + c;
         if (col < DH) store(o + off + col, acc[i][c] / denom);
       }
+      if (lane == 0) write_lse(a, b, hk, pt, ht, warp + 4 * i, m[i] * LOG2E,
+                               l[i]);
     }
     return;
   }
@@ -508,227 +531,110 @@ __global__ void __launch_bounds__(THREADS) flash_simt(const Args a) {
 }
 
 // ---------------------------------------------------------- tensor cores
-// Shared-memory matrix descriptor: start address, LBO and SBO (the byte
-// strides between core matrices that desc_kmajor and desc_v name); the
-// swizzle mode goes in bits 62-63.
-__device__ __forceinline__ uint64_t gmma_desc(const void* p, int lbo, int sbo) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// cp.async writes through the generic proxy; wgmma reads through the async
-// proxy
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// Pins a register that an asynchronous wgmma reads or writes to this point
-// of the program, so that no use of it moves across wgmma.wait_group.
-__device__ __forceinline__ void fence_reg(float& x) {
-  asm volatile("" : "+f"(x)::"memory");
-}
-__device__ __forceinline__ void fence_reg(uint32_t& x) {
-  asm volatile("" : "+r"(x)::"memory");
-}
-
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
-                                             int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// D[64 x N] (+)= A[64 x 16] B[16 x N], A from registers, B MN-major in
-// shared memory (imm-trans-b 1)
-__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
-                                             uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-
-__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
-                                             uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                             uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
-                                             uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-
-#if MMA_BODIES
-// Shared-memory layout of a 64-row tile of Q, K or V (row = query row or
-// key, DH bf16 columns), the 128-byte swizzle of the wgmma descriptors:
-// blocks of 64 columns, each 64 rows x 128 bytes, the 16-byte chunk c of
-// row r stored at chunk c ^ (r % 8), so that the eight rows of a core
-// matrix (and of an ldmatrix) fall in eight different bank groups.
+#if TC_BODY
+// tiles of 64 rows in hopper.cuh's tile_off layout
 constexpr int DHP = (DH + 63) / 64 * 64;  // columns with the last block padded
 constexpr int TC_TILE = TC_BN * DHP * 2;  // bytes of a 64-row tile
 
-// byte offset of 16-byte chunk `ch` of row `r` in a tile
-__device__ __forceinline__ int tile_off(int r, int ch) {
-  return (ch >> 3) * (64 * 128) + r * 128 + (((ch & 7) ^ (r & 7)) << 4);
-}
-
-// Descriptor of the K-major operand (Q, or K for S = Q K^T) at k step kk
-// (columns 16kk .. 16kk + 15): SBO the next 8 rows.
-__device__ __forceinline__ uint64_t desc_kmajor(const unsigned char* t,
-                                                int kk) {
-  return gmma_desc(t + (kk >> 2) * (64 * 128) + (kk & 3) * 32, 16, 1024) |
-         (1ull << 62);
-}
-
-// Descriptor of V (MN-major) at keys 16kk .. 16kk + 15, columns c0 ..:
-// LBO the next 64 columns, SBO the next 8 keys.
-__device__ __forceinline__ uint64_t desc_v(const unsigned char* t, int kk,
-                                           int c0) {
-  return gmma_desc(t + (c0 >> 6) * (64 * 128) + (c0 & 63) * 2 + kk * 2048,
-                   64 * 128, 1024) | (1ull << 62);
-}
-
-// O[:, c0 : c0 + N] += P V[:, c0 : c0 + N] for 16-key step kk; the O
-// columns are cut into N = 128, 64, 32, 16 (every multiple of 16 <= 128),
-// each aligned to its width, so none crosses a 64-column block
-template <int C0>
-__device__ __forceinline__ void pv_step(float* o, const uint32_t* a,
-                                        const unsigned char* vt, int kk) {
-  constexpr int LEFT = DH - C0;
-  if constexpr (LEFT > 0) {
-    constexpr int N = LEFT >= 128 ? 128 : LEFT >= 64 ? 64 : LEFT >= 32 ? 32 : 16;
-    const uint64_t db = desc_v(vt, kk, C0);
-    if constexpr (N == 128) wgmma_rs_n128(o + C0 / 2, a, db, 1);
-    else if constexpr (N == 64) wgmma_rs_n64(o + C0 / 2, a, db, 1);
-    else if constexpr (N == 32) wgmma_rs_n32(o + C0 / 2, a, db, 1);
-    else wgmma_rs_n16(o + C0 / 2, a, db, 1);
-    pv_step<C0 + N>(o, a, vt, kk);
+// The online softmax of one 64-key tile on a warp's S fragment of a wgmma
+// m64n64 accumulator, in place: s[4n + e] is (row r0, key j0 + 8n + 2 t4
+// + e), s[4n + 2 + e] is (r1, ...), unscaled.  Updates the rows' (m, l)
+// (m in units of log2), returns O's rescale factors and P as A fragments
+// (16-key step kk takes p[8kk .. 8kk + 7] in pairs) in P_TERMS bf16
+// terms: term 0 = bf16(p), term n = bf16(p - terms < n).  `edge`: some key
+// of the tile may be masked (past k_hi, the split's or Lk's end, or past
+// a row's causal end); dead rows (live false) see no key.
+__device__ __forceinline__ void softmax_tile(
+    const Args& a, float* s, float scale2, bool edge, int j0, int k_hi,
+    int t4, bool live0, bool live1, int pos0, int pos1, float& m0,
+    float& m1, float& l0, float& l1, float& alpha0, float& alpha1,
+    uint32_t (&pa)[P_TERMS][4][4]) {
+  uint32_t okbits = 0xffffffffu;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] *= scale2;
+  if (edge) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int j = j0 + (i >> 2) * 8 + 2 * t4 + (i & 1);
+      const bool hi_row = (i & 2) != 0;
+      const bool ok =
+          (hi_row ? live1 : live0) && j < k_hi &&
+          (!a.causal || j <= (hi_row ? pos1 : pos0) + a.kv_offset);
+      if (!ok) {
+        okbits &= ~(1u << i);
+        s[i] = NEG_BIG;
+      }
+    }
+  }
+  // row maxima as trees: s[4n + e] is row r0 for e < 2, r1 else
+  float t0[8], t1[8];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    t0[n] = fmaxf(s[4 * n], s[4 * n + 1]);
+    t1[n] = fmaxf(s[4 * n + 2], s[4 * n + 3]);
+  }
+#pragma unroll
+  for (int w = 4; w > 0; w >>= 1)
+#pragma unroll
+    for (int n = 0; n < w; ++n) {
+      t0[n] = fmaxf(t0[n], t0[n + w]);
+      t1[n] = fmaxf(t1[n], t1[n + w]);
+    }
+  float mx0 = fmaxf(m0, t0[0]), mx1 = fmaxf(m1, t1[0]);
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  alpha0 = ex2(m0 - mx0);
+  alpha1 = ex2(m1 - mx1);
+  m0 = mx0;
+  m1 = mx1;
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    s[i] = (okbits >> i) & 1u ? ex2(s[i] - ((i & 2) ? mx1 : mx0)) : 0.0f;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    t0[n] = s[4 * n] + s[4 * n + 1];
+    t1[n] = s[4 * n + 2] + s[4 * n + 3];
+  }
+#pragma unroll
+  for (int w = 4; w > 0; w >>= 1)
+#pragma unroll
+    for (int n = 0; n < w; ++n) {
+      t0[n] += t0[n + w];
+      t1[n] += t1[n + w];
+    }
+  l0 = alpha0 * l0 + t0[0];
+  l1 = alpha1 * l1 + t1[0];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float2 x = make_float2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+#pragma unroll
+      for (int n = 0; n < P_TERMS; ++n) {
+        const __nv_bfloat162 h = __float22bfloat162_rn(x);
+        pa[n][kk][r] = *reinterpret_cast<const uint32_t*>(&h);
+        const float2 hf = __bfloat1622float2(h);
+        x.x -= hf.x;
+        x.y -= hf.y;
+      }
+    }
   }
 }
 
-// mbarrier and TMA (cp.async.bulk.tensor) for the tensor-core body's ring
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-}
-// box (64 columns, 64 keys) of a [B, H, L, DH] tensor at (c, key, h, b)
-// into shared memory, 128-byte swizzled as tile_off lays it out; keys and
-// columns past the tensor's ends arrive as zeros
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* tm,
-                                         int c, int key, int h, int b,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      :: "r"(smem_u32(dst)), "l"(tm), "r"(c), "r"(key), "r"(h), "r"(b),
-         "r"(smem_u32(bar))
-      : "memory");
-}
+// NWG warpgroups over one CTA's 64 rows (see the header): warpgroup wg
+// holds O's columns [wg HALF, (wg + 1) HALF) and computes S's k steps
+// [wg KS0, ...); with two, the S halves meet in `xchg`.
+constexpr int NWG = DH > 128 ? 2 : 1;          // warpgroups of a CTA
+constexpr int TC_THREADS = NWG == 1 ? THREADS : WIDE_THREADS;
+constexpr int TC_STAGES = NWG == 1 ? STAGES : WIDE_STAGES;
+constexpr int HALF = NWG == 1 ? DH : DHP / 2;  // O columns of a warpgroup
+constexpr int KS0 = NWG == 1 ? DH / 16 : (DH / 16 + 1) / 2;
+constexpr int END0 = DH < HALF ? DH : HALF;
+static_assert(TC_THREADS == 128 * NWG, "a warpgroup is 128 threads");
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(TC_THREADS)
 flash_tc(const Args a, const __grid_constant__ CUtensorMap tmk,
          const __grid_constant__ CUtensorMap tmv) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -738,15 +644,19 @@ flash_tc(const Args a, const __grid_constant__ CUtensorMap tmk,
   // window, which is so aligned
   if ((uint32_t)__cvta_generic_to_shared(smem) & 1023) __trap();
   unsigned char* qs = smem;                    // [64 rows][DHP]
-  unsigned char* ring = qs + TC_TILE;          // [STAGES][K, V]
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * 2 * TC_TILE);
+  unsigned char* ring = qs + TC_TILE;          // [TC_STAGES][K, V]
+  // two warpgroups: [warpgroup][32 accumulators][128 threads] f32 partial S
+  float* xchg = reinterpret_cast<float*>(ring + TC_STAGES * 2 * TC_TILE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      xchg + (NWG == 2 ? 2 * 32 * 128 : 0));
 
   const int group = a.hq / a.hkv;
   const int split = blockIdx.x % a.n_splits;
   const int ht = (blockIdx.x / a.n_splits) % a.head_tiles;
   const int pt = a.pos_tiles - 1 - (int)blockIdx.x / (a.n_splits * a.head_tiles);
   const int hk = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127;
+  const int lane = tid & 31, warp = wt >> 5;   // warp of the warpgroup
   const int rows = a.hc * a.tq;
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
   auto row_live = [&](int r) {
@@ -755,7 +665,7 @@ flash_tc(const Args a, const __grid_constant__ CUtensorMap tmk,
   };
 
   // Q, zeros on rows past the tile
-  for (int c = tid; c < TC_ROWS * CH; c += THREADS) {
+  for (int c = tid; c < TC_ROWS * CH; c += TC_THREADS) {
     const int r = c / CH, ch = c % CH;
     const bool ok = row_live(r);
     const __nv_bfloat16* src = q;
@@ -770,62 +680,65 @@ flash_tc(const Args a, const __grid_constant__ CUtensorMap tmk,
   int k_lo, k_hi;
   key_range(a, split, pt, &k_lo, &k_hi);
   const int ntiles = (k_hi - k_lo + TC_BN - 1) / TC_BN;
-  // one thread asks the TMA unit for each K/V tile: 64 keys from k_lo +
-  // 64t, every column block, into stage t % STAGES, whose mbarrier counts
-  // the bytes; keys past k_hi (another split's, or past the causal end)
-  // are masked like any other
   if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+    for (int s = 0; s < TC_STAGES; ++s) mbar_init(&full[s], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  // one thread asks the TMA unit for each K/V tile: 64 keys from k_lo +
+  // 64t, every column block (columns past DH arrive as zeros), into stage
+  // t % TC_STAGES, whose mbarrier counts the bytes; keys past k_hi
+  // (another split's, or past the causal end) are masked like any other
   auto load_tile = [&](int t) {
     if (tid == 0 && t < ntiles) {
-      unsigned char* st = ring + (t % STAGES) * 2 * TC_TILE;
-      mbar_expect_tx(&full[t % STAGES], 2 * TC_TILE);
+      unsigned char* st = ring + (t % TC_STAGES) * 2 * TC_TILE;
+      mbar_expect_tx(&full[t % TC_STAGES], 2 * TC_TILE);
 #pragma unroll
       for (int cb = 0; cb < DHP / 64; ++cb) {
         tma_load(st + cb * 64 * 128, &tmk, 64 * cb, k_lo + t * TC_BN, hk, b,
-                 &full[t % STAGES]);
+                 &full[t % TC_STAGES]);
         tma_load(st + TC_TILE + cb * 64 * 128, &tmv, 64 * cb,
-                 k_lo + t * TC_BN, hk, b, &full[t % STAGES]);
+                 k_lo + t * TC_BN, hk, b, &full[t % TC_STAGES]);
       }
     }
   };
-  for (int t = 0; t < STAGES; ++t) load_tile(t);
+  for (int t = 0; t < TC_STAGES; ++t) load_tile(t);
   cp_async_wait<0>();   // Q
   fence_proxy_async();
 
-  // this thread's two rows (wgmma accumulator layout) and four key columns
   const int g = lane >> 2, t4 = lane & 3;
   const int r0 = warp * 16 + g, r1 = r0 + 8;
   const bool live0 = row_live(r0), live1 = row_live(r1);
   const int pos0 = pt * a.tq + r0 % a.tq, pos1 = pt * a.tq + r1 % a.tq;
   const int first_pos = pt * a.tq;
-  // the softmax runs in units of log2: s = (q k) * scale * log2(e), so that
-  // p = exp2(s - m) is one MUFU.EX2
-  const float scale2 = a.scale * 1.4426950408889634f;
-  // a warp whose 16 rows are all past the tile's rows skips the softmax:
-  // its P is 0
+  const float scale2 = a.scale * LOG2E;
   const bool warp_rows = warp * 16 < rows;
 
-  float o[DH / 2];
+  float o[HALF / 2];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) o[i] = 0.0f;
+  for (int i = 0; i < HALF / 2; ++i) o[i] = 0.0f;
   float m0 = NEG_BIG, m1 = NEG_BIG, l0 = 0.0f, l1 = 0.0f;
 
-  // S of tile t into acc, issued and committed, not waited for
+  // this warpgroup's half of S of tile t into acc, issued, not waited for
   auto issue_s = [&](float* acc, int t) {
-    const unsigned char* kt = ring + (t % STAGES) * 2 * TC_TILE;
+    const unsigned char* kt = ring + (t % TC_STAGES) * 2 * TC_TILE;
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
     wgmma_fence();
+    if (NWG == 1 || wg == 0) {
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk)
-      wgmma_ss_n64(acc, desc_kmajor(qs, kk), desc_kmajor(kt, kk), 1);
+      for (int kk = 0; kk < KS0; ++kk)
+        wgmma_ss_n64(acc, desc_kmajor(qs, kk), desc_kmajor(kt, kk), 1);
+    } else {
+#pragma unroll
+      for (int kk = KS0; kk < DH / 16; ++kk)
+        wgmma_ss_n64(acc, desc_kmajor(qs, kk), desc_kmajor(kt, kk), 1);
+    }
     wgmma_commit();
   };
   float s[32], sn[32];
+  float* mine = xchg + wg * 32 * 128 + wt;
+  const float* theirs = xchg + (1 - wg) * 32 * 128 + wt;
   __syncthreads();  // Q visible to every warp's wgmma
   if (ntiles > 0) {
     mbar_wait(&full[0], 0);
@@ -834,98 +747,31 @@ flash_tc(const Args a, const __grid_constant__ CUtensorMap tmk,
   }
 
   for (int t = 0; t < ntiles; ++t) {
-    const unsigned char* vt = ring + (t % STAGES) * 2 * TC_TILE + TC_TILE;
-    // the tensor cores compute S of tile t + 1 while this softmax runs
-    if (t + 1 < ntiles) {
-      mbar_wait(&full[(t + 1) % STAGES], ((t + 1) / STAGES) & 1);
-      issue_s(sn, t + 1);
-    }
+    const unsigned char* vt =
+        ring + (t % TC_STAGES) * 2 * TC_TILE + TC_TILE;
 #pragma unroll
     for (int i = 0; i < 32; ++i) fence_reg(s[i]);
+    if constexpr (NWG == 2) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) mine[i * 128] = s[i];
+      __syncthreads();  // both halves of S(t) in the exchange
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] += theirs[i * 128];
+    }
+    // the tensor cores compute S of tile t + 1 while this softmax runs
+    if (t + 1 < ntiles) {
+      mbar_wait(&full[(t + 1) % TC_STAGES], ((t + 1) / TC_STAGES) & 1);
+      issue_s(sn, t + 1);
+    }
 
-    // s[4n + e] is (r0, key 8n + 2 t4 + e), s[4n + 2 + e] is (r1, ...);
-    // keys past k_hi belong to the next split or past Lk
     const int j0 = k_lo + t * TC_BN;
     uint32_t pa[P_TERMS][4][4];
     float alpha0 = 1.0f, alpha1 = 1.0f;
     if (warp_rows) {
       const bool edge = j0 + TC_BN > k_hi ||
                         (a.causal && j0 + TC_BN - 1 > first_pos + a.kv_offset);
-      uint32_t okbits = 0xffffffffu;
-#pragma unroll
-      for (int i = 0; i < 32; ++i) s[i] *= scale2;
-      if (edge) {
-#pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          const int j = j0 + (i >> 2) * 8 + 2 * t4 + (i & 1);
-          const bool hi_row = (i & 2) != 0;
-          const bool ok =
-              (hi_row ? live1 : live0) && j < k_hi &&
-              (!a.causal || j <= (hi_row ? pos1 : pos0) + a.kv_offset);
-          if (!ok) {
-            okbits &= ~(1u << i);
-            s[i] = NEG_BIG;
-          }
-        }
-      }
-      // row maxima as trees: s[4n + e] is row r0 for e < 2, r1 else
-      float t0[8], t1[8];
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        t0[n] = fmaxf(s[4 * n], s[4 * n + 1]);
-        t1[n] = fmaxf(s[4 * n + 2], s[4 * n + 3]);
-      }
-#pragma unroll
-      for (int w = 4; w > 0; w >>= 1)
-#pragma unroll
-        for (int n = 0; n < w; ++n) {
-          t0[n] = fmaxf(t0[n], t0[n + w]);
-          t1[n] = fmaxf(t1[n], t1[n + w]);
-        }
-      float mx0 = fmaxf(m0, t0[0]), mx1 = fmaxf(m1, t1[0]);
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      alpha0 = ex2(m0 - mx0);
-      alpha1 = ex2(m1 - mx1);
-      m0 = mx0;
-      m1 = mx1;
-#pragma unroll
-      for (int i = 0; i < 32; ++i)
-        s[i] = (okbits >> i) & 1u ? ex2(s[i] - ((i & 2) ? mx1 : mx0)) : 0.0f;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        t0[n] = s[4 * n] + s[4 * n + 1];
-        t1[n] = s[4 * n + 2] + s[4 * n + 3];
-      }
-#pragma unroll
-      for (int w = 4; w > 0; w >>= 1)
-#pragma unroll
-        for (int n = 0; n < w; ++n) {
-          t0[n] += t0[n + w];
-          t1[n] += t1[n + w];
-        }
-      const float sum0 = t0[0], sum1 = t1[0];
-      l0 = alpha0 * l0 + sum0;
-      l1 = alpha1 * l1 + sum1;
-      // P as A fragments: 16-key step kk takes p[8kk .. 8kk + 7] in pairs,
-      // in P_TERMS bf16 terms: term 0 = bf16(p), term n = bf16(p - terms <n)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          float2 x = make_float2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
-#pragma unroll
-          for (int n = 0; n < P_TERMS; ++n) {
-            const __nv_bfloat162 h = __float22bfloat162_rn(x);
-            pa[n][kk][r] = *reinterpret_cast<const uint32_t*>(&h);
-            const float2 hf = __bfloat1622float2(h);
-            x.x -= hf.x;
-            x.y -= hf.y;
-          }
-        }
-      }
+      softmax_tile(a, s, scale2, edge, j0, k_hi, t4, live0, live1, pos0, pos1,
+                   m0, m1, l0, l1, alpha0, alpha1, pa);
     } else {
 #pragma unroll
       for (int n = 0; n < P_TERMS; ++n)
@@ -935,18 +781,27 @@ flash_tc(const Args a, const __grid_constant__ CUtensorMap tmk,
           for (int r = 0; r < 4; ++r) pa[n][kk][r] = 0u;
     }
 
-    // this tile's P V in an accumulator of its own (the tensor cores
-    // truncate the f32 sums they align to their largest term; a fresh
-    // accumulator keeps that to the tile's size), then O = alpha O + P V
-    // in f32, rounded to nearest
-    float ot[DH / 2];
+    // this tile's P V on the warpgroup's columns in an accumulator of its
+    // own (the tensor cores truncate the f32 sums they align to their
+    // largest term; a fresh accumulator keeps that to the tile's size),
+    // then O = alpha O + P V in f32, rounded to nearest
+    float ot[HALF / 2];
 #pragma unroll
-    for (int i = 0; i < DH / 2; ++i) ot[i] = 0.0f;
+    for (int i = 0; i < HALF / 2; ++i) ot[i] = 0.0f;
     wgmma_fence();
+    if (NWG == 1 || wg == 0) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+      for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int n = 0; n < P_TERMS; ++n) pv_step<0>(ot, pa[n][kk], vt, kk);
+        for (int n = 0; n < P_TERMS; ++n)
+          pv_cols<0, 0, END0>(ot, pa[n][kk], vt, kk);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int n = 0; n < P_TERMS; ++n)
+          pv_cols<HALF, HALF, DH>(ot, pa[n][kk], vt, kk);
+    }
     wgmma_commit();
     wgmma_wait0();  // P V of tile t, and S of tile t + 1
 #pragma unroll
@@ -956,7 +811,7 @@ flash_tc(const Args a, const __grid_constant__ CUtensorMap tmk,
 #pragma unroll
         for (int r = 0; r < 4; ++r) fence_reg(pa[n][kk][r]);
 #pragma unroll
-    for (int i = 0; i < DH / 2; ++i) {
+    for (int i = 0; i < HALF / 2; ++i) {
       fence_reg(ot[i]);
       o[i] = fmaf(o[i], (i & 2) ? alpha1 : alpha0, ot[i]);
     }
@@ -965,8 +820,9 @@ flash_tc(const Args a, const __grid_constant__ CUtensorMap tmk,
       fence_reg(sn[i]);
       s[i] = sn[i];
     }
-    __syncthreads();  // every warp is past tile t: its stage is free
-    load_tile(t + STAGES);
+    __syncthreads();  // every warp is past tile t: its stage (and the
+                      // exchange) are free
+    load_tile(t + TC_STAGES);
   }
   cp_async_wait<0>();
 
@@ -974,14 +830,16 @@ flash_tc(const Args a, const __grid_constant__ CUtensorMap tmk,
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const int cb = wg * HALF;   // this warpgroup's first column
   if (a.n_splits > 1) {  // write this split's partial state
     const long long tile = row_tile(a, b, hk, pt, ht);
     float* base = a.part + tile * a.n_splits * rows * (DH + 2);
     float* slot0 = base + ((long long)split * rows + r0) * (DH + 2);
     float* slot1 = base + ((long long)split * rows + r1) * (DH + 2);
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n) {
-      const int col = 8 * n + 2 * t4;
+    for (int n = 0; n < HALF / 8; ++n) {
+      const int col = cb + 8 * n + 2 * t4;
+      if (col >= DH) continue;
       if (r0 < rows) {
         slot0[col] = o[4 * n];
         slot0[col + 1] = o[4 * n + 1];
@@ -991,11 +849,11 @@ flash_tc(const Args a, const __grid_constant__ CUtensorMap tmk,
         slot1[col + 1] = o[4 * n + 3];
       }
     }
-    if (t4 == 0 && r0 < rows) {
+    if (wg == 0 && t4 == 0 && r0 < rows) {
       slot0[DH] = m0;
       slot0[DH + 1] = l0;
     }
-    if (t4 == 0 && r1 < rows) {
+    if (wg == 0 && t4 == 0 && r1 < rows) {
       slot1[DH] = m1;
       slot1[DH + 1] = l1;
     }
@@ -1004,12 +862,15 @@ flash_tc(const Args a, const __grid_constant__ CUtensorMap tmk,
                                         ht);
     return;
   }
+  if (wg == 0 && t4 == 0 && live0) write_lse(a, b, hk, pt, ht, r0, m0, l0);
+  if (wg == 0 && t4 == 0 && live1) write_lse(a, b, hk, pt, ht, r1, m1, l1);
   const float d0 = l0 == 0.0f ? 1.0f : l0, d1 = l1 == 0.0f ? 1.0f : l1;
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o);
   const long long head0 = (long long)b * a.hq + hk * group + ht * a.hc;
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n) {
-    const int col = 8 * n + 2 * t4;
+  for (int n = 0; n < HALF / 8; ++n) {
+    const int col = cb + 8 * n + 2 * t4;
+    if (col >= DH) continue;
     if (live0) {
       const long long off = ((head0 + r0 / a.tq) * a.lq + pos0) * DH + col;
       *reinterpret_cast<__nv_bfloat162*>(out + off) =
@@ -1022,7 +883,9 @@ flash_tc(const Args a, const __grid_constant__ CUtensorMap tmk,
     }
   }
 }
+#endif  // TC_BODY
 
+#if DECODE_BODY
 // ------------------------------------------------------ decode (mma.sync)
 #define DEC_STAGES 2  // 64-key K/V tiles in the decode body's ring
 
@@ -1292,7 +1155,10 @@ flash_decode(const Args a, const __grid_constant__ CUtensorMap tmk,
   for (int r = warp; r < rows; r += THREADS / 32) {
     merge_row<true, false>(ws, THREADS / 32, 16, r, acc, &m, &l);
     if (a.n_splits == 1) {
-      if (row_live(r)) write_row<__nv_bfloat16>(a, b, hk, pt, ht, r, acc, l);
+      if (row_live(r)) {
+        write_row<__nv_bfloat16>(a, b, hk, pt, ht, r, acc, l);
+        if (lane == 0) write_lse(a, b, hk, pt, ht, r, m, l);
+      }
       continue;
     }
     float* slot = base + ((long long)split * rows + r) * (DH + 2);
@@ -1308,8 +1174,8 @@ flash_decode(const Args a, const __grid_constant__ CUtensorMap tmk,
     merge_splits<__nv_bfloat16, true>(a, base, a.n_splits, tile, b, hk, pt,
                                       ht);
 }
+#endif  // DECODE_BODY
 
-#endif  // DH % 16 == 0
 
 // Launches the body a->body chose with a->smem bytes of dynamic shared
 // memory on `stream`; grid as kernels/flash_attention.py:plan lays it out.
@@ -1327,68 +1193,12 @@ static void allow_smem(K kernel, int smem, int* allowed) {
   }
 }
 
-#if MMA_BODIES
-// TMA descriptor of K or V ([B, Hkv, Lk, DH] bf16 with element strides sl,
-// sh, sb): boxes of 64 columns x 64 keys, 128-byte swizzle.  The driver's
-// encoder comes through the runtime (the library links no -lcuda).  A
-// dimension of size 1 gets a stride of 16 bytes: it is never stepped.
-static int tensor_map(CUtensorMap* tm, const void* base, const Args& a,
-                      long long sl, long long sh, long long sb) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", (void**)&encode, cudaEnableDefault, &found);
-    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return e != cudaSuccess ? (int)e : (int)cudaErrorNotSupported;
-  }
-  const cuuint64_t dims[4] = {(cuuint64_t)DH, (cuuint64_t)a.lk,
-                              (cuuint64_t)a.hkv, (cuuint64_t)a.b};
-  const cuuint64_t strides[3] = {
-      (cuuint64_t)(a.lk > 1 ? sl * 2 : 16), (cuuint64_t)(a.hkv > 1 ? sh * 2 : 16),
-      (cuuint64_t)(a.b > 1 ? sb * 2 : 16)};
-  const cuuint32_t box[4] = {64, TC_BN, 1, 1}, step[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      tm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-#endif
-
 extern "C" int launch(const Args* args, void* stream) {
   static int allowed[5] = {0, 0, 0, 0, 0};
   const Args a = *args;
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid(a.pos_tiles * a.head_tiles * a.n_splits, a.hkv, a.b);
-  if (a.body != 0) {
-#if MMA_BODIES
-    if (a.dtype != 1) return (int)cudaErrorInvalidValue;
-    if (a.body == 1) {
-      CUtensorMap tmk, tmv;
-      int err = tensor_map(&tmk, a.k, a, a.ksl, a.ksh, a.ksb);
-      if (!err) err = tensor_map(&tmv, a.v, a, a.vsl, a.vsh, a.vsb);
-      if (err) return err;
-      allow_smem(flash_tc, a.smem, &allowed[2]);
-      flash_tc<<<grid, THREADS, a.smem, st>>>(a, tmk, tmv);
-    } else {
-      CUtensorMap tmk, tmv;
-      int err = tensor_map(&tmk, a.k, a, a.ksl, a.ksh, a.ksb);
-      if (!err) err = tensor_map(&tmv, a.v, a, a.vsl, a.vsh, a.vsb);
-      if (err) return err;
-      if (a.hc * a.tq <= 8) {
-        allow_smem(flash_decode<1>, a.smem, &allowed[3]);
-        flash_decode<1><<<grid, THREADS, a.smem, st>>>(a, tmk, tmv);
-      } else {
-        allow_smem(flash_decode<2>, a.smem, &allowed[4]);
-        flash_decode<2><<<grid, THREADS, a.smem, st>>>(a, tmk, tmv);
-      }
-    }
-#else
-    return (int)cudaErrorInvalidValue;
-#endif
-  } else {
+  if (a.body == 0) {
     if (a.dtype == 1) {
       allow_smem(flash_simt<__nv_bfloat16>, a.smem, &allowed[1]);
       flash_simt<__nv_bfloat16><<<grid, THREADS, a.smem, st>>>(a);
@@ -1396,6 +1206,33 @@ extern "C" int launch(const Args* args, void* stream) {
       allow_smem(flash_simt<float>, a.smem, &allowed[0]);
       flash_simt<float><<<grid, THREADS, a.smem, st>>>(a);
     }
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+#if TC_BODY
+  if (a.dtype != 1) return (int)cudaErrorInvalidValue;
+  CUtensorMap tmk, tmv;
+  int err = tensor_map(&tmk, a.k, DH, a.lk, a.hkv, a.b, a.ksl, a.ksh, a.ksb);
+  if (!err)
+    err = tensor_map(&tmv, a.v, DH, a.lk, a.hkv, a.b, a.vsl, a.vsh, a.vsb);
+  if (err) return err;
+  // body 1 is one warpgroup's flash_tc, 3 two warpgroups' (DH over 128)
+  if (a.body == (NWG == 1 ? 1 : 3)) {
+    allow_smem(flash_tc, a.smem, &allowed[2]);
+    flash_tc<<<grid, TC_THREADS, a.smem, st>>>(a, tmk, tmv);
+    return (int)cudaGetLastError();
+  }
+#endif
+#if DECODE_BODY
+  if (a.body == 2 && a.hc * a.tq <= 8) {
+    allow_smem(flash_decode<1>, a.smem, &allowed[3]);
+    flash_decode<1><<<grid, THREADS, a.smem, st>>>(a, tmk, tmv);
+    return (int)cudaGetLastError();
+  }
+  if (a.body == 2) {
+    allow_smem(flash_decode<2>, a.smem, &allowed[4]);
+    flash_decode<2><<<grid, THREADS, a.smem, st>>>(a, tmk, tmv);
+    return (int)cudaGetLastError();
+  }
+#endif
+  return (int)cudaErrorInvalidValue;
 }

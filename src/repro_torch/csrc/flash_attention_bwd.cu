@@ -1,7 +1,7 @@
 // GQA flash attention backward for Hopper: dQ, dK and dV of
 // csrc/flash_attention.cu's forward at a cotangent dO, bf16 inputs read
-// through their (batch, head, position) strides, f32 sums, gradients in
-// bf16.
+// through their (batch, head, position) strides by the TMA unit, f32 sums,
+// gradients in bf16.
 //
 // Replaces: no Pallas kernel.  The reference has no backward kernel: off
 // the TPU it differentiates its plain attention (src/repro/kernels/ops.py
@@ -14,81 +14,94 @@
 // Semantics kept from the forward: masked logits are 0 probability,
 // query position i sees keys <= i + kv_offset when causal, keys past Lk
 // are masked, query head h reads KV head h / group, and a row whose keys
-// are all masked (l = 0) gets zero gradient.  No float atomics: every sum
-// runs in a fixed order inside one CTA, so the result does not depend on
-// the order in which CTAs run.
+// are all masked (the forward's log-sum-exp +inf) gets zero gradient.  No
+// float atomics: every sum runs in a fixed order inside one CTA, so two
+// runs give the same bits whatever order the CTAs run in.
 //
-// Two kernels, launched in this order on the caller's stream:
+// The forward writes each row's log-sum-exp (in units of log2 of S *
+// scale, kernels/flash_attention.py:_Flash), so P = exp2(s - lse) needs no
+// pass of its own.  Two kernels, launched in this order on the caller's
+// stream, each of two warpgroups (256 threads) over 64-row wgmma tiles
+// that one thread asks the TMA unit for (hopper.cuh: the 128-byte swizzle,
+// mbarriers counting the bytes, a 2-stage ring):
 //
-// flash_bwd_dq: a CTA owns (batch, query head, 64 query rows); warp w owns
-//   rows 16w .. 16w + 15.  Q and dO stay in shared memory; D = rowsum(dO O)
-//   per row (f32, O as the forward wrote it).  Pass 1 walks the visible
-//   key tiles (32 keys, cp.async, 2 stages) for the row's log-sum-exp of
-//   S * scale (in units of log2, so that P = exp2(s - lse) is one
-//   MUFU.EX2; +inf for a dead row, whose P is then 0).  Pass 2 walks them
-//   again for P, dP = dO V^T, dS = P (dP - D) and dQ += dS K, then writes
-//   dQ * scale.  The row's lse and D go to a [B, Hq, Lq_pad] scratch for
-//   the second kernel.
-// flash_bwd_dkv: a CTA owns (batch, KV head, 64 keys, DC of the DH output
-//   columns); warp w owns keys 16w .. 16w + 15.  K and V stay in shared
-//   memory; the CTA walks the group's query heads in order 0..group-1
-//   and, for each, the query tiles (32 rows, Q, dO, lse and D by cp.async,
-//   2 stages) that can see its keys: S^T = K Q^T, P^T, dP^T = V dO^T,
-//   dS^T = P^T (dP^T - D), then dV += P^T dO and dK += dS^T Q on its
-//   columns; dK is scaled on write.  Above DH 128 the columns are cut in
-//   two CTAs (DC = DH / 2): at DH 256, 128 f32 accumulators a thread for
-//   dK and dV together, where 256 would spill; each of the two recomputes
-//   S^T and dP^T.
+// flash_bwd_dq: a CTA owns CTA_ROWS query rows of one head.  It first
+//   takes D = rowsum(dO O) of its rows in a fixed order (THREADS /
+//   CTA_ROWS threads a row on consecutive columns, added in column order)
+//   and copies D and the forward's log-sum-exp to a [B, Hq, Lq_pad]
+//   scratch for the second kernel (lse +inf past Lq).  Then it walks the
+//   64-key K/V tiles its rows see: S = Q K^T, dP = dO V^T, dS = P (dP - D)
+//   with P = exp2(S scale log2(e) - lse), dQ += dS K; dQ * scale on write.
+// flash_bwd_dkv: a CTA owns CTA_ROWS keys of one KV head, K and V resident.
+//   It walks the group's query heads in order 0..group-1 and, for each, the
+//   64-row query tiles (Q, dO and the tile's lse and D by the TMA unit)
+//   that see its first key: S^T = K Q^T, dP^T = V dO^T, P^T, dS^T, then
+//   dV += P^T dO and dK += dS^T Q; dK * scale on write.
 //
-// Tiles wholly above the shifted diagonal are never visited: a dQ CTA's
+// The CTA shape depends on the head dimension, padded to DHP (a multiple
+// of 64: the TMA unit fills the padding with zeros):
+//   DHP <= 128 (SPLIT false): each warpgroup owns its own 64 rows (query
+//     rows, or keys) and every column; the two share the ring's tiles, so
+//     a CTA of 128 rows reads each K/V (or Q/dO) tile once for both.
+//     dK + dV at DH 128 are 64 + 64 f32 a thread.
+//   DHP > 128 (SPLIT true): dK and dV of 64 keys x 256 columns are 256 f32
+//     a thread for one warpgroup, over the 255-register limit, so both
+//     warpgroups own the same 64 rows and each holds half of the output
+//     columns (DHP / 2).  Warpgroup 0 computes S (S^T), warpgroup 1 dP
+//     (dP^T), each over the whole DH reduction, and they swap them through
+//     a 32 KB exchange in shared memory (warpgroup 0 hands P over), so each
+//     product is computed once; both then form the same dS in the same
+//     order and add their column halves.  At DH 256 the dK/dV CTA takes
+//     K, V 64 KB + a 2 x 64 KB ring + the exchange 32 KB + lse/D = 225 KB.
+//
+// Tiles wholly above the shifted diagonal are never loaded: a dQ CTA's
 // keys end at its last row's causal end, a dK/dV CTA's queries start at
 // the first row that sees its first key.
 //
-// Products: mma.sync m16n8k16, bf16 in, f32 sums; operands by ldmatrix
-// from shared-memory rows of DH bf16 padded by 16 bytes (a row stride of
-// 16 mod 128 bytes, so the eight rows of an 8x8 matrix fall in eight bank
-// groups).  The product accumulators hand their f32 values to the next
-// product as A fragments (S^T's layout is P^T's A operand), rounded once
-// to bf16: P and dS enter the tensor cores as one bf16 term each (relative
-// rounding 2^-9), where the forward's P V takes three; the gradients are
-// held to the f32 plain backward by a relative-norm limit per input
-// (chip_smoke.py:FLASH_GRAD_REL_LIMIT) for that reason.
+// Products: wgmma m64n64k16 with both operands in shared memory for S,
+// dP (S^T, dP^T); then P, dS from the accumulators' registers as the A
+// operand (rounded once to bf16: P and dS enter the tensor cores as one
+// bf16 term each, relative rounding 2^-9, where the forward's P V takes
+// three; the gradients are held to the f32 plain backward by a relative-
+// norm limit per input, chip_smoke.py:FLASH_GRAD_REL_LIMIT), with the
+// other operand read MN-major from its tile (hopper.cuh:pv_cols).
 //
 // Bound: operations.  The gradient needs five products, 10 Dh flops per
-// visible (query, key) pair and query head; this design does 16 Dh (S in
-// both kernels and pass 1, dP in both), 20 Dh at DH 256 (the column cut
-// recomputes S^T and dP^T).  The wgmma/TMA design is later work (PERF.md
-// §7).
-#include <cuda_runtime.h>
+// visible (query, key) pair and query head; this design does 14 Dh (S and
+// dP in both kernels, plus dQ, dK, dV), the least without float atomics
+// (dQ is summed over keys, dK and dV over queries: two kernels).
 #include <cuda_bf16.h>
 #include <float.h>
 #include <math.h>
 #include <stdint.h>
+#include "hopper.cuh"
 
 #ifndef DH
 #error "DH (the head dimension) is defined by kernels/flash_attention.py"
 #endif
-#if DH % 16 != 0 || DH > 256 || (DH > 128 && DH % 32 != 0)
-#error "DH must be a multiple of 16 to 128, of 32 to 256"
+#if DH % 16 != 0 || DH > 256
+#error "DH must be a multiple of 16 to 256"
 #endif
 
-#define THREADS 128
-#define STAGES 2     // cp.async ring stages of both kernels
-#define DQ_ROWS 64   // query rows per dQ CTA (16 a warp)
-#define DQ_BK 32     // keys per tile, dQ kernel
-#define KV_KEYS 64   // keys per dK/dV CTA (16 a warp)
-#define KV_BQ 32     // query rows per tile, dK/dV kernel
+#define THREADS 256  // two warpgroups
+#define STAGES 2     // TMA ring stages of both kernels
+#define BLK 64       // rows of a wgmma tile: query rows, keys
+#define LOG2E 1.4426950408889634f
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int NCOL = DH > 128 ? 2 : 1;   // CTAs over a key tile's columns
-constexpr int DC = DH / NCOL;            // dK/dV output columns of a CTA
-constexpr int RS = DH * 2 + 16;          // bytes per shared-memory row
-constexpr int CH = DH / 8;               // 16-byte chunks per row
-constexpr int SMEM_DQ = 2 * DQ_ROWS * RS + STAGES * 2 * DQ_BK * RS +
-                        2 * DQ_ROWS * 4;
-constexpr int SMEM_DKV = 2 * KV_KEYS * RS +
-                         STAGES * (2 * KV_BQ * RS + 2 * KV_BQ * 4);
+constexpr int DHP = (DH + 63) / 64 * 64;  // columns, padded to 64
+constexpr int TILE = BLK * DHP * 2;       // bytes of a 64-row tile
+constexpr bool SPLIT = DHP > 128;         // warpgroups on column halves
+constexpr int NBLK = SPLIT ? 1 : 2;       // 64-row blocks of a CTA
+constexpr int CTA_ROWS = NBLK * BLK;      // dQ CTA's rows, dK/dV CTA's keys
+constexpr int ACC = SPLIT ? DHP / 2 : DH;  // output columns of a warpgroup
+constexpr int END0 = SPLIT ? (DH < ACC ? DH : ACC) : DH;
+constexpr int XCHG = SPLIT ? 2 * 32 * 128 * 4 : 0;  // exchange bytes
+constexpr int SMEM_DQ = 2 * NBLK * TILE + STAGES * 2 * TILE + XCHG +
+                        2 * CTA_ROWS * 4 + (STAGES + 1) * 8;
+constexpr int SMEM_DKV = 2 * NBLK * TILE + STAGES * 2 * TILE + XCHG +
+                         STAGES * 2 * BLK * 4 + (STAGES + 1) * 8;
 
 // One call's arguments, as kernels/flash_attention.py packs them.
 struct Args {
@@ -97,444 +110,426 @@ struct Args {
   const void* v;
   const void* o;
   const void* dout;
+  const float* lse_in;  // [B, Hq, Lq] the forward's log-sum-exp
   void* dq;     // [B, Hq, Lq, DH]
   void* dk;     // [B, Hkv, Lk, DH]
   void* dv;
-  float* lse;   // [B, Hq, Lq_pad] scratch: log2-sum-exp2 of s * scale
+  float* lse;   // [B, Hq, Lq_pad] scratch: lse_in, +inf past Lq
   float* dd;    // [B, Hq, Lq_pad] scratch: D = rowsum(dO O)
   long long qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, osb, osh, osl,
       dsb, dsh, dsl;   // element strides
-  int b, hq, hkv, lq, lk, lq_pad, causal, kv_offset, ncol, smem_dq,
-      smem_dkv;
+  int b, hq, hkv, lq, lk, lq_pad, causal, kv_offset, smem_dq, smem_dkv;
   float scale;
 };
-static_assert(sizeof(Args) == 248, "Args must match the wrapper's packing");
+static_assert(sizeof(Args) == 256, "Args must match the wrapper's packing");
 
-// 2^x on the special-function unit, subnormal results flushed to 0
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// 16 bytes global -> shared without registers; valid false fills zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"((uint32_t)__cvta_generic_to_shared(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"((uint32_t)__cvta_generic_to_shared(p)));
-}
-// d[16 x 8] += a[16 x 16] b[16 x 8], bf16 in, f32 sums
-__device__ __forceinline__ void mma16816(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 __device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// Byte offsets of this lane's ldmatrix row inside a tile of RS-byte rows.
-// a_off: matrices rows 0-7 / 8-15 x columns 0-7 / 8-15 of a 16 x 16 block,
-// both for an A operand (rows x k) and, transposed, for a B operand stored
-// as rows k x columns n.  b_off: a B operand stored as rows n x columns k
-// (16 n x 16 k), non-transposed: matrices n 0-7 k 0-7, n 0-7 k 8-15, n 8-15
-// k 0-7, n 8-15 k 8-15.
-__device__ __forceinline__ int a_off(int lane) {
-  return ((lane & 7) + ((lane >> 3) & 1) * 8) * RS + (lane >> 4) * 16;
-}
-__device__ __forceinline__ int b_off(int lane) {
-  return ((lane & 7) + (lane >> 4) * 8) * RS + ((lane >> 3) & 1) * 16;
+// acc (m64n64 accumulator) = A B^T over DH, both 64-row tiles K-major in
+// shared memory; issued, not committed
+__device__ __forceinline__ void ss_product(float* acc, const unsigned char* a,
+                                           const unsigned char* b) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    wgmma_ss_n64(acc, desc_kmajor(a, kk), desc_kmajor(b, kk), 1);
 }
 
-// acc[NB][4] (16 rows x 8 NB columns) = A (16 rows of a, K = DH) times
-// B^T (8 NB rows of b, K = DH), both from shared memory
-template <int NB>
-__device__ __forceinline__ void rows_times_rows(float (*acc)[4],
-                                                const unsigned char* a,
-                                                const unsigned char* b,
-                                                int lane) {
+// An m64n64 accumulator as the A fragments of four k16 steps, in bf16
+// (the forward's P term 0)
+__device__ __forceinline__ void to_frags(const float* x, uint32_t (*af)[4]) {
 #pragma unroll
-  for (int n = 0; n < NB; ++n)
+  for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-  const unsigned char* pa = a + a_off(lane);
-  const unsigned char* pb = b + b_off(lane);
-#pragma unroll 4
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    uint32_t af[4];
-    ldsm_x4(af, pa + kk * 32);
+    for (int r = 0; r < 4; ++r)
+      af[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// acc += A (four k16 steps of fragments) x the tile bt (64 rows, MN-major)
+// on warpgroup wg's output columns; issued, not committed
+__device__ __forceinline__ void cols_product(float* acc, const uint32_t (*af)[4],
+                                             const unsigned char* bt, int wg) {
+  if (!SPLIT || wg == 0) {
 #pragma unroll
-    for (int n2 = 0; n2 < NB / 2; ++n2) {
-      uint32_t bf[4];
-      ldsm_x4(bf, pb + n2 * 16 * RS + kk * 32);
-      mma16816(acc[2 * n2], af, bf[0], bf[1]);
-      mma16816(acc[2 * n2 + 1], af, bf[2], bf[3]);
+    for (int kk = 0; kk < 4; ++kk) pv_cols<0, 0, END0>(acc, af[kk], bt, kk);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) pv_cols<ACC, ACC, DH>(acc, af[kk], bt, kk);
+  }
+}
+
+// SPLIT: warpgroup wg holds x (warpgroup 0 P, 1 dP) and writes it to the
+// exchange; after the barrier both hold x = P and y = dP
+__device__ __forceinline__ void swap_halves(float* x, float* y, float* xchg,
+                                            int wg, int wt) {
+  float* mine = xchg + wg * 32 * 128 + wt;
+  const float* theirs = xchg + (1 - wg) * 32 * 128 + wt;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) mine[i * 128] = x[i];
+  __syncthreads();
+  if (wg == 0) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) y[i] = theirs[i * 128];
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      y[i] = x[i];
+      x[i] = theirs[i * 128];
     }
   }
 }
 
-// acc[NC / 8][4] (16 rows x NC columns from column c0) += A (fragments of
-// 16 rows x 16 KS k, from registers) times B (16 KS rows of b, columns
-// c0 .. c0 + NC - 1, from shared memory)
-template <int KS, int NC>
-__device__ __forceinline__ void frags_times_rows(float (*acc)[4],
-                                                 const uint32_t (*af)[4],
-                                                 const unsigned char* b,
-                                                 int c0, int lane) {
-  const unsigned char* pb = b + a_off(lane) + c0 * 2;
+__device__ __forceinline__ void fence_acc(float* x) {
 #pragma unroll
-  for (int j = 0; j < KS; ++j)
-#pragma unroll
-    for (int nd = 0; nd < NC / 16; ++nd) {
-      uint32_t bf[4];
-      ldsm_x4_t(bf, pb + j * 16 * RS + nd * 32);
-      mma16816(acc[2 * nd], af[j], bf[0], bf[1]);
-      mma16816(acc[2 * nd + 1], af[j], bf[2], bf[3]);
-    }
+  for (int i = 0; i < 32; ++i) fence_reg(x[i]);
 }
 
-// the accumulators of NB n8 blocks (16 rows x 8 NB columns) as the A
-// fragments of NB / 2 k16 steps, in bf16
-template <int NB>
-__device__ __forceinline__ void to_frags(const float (*x)[4],
-                                         uint32_t (*af)[4]) {
-#pragma unroll
-  for (int j = 0; j < NB / 2; ++j) {
-    af[j][0] = pack_bf16(x[2 * j][0], x[2 * j][1]);
-    af[j][1] = pack_bf16(x[2 * j][2], x[2 * j][3]);
-    af[j][2] = pack_bf16(x[2 * j + 1][0], x[2 * j + 1][1]);
-    af[j][3] = pack_bf16(x[2 * j + 1][2], x[2 * j + 1][3]);
-  }
-}
-
-// rows of 64 * CH chunks of a [.., L, DH] tensor from position p0 into
-// shared memory; positions at or past `end` arrive as zeros
-__device__ __forceinline__ void load_rows(unsigned char* dst, const bf16* src,
-                                          long long sl, int p0, int rows,
-                                          int end, int tid) {
-  for (int c = tid; c < rows * CH; c += THREADS) {
-    const int r = c / CH, ch = c % CH;
-    const bool ok = p0 + r < end;
-    cp_async16(dst + r * RS + ch * 16,
-               src + (long long)(ok ? p0 + r : 0) * sl + ch * 8, ok);
-  }
-}
-
-__device__ __forceinline__ bool visible(const Args& a, int pos, int key) {
-  return pos < a.lq && key < a.lk && (!a.causal || key <= pos + a.kv_offset);
-}
-
-__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq(const Args a) {
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq(const Args a, const __grid_constant__ CUtensorMap tmq,
+             const __grid_constant__ CUtensorMap tmk,
+             const __grid_constant__ CUtensorMap tmv,
+             const __grid_constant__ CUtensorMap tmdo) {
   extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* qs = smem;                         // [DQ_ROWS][RS]
-  unsigned char* dos = qs + DQ_ROWS * RS;           // [DQ_ROWS][RS]
-  unsigned char* ring = dos + DQ_ROWS * RS;         // [STAGES][K, V]
-  float* lse_s = reinterpret_cast<float*>(ring + STAGES * 2 * DQ_BK * RS);
-  float* dd_s = lse_s + DQ_ROWS;
-  constexpr int TILE = DQ_BK * RS;
+  // tiles start on 1024 bytes, the swizzle's period (no static shared
+  // memory: the dynamic window starts so aligned)
+  if (smem_u32(smem) & 1023) __trap();
+  unsigned char* qs = smem;                         // [NBLK] Q tiles
+  unsigned char* dos = qs + NBLK * TILE;            // [NBLK] dO tiles
+  unsigned char* ring = dos + NBLK * TILE;          // [STAGES][K, V]
+  float* xchg = reinterpret_cast<float*>(ring + STAGES * 2 * TILE);
+  float* lse_s = reinterpret_cast<float*>(ring + STAGES * 2 * TILE + XCHG);
+  float* dd_s = lse_s + CTA_ROWS;
+  uint64_t* full = reinterpret_cast<uint64_t*>(dd_s + CTA_ROWS);
+  uint64_t* qbar = full + STAGES;                   // Q and dO
 
   const int group = a.hq / a.hkv;
   const int qt = (int)gridDim.x - 1 - (int)blockIdx.x;  // heaviest first
   const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = qt * DQ_ROWS;
-  const bf16* q = static_cast<const bf16*>(a.q) + b * a.qsb + h * a.qsh;
-  const bf16* o = static_cast<const bf16*>(a.o) + b * a.osb + h * a.osh;
-  const bf16* dout = static_cast<const bf16*>(a.dout) + b * a.dsb + h * a.dsh;
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ksb + hk * a.ksh;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vsb + hk * a.vsh;
-
-  load_rows(qs, q, a.qsl, q0, DQ_ROWS, a.lq, tid);
-  load_rows(dos, dout, a.dsl, q0, DQ_ROWS, a.lq, tid);
-  cp_async_commit();
-
-  // the keys any row of the tile sees
-  const int last = min(a.lq, q0 + DQ_ROWS) - 1;
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127;
+  const int lane = tid & 31, warp = wt >> 5;
+  const int q0 = qt * CTA_ROWS;
+  // the keys any row of the CTA sees
+  const int last = min(a.lq, q0 + CTA_ROWS) - 1;
   int k_hi = a.lk;
   if (a.causal) k_hi = max(0, min(k_hi, last + a.kv_offset + 1));
-  const int ntiles = (k_hi + DQ_BK - 1) / DQ_BK;
-  auto load_kv = [&](int t, bool with_v) {
-    if (t < ntiles) {
-      unsigned char* st = ring + (t % STAGES) * 2 * TILE;
-      load_rows(st, kb, a.ksl, t * DQ_BK, DQ_BK, a.lk, tid);
-      if (with_v) load_rows(st + TILE, vb, a.vsl, t * DQ_BK, DQ_BK, a.lk, tid);
-    }
-    cp_async_commit();
-  };
+  const int ntiles = (k_hi + BLK - 1) / BLK;
 
-  // D = rowsum(dO O): thread pairs take a row's two halves, in column order
-  cp_async_wait<0>();
+  if (tid == 0) {
+    for (int s = 0; s <= STAGES; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(qbar, 2 * NBLK * TILE);
+    for (int blk = 0; blk < NBLK; ++blk)
+#pragma unroll
+      for (int cb = 0; cb < DHP / 64; ++cb) {
+        tma_load(qs + blk * TILE + cb * 64 * 128, &tmq, 64 * cb,
+                 q0 + blk * BLK, h, b, qbar);
+        tma_load(dos + blk * TILE + cb * 64 * 128, &tmdo, 64 * cb,
+                 q0 + blk * BLK, h, b, qbar);
+      }
+  }
+  auto load_kv = [&](int t) {
+    if (tid == 0 && t < ntiles) {
+      unsigned char* st = ring + (t % STAGES) * 2 * TILE;
+      mbar_expect_tx(&full[t % STAGES], 2 * TILE);
+#pragma unroll
+      for (int cb = 0; cb < DHP / 64; ++cb) {
+        tma_load(st + cb * 64 * 128, &tmk, 64 * cb, t * BLK, hk, b,
+                 &full[t % STAGES]);
+        tma_load(st + TILE + cb * 64 * 128, &tmv, 64 * cb, t * BLK, hk, b,
+                 &full[t % STAGES]);
+      }
+    }
+  };
+  for (int t = 0; t < STAGES; ++t) load_kv(t);
+
+  // D = rowsum(dO O), TPR threads a row on consecutive CPT columns, added
+  // in column order; the row's lse; both to shared memory and the scratch
   {
-    const int r = tid >> 1, c0 = (tid & 1) * (DH / 2);
+    constexpr int TPR = THREADS / CTA_ROWS, CPT = DH / TPR;
+    const int r = tid / TPR, part = tid % TPR, pos = q0 + r;
     float acc = 0.0f;
-    if (q0 + r < a.lq) {
-      const bf16* orow = o + (long long)(q0 + r) * a.osl + c0;
-      const bf16* drow = reinterpret_cast<const bf16*>(dos + r * RS) + c0;
+    if (pos < a.lq) {
+      const bf16* orow = static_cast<const bf16*>(a.o) + b * a.osb +
+                         h * a.osh + (long long)pos * a.osl + part * CPT;
+      const bf16* drow = static_cast<const bf16*>(a.dout) + b * a.dsb +
+                         h * a.dsh + (long long)pos * a.dsl + part * CPT;
 #pragma unroll 4
-      for (int c = 0; c < DH / 2; c += 8) {
-        const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
-        const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
+      for (int c = 0; c < CPT; c += 4) {
+        const uint2 ov = *reinterpret_cast<const uint2*>(orow + c);
+        const uint2 dv = *reinterpret_cast<const uint2*>(drow + c);
         const bf16* oe = reinterpret_cast<const bf16*>(&ov);
         const bf16* de = reinterpret_cast<const bf16*>(&dv);
 #pragma unroll
-        for (int e = 0; e < 8; ++e)
+        for (int e = 0; e < 4; ++e)
           acc = fmaf(__bfloat162float(oe[e]), __bfloat162float(de[e]), acc);
       }
     }
-    const float other = __shfl_xor_sync(0xffffffffu, acc, 1);
-    if ((tid & 1) == 0) dd_s[r] = acc + other;
+    // parts (0 + 1) (+ (2 + 3)): a + b == b + a, so every lane of the row
+    // ends with the same bits
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (TPR == 4) acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    if (part == 0) {
+      const float l = pos < a.lq
+          ? a.lse_in[((long long)b * a.hq + h) * a.lq + pos] : INFINITY;
+      lse_s[r] = l;
+      dd_s[r] = acc;
+      const long long at = ((long long)b * a.hq + h) * a.lq_pad + pos;
+      a.lse[at] = l;
+      a.dd[at] = acc;
+    }
   }
+  mbar_wait(qbar, 0);
+  __syncthreads();  // lse and D of every row visible
 
+  const int blk = SPLIT ? 0 : wg;   // this warpgroup's 64 rows
   const int g = lane >> 2, t4 = lane & 3;
-  const int r0 = warp * 16 + g, r1 = r0 + 8;
-  const int pos0 = q0 + r0, pos1 = q0 + r1;
-  const float scale2 = a.scale * 1.4426950408889634f;
-  const unsigned char* qw = qs + warp * 16 * RS;
-  const unsigned char* dow = dos + warp * 16 * RS;
-
-  // pass 1: each thread's running (max, sum) over its columns, then the
-  // four lanes of a row combine theirs
-  float m0 = -FLT_MAX, m1 = -FLT_MAX, l0 = 0.0f, l1 = 0.0f;
-  load_kv(0, false);
-  for (int t = 0; t < ntiles; ++t) {
-    load_kv(t + 1, false);
-    cp_async_wait<1>();
-    __syncthreads();
-    float s[DQ_BK / 8][4];
-    rows_times_rows<DQ_BK / 8>(s, qw, ring + (t % STAGES) * 2 * TILE, lane);
-    uint32_t ok = 0;
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int n = 0; n < DQ_BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = t * DQ_BK + 8 * n + 2 * t4 + (e & 1);
-        const bool hi = e >= 2;
-        s[n][e] *= scale2;
-        if (visible(a, hi ? pos1 : pos0, key)) {
-          ok |= 1u << (4 * n + e);
-          if (hi) mx1 = fmaxf(mx1, s[n][e]);
-          else mx0 = fmaxf(mx0, s[n][e]);
-        }
-      }
-    l0 *= ex2(m0 - mx0);
-    l1 *= ex2(m1 - mx1);
-#pragma unroll
-    for (int n = 0; n < DQ_BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if ((ok >> (4 * n + e)) & 1u) {
-          if (e >= 2) l1 += ex2(s[n][e] - mx1);
-          else l0 += ex2(s[n][e] - mx0);
-        }
-    m0 = mx0;
-    m1 = mx1;
-    __syncthreads();  // the stage is free for tile t + 2
-  }
-  // lanes t and t ^ o add the same two terms in either order: every lane
-  // of the row ends with the same bits
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    const float mo0 = __shfl_xor_sync(0xffffffffu, m0, off);
-    const float lo0 = __shfl_xor_sync(0xffffffffu, l0, off);
-    const float mo1 = __shfl_xor_sync(0xffffffffu, m1, off);
-    const float lo1 = __shfl_xor_sync(0xffffffffu, l1, off);
-    const float mn0 = fmaxf(m0, mo0), mn1 = fmaxf(m1, mo1);
-    l0 = l0 * ex2(m0 - mn0) + lo0 * ex2(mo0 - mn0);
-    l1 = l1 * ex2(m1 - mn1) + lo1 * ex2(mo1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-  }
-  const float lse0 = l0 > 0.0f ? m0 + log2f(l0) : INFINITY;
-  const float lse1 = l1 > 0.0f ? m1 + log2f(l1) : INFINITY;
-  if (t4 == 0) {
-    lse_s[r0] = lse0;
-    lse_s[r1] = lse1;
-  }
-  __syncthreads();
-  if (tid < DQ_ROWS) {
-    const long long at = ((long long)b * a.hq + h) * a.lq_pad + q0 + tid;
-    a.lse[at] = lse_s[tid];
-    a.dd[at] = dd_s[tid];
-  }
+  const int r0 = blk * BLK + warp * 16 + g, r1 = r0 + 8;
+  const int pos0 = q0 + r0, pos1 = q0 + r1, first = q0 + blk * BLK;
+  const float lse0 = lse_s[r0], lse1 = lse_s[r1];
   const float d0 = dd_s[r0], d1 = dd_s[r1];
+  const float scale2 = a.scale * LOG2E;
+  const unsigned char* qw = qs + blk * TILE;
+  const unsigned char* dow = dos + blk * TILE;
 
-  // pass 2: dQ += dS K over the same key tiles
-  float dq[DH / 8][4];
+  float dq[ACC / 2];
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.0f;
-  load_kv(0, true);
+  for (int i = 0; i < ACC / 2; ++i) dq[i] = 0.0f;
+
   for (int t = 0; t < ntiles; ++t) {
-    load_kv(t + 1, true);
-    cp_async_wait<1>();
-    __syncthreads();
+    mbar_wait(&full[t % STAGES], (t / STAGES) & 1);
     const unsigned char* kt = ring + (t % STAGES) * 2 * TILE;
-    float s[DQ_BK / 8][4], dp[DQ_BK / 8][4];
-    rows_times_rows<DQ_BK / 8>(s, qw, kt, lane);
-    rows_times_rows<DQ_BK / 8>(dp, dow, kt + TILE, lane);
+    const unsigned char* vt = kt + TILE;
+    // x: S (SPLIT: this warpgroup's product, S or dP), y: dP
+    float x[32], y[32];
+    if (SPLIT) {
+      ss_product(x, wg == 0 ? qw : dow, wg == 0 ? kt : vt);
+    } else {
+      ss_product(x, qw, kt);
+      ss_product(y, dow, vt);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_acc(x);
+    if (!SPLIT) fence_acc(y);
+    // P: x[4n + e] is (row r0, key j0 + 8n + 2 t4 + e), x[4n + 2 + e]
+    // (r1, ...); rows past Lq have lse +inf, so P is 0 there
+    if (!SPLIT || wg == 0) {
+      const int j0 = t * BLK;
+      const bool edge = j0 + BLK > a.lk ||
+                        (a.causal && j0 + BLK - 1 > first + a.kv_offset);
 #pragma unroll
-    for (int n = 0; n < DQ_BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = t * DQ_BK + 8 * n + 2 * t4 + (e & 1);
-        const bool hi = e >= 2;
-        const float p = visible(a, hi ? pos1 : pos0, key)
-                            ? ex2(s[n][e] * scale2 - (hi ? lse1 : lse0))
-                            : 0.0f;
-        dp[n][e] = p * (dp[n][e] - (hi ? d1 : d0));
+      for (int i = 0; i < 32; ++i) {
+        const bool hi = (i & 2) != 0;
+        bool ok = true;
+        if (edge) {
+          const int j = j0 + (i >> 2) * 8 + 2 * t4 + (i & 1);
+          ok = j < a.lk && (!a.causal || j <= (hi ? pos1 : pos0) + a.kv_offset);
+        }
+        x[i] = ok ? ex2(x[i] * scale2 - (hi ? lse1 : lse0)) : 0.0f;
       }
-    uint32_t ds[DQ_BK / 16][4];
-    to_frags<DQ_BK / 8>(dp, ds);
-    frags_times_rows<DQ_BK / 16, DH>(dq, ds, kt, 0, lane);
-    __syncthreads();
+    }
+    if (SPLIT) swap_halves(x, y, xchg, wg, wt);
+    // dS = P (dP - D)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) y[i] = x[i] * (y[i] - ((i & 2) ? d1 : d0));
+    uint32_t dsf[4][4];
+    to_frags(y, dsf);
+    wgmma_fence();
+    cols_product(dq, dsf, kt, wg);
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) fence_reg(dsf[kk][r]);
+#pragma unroll
+    for (int i = 0; i < ACC / 2; ++i) fence_reg(dq[i]);
+    __syncthreads();  // the stage (and the exchange) are free
+    load_kv(t + STAGES);
   }
-  cp_async_wait<0>();
 
   bf16* out = static_cast<bf16*>(a.dq) + ((long long)b * a.hq + h) * a.lq * DH;
+  const int cb = SPLIT ? wg * ACC : 0;
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n) {
-    const int col = 8 * n + 2 * t4;
+  for (int n = 0; n < ACC / 8; ++n) {
+    const int col = cb + 8 * n + 2 * t4;
+    if (col >= DH) continue;
     if (pos0 < a.lq)
       *reinterpret_cast<__nv_bfloat162*>(out + (long long)pos0 * DH + col) =
-          __floats2bfloat162_rn(dq[n][0] * a.scale, dq[n][1] * a.scale);
+          __floats2bfloat162_rn(dq[4 * n] * a.scale, dq[4 * n + 1] * a.scale);
     if (pos1 < a.lq)
       *reinterpret_cast<__nv_bfloat162*>(out + (long long)pos1 * DH + col) =
-          __floats2bfloat162_rn(dq[n][2] * a.scale, dq[n][3] * a.scale);
+          __floats2bfloat162_rn(dq[4 * n + 2] * a.scale,
+                                dq[4 * n + 3] * a.scale);
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv(const Args a) {
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkv(const Args a, const __grid_constant__ CUtensorMap tmq,
+              const __grid_constant__ CUtensorMap tmk,
+              const __grid_constant__ CUtensorMap tmv,
+              const __grid_constant__ CUtensorMap tmdo) {
   extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* ks = smem;                         // [KV_KEYS][RS]
-  unsigned char* vs = ks + KV_KEYS * RS;            // [KV_KEYS][RS]
-  unsigned char* ring = vs + KV_KEYS * RS;          // [STAGES][Q, dO]
-  float* stats = reinterpret_cast<float*>(ring + STAGES * 2 * KV_BQ * RS);
-  constexpr int TILE = KV_BQ * RS;                  // [STAGES][lse, D]
+  if (smem_u32(smem) & 1023) __trap();
+  unsigned char* ks = smem;                         // [NBLK] K tiles
+  unsigned char* vs = ks + NBLK * TILE;             // [NBLK] V tiles
+  unsigned char* ring = vs + NBLK * TILE;           // [STAGES][Q, dO]
+  float* xchg = reinterpret_cast<float*>(ring + STAGES * 2 * TILE);
+  // [STAGES][lse, D][BLK], 16-byte aligned for the bulk copies
+  float* stats = reinterpret_cast<float*>(ring + STAGES * 2 * TILE + XCHG);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stats + STAGES * 2 * BLK);
+  uint64_t* kbar = full + STAGES;                   // K and V
 
   const int group = a.hq / a.hkv;
-  const int hk = blockIdx.y / a.ncol, c0 = (blockIdx.y % a.ncol) * DC;
-  const int b = blockIdx.z, k0 = blockIdx.x * KV_KEYS;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  load_rows(ks, static_cast<const bf16*>(a.k) + b * a.ksb + hk * a.ksh,
-            a.ksl, k0, KV_KEYS, a.lk, tid);
-  load_rows(vs, static_cast<const bf16*>(a.v) + b * a.vsb + hk * a.vsh,
-            a.vsl, k0, KV_KEYS, a.lk, tid);
-  cp_async_commit();
+  const int hk = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * CTA_ROWS;
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127;
+  const int lane = tid & 31, warp = wt >> 5;
 
-  // the query tiles that see a key of this tile: rows from the first that
+  // the query tiles that see a key of this CTA: rows from the first that
   // sees key k0
   const int i_lo = a.causal ? max(0, k0 - a.kv_offset) : 0;
-  const int qt_lo = i_lo / KV_BQ;
-  const int nq = i_lo < a.lq ? (a.lq + KV_BQ - 1) / KV_BQ - qt_lo : 0;
-  const int heads = group;  // the group's query heads, summed in order
-  const int n_it = heads * nq;
+  const int qt_lo = i_lo / BLK;
+  const int nq = i_lo < a.lq ? (a.lq + BLK - 1) / BLK - qt_lo : 0;
+  const int n_heads = group;  // the group's query heads, each summed in order
+  const int n_it = n_heads * nq;
+
+  if (tid == 0) {
+    for (int s = 0; s <= STAGES; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(kbar, 2 * NBLK * TILE);
+    for (int blk = 0; blk < NBLK; ++blk)
+#pragma unroll
+      for (int cb = 0; cb < DHP / 64; ++cb) {
+        tma_load(ks + blk * TILE + cb * 64 * 128, &tmk, 64 * cb,
+                 k0 + blk * BLK, hk, b, kbar);
+        tma_load(vs + blk * TILE + cb * 64 * 128, &tmv, 64 * cb,
+                 k0 + blk * BLK, hk, b, kbar);
+      }
+  }
+  // iteration it: head hk * group + it / nq, query tile qt_lo + it % nq
   auto load_q = [&](int it) {
-    if (it < n_it) {
-      const int h = hk * group + it / nq, p0 = (qt_lo + it % nq) * KV_BQ;
+    if (tid == 0 && it < n_it) {
+      const int h = hk * group + it / nq, p0 = (qt_lo + it % nq) * BLK;
       unsigned char* st = ring + (it % STAGES) * 2 * TILE;
-      load_rows(st, static_cast<const bf16*>(a.q) + b * a.qsb + h * a.qsh,
-                a.qsl, p0, KV_BQ, a.lq, tid);
-      load_rows(st + TILE,
-                static_cast<const bf16*>(a.dout) + b * a.dsb + h * a.dsh,
-                a.dsl, p0, KV_BQ, a.lq, tid);
-      // lse and D of the tile's rows (the scratch is padded to Lq_pad)
-      float* sst = stats + (it % STAGES) * 2 * KV_BQ;
+      float* sst = stats + (it % STAGES) * 2 * BLK;
+      uint64_t* bar = &full[it % STAGES];
+      mbar_expect_tx(bar, 2 * TILE + 2 * BLK * 4);
+#pragma unroll
+      for (int cb = 0; cb < DHP / 64; ++cb) {
+        tma_load(st + cb * 64 * 128, &tmq, 64 * cb, p0, h, b, bar);
+        tma_load(st + TILE + cb * 64 * 128, &tmdo, 64 * cb, p0, h, b, bar);
+      }
       const long long at = ((long long)b * a.hq + h) * a.lq_pad + p0;
-      if (tid < KV_BQ / 4)
-        cp_async16(sst + 4 * tid, a.lse + at + 4 * tid, true);
-      else if (tid < KV_BQ / 2)
-        cp_async16(sst + KV_BQ + 4 * (tid - KV_BQ / 4),
-                   a.dd + at + 4 * (tid - KV_BQ / 4), true);
+      bulk_load(sst, a.lse + at, BLK * 4, bar);
+      bulk_load(sst + BLK, a.dd + at, BLK * 4, bar);
     }
-    cp_async_commit();
   };
+  for (int it = 0; it < STAGES; ++it) load_q(it);
 
+  const int blk = SPLIT ? 0 : wg;   // this warpgroup's 64 keys
   const int g = lane >> 2, t4 = lane & 3;
-  const int key0 = k0 + warp * 16 + g, key1 = key0 + 8;
-  const float scale2 = a.scale * 1.4426950408889634f;
-  float dk[DC / 8][4], dv[DC / 8][4];
+  const int key0 = k0 + blk * BLK + warp * 16 + g, key1 = key0 + 8;
+  const int first_key = k0 + blk * BLK;
+  const float scale2 = a.scale * LOG2E;
+  const unsigned char* kw = ks + blk * TILE;
+  const unsigned char* vw = vs + blk * TILE;
+  float dk[ACC / 2], dv[ACC / 2];
 #pragma unroll
-  for (int n = 0; n < DC / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
+  for (int i = 0; i < ACC / 2; ++i) dk[i] = dv[i] = 0.0f;
+  mbar_wait(kbar, 0);
 
-  load_q(0);
   for (int it = 0; it < n_it; ++it) {
-    load_q(it + 1);
-    cp_async_wait<1>();
-    __syncthreads();
+    mbar_wait(&full[it % STAGES], (it / STAGES) & 1);
     const unsigned char* qt = ring + (it % STAGES) * 2 * TILE;
     const unsigned char* dot = qt + TILE;
-    const float* lse_s = stats + (it % STAGES) * 2 * KV_BQ;
-    const float* dd_s = lse_s + KV_BQ;
-    const int p0 = (qt_lo + it % nq) * KV_BQ;
-    float s[KV_BQ / 8][4], dp[KV_BQ / 8][4];
-    rows_times_rows<KV_BQ / 8>(s, ks + warp * 16 * RS, qt, lane);
-    rows_times_rows<KV_BQ / 8>(dp, vs + warp * 16 * RS, dot, lane);
+    const float* lse_s = stats + (it % STAGES) * 2 * BLK;
+    const float* dd_s = lse_s + BLK;
+    const int p0 = (qt_lo + it % nq) * BLK;
+    // x: S^T (SPLIT: this warpgroup's product, S^T or dP^T), y: dP^T
+    float x[32], y[32];
+    if (SPLIT) {
+      ss_product(x, wg == 0 ? kw : vw, wg == 0 ? qt : dot);
+    } else {
+      ss_product(x, kw, qt);
+      ss_product(y, vw, dot);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_acc(x);
+    if (!SPLIT) fence_acc(y);
+    // P^T: x[4n + e] is (key0, query p0 + 8n + 2 t4 + e), x[4n + 2 + e]
+    // (key1, ...); queries past Lq have lse +inf, so P is 0 there, and
+    // keys past Lk are never written
+    if (!SPLIT || wg == 0) {
+      const bool edge = a.causal && first_key + BLK - 1 > p0 + a.kv_offset;
 #pragma unroll
-    for (int n = 0; n < KV_BQ / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = 8 * n + 2 * t4 + (e & 1);
-        const float p = visible(a, p0 + j, e >= 2 ? key1 : key0)
-                            ? ex2(s[n][e] * scale2 - lse_s[j])
-                            : 0.0f;
-        s[n][e] = p;
-        dp[n][e] = p * (dp[n][e] - dd_s[j]);
+      for (int i = 0; i < 32; ++i) {
+        const int j = 8 * (i >> 2) + 2 * t4 + (i & 1);
+        const bool ok =
+            !edge || ((i & 2) ? key1 : key0) <= p0 + j + a.kv_offset;
+        x[i] = ok ? ex2(x[i] * scale2 - lse_s[j]) : 0.0f;
       }
-    uint32_t pf[KV_BQ / 16][4], dsf[KV_BQ / 16][4];
-    to_frags<KV_BQ / 8>(s, pf);
-    to_frags<KV_BQ / 8>(dp, dsf);
-    frags_times_rows<KV_BQ / 16, DC>(dv, pf, dot, c0, lane);
-    frags_times_rows<KV_BQ / 16, DC>(dk, dsf, qt, c0, lane);
-    __syncthreads();
+    }
+    if (SPLIT) swap_halves(x, y, xchg, wg, wt);
+    // dS^T = P^T (dP^T - D)
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      y[i] = x[i] * (y[i] - dd_s[8 * (i >> 2) + 2 * t4 + (i & 1)]);
+    uint32_t pf[4][4], dsf[4][4];
+    to_frags(x, pf);
+    to_frags(y, dsf);
+    wgmma_fence();
+    cols_product(dv, pf, dot, wg);
+    cols_product(dk, dsf, qt, wg);
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        fence_reg(pf[kk][r]);
+        fence_reg(dsf[kk][r]);
+      }
+#pragma unroll
+    for (int i = 0; i < ACC / 2; ++i) {
+      fence_reg(dk[i]);
+      fence_reg(dv[i]);
+    }
+    __syncthreads();  // the stage (and the exchange) are free
+    load_q(it + STAGES);
   }
-  cp_async_wait<0>();
 
   const long long base = ((long long)b * a.hkv + hk) * a.lk;
-  bf16* gk = static_cast<bf16*>(a.dk) + base * DH + c0;
-  bf16* gv = static_cast<bf16*>(a.dv) + base * DH + c0;
+  bf16* gk = static_cast<bf16*>(a.dk) + base * DH;
+  bf16* gv = static_cast<bf16*>(a.dv) + base * DH;
+  const int cb = SPLIT ? wg * ACC : 0;
 #pragma unroll
-  for (int n = 0; n < DC / 8; ++n) {
-    const int col = 8 * n + 2 * t4;
+  for (int n = 0; n < ACC / 8; ++n) {
+    const int col = cb + 8 * n + 2 * t4;
+    if (col >= DH) continue;
     if (key0 < a.lk) {
       *reinterpret_cast<__nv_bfloat162*>(gk + (long long)key0 * DH + col) =
-          __floats2bfloat162_rn(dk[n][0] * a.scale, dk[n][1] * a.scale);
+          __floats2bfloat162_rn(dk[4 * n] * a.scale, dk[4 * n + 1] * a.scale);
       *reinterpret_cast<__nv_bfloat162*>(gv + (long long)key0 * DH + col) =
-          __floats2bfloat162_rn(dv[n][0], dv[n][1]);
+          __floats2bfloat162_rn(dv[4 * n], dv[4 * n + 1]);
     }
     if (key1 < a.lk) {
       *reinterpret_cast<__nv_bfloat162*>(gk + (long long)key1 * DH + col) =
-          __floats2bfloat162_rn(dk[n][2] * a.scale, dk[n][3] * a.scale);
+          __floats2bfloat162_rn(dk[4 * n + 2] * a.scale,
+                                dk[4 * n + 3] * a.scale);
       *reinterpret_cast<__nv_bfloat162*>(gv + (long long)key1 * DH + col) =
-          __floats2bfloat162_rn(dv[n][2], dv[n][3]);
+          __floats2bfloat162_rn(dv[4 * n + 2], dv[4 * n + 3]);
     }
   }
 }
@@ -543,30 +538,44 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv(const Args a) {
 // Refuses a call whose shared memory is not what this source lays out
 // (the wrapper's plan must agree with it).
 extern "C" int launch(const Args* a, void* stream) {
-  if (a->smem_dq != SMEM_DQ || a->smem_dkv != SMEM_DKV || a->ncol != NCOL)
+  if (a->smem_dq != SMEM_DQ || a->smem_dkv != SMEM_DKV)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_DQ);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dkv,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM_DKV);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 gq(a->lq_pad / DQ_ROWS, a->hq, a->b);
-  flash_bwd_dq<<<gq, THREADS, SMEM_DQ, st>>>(*a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 gk((a->lk + KV_KEYS - 1) / KV_KEYS, a->hkv * NCOL, a->b);
-  flash_bwd_dkv<<<gk, THREADS, SMEM_DKV, st>>>(*a);
+  CUtensorMap tmq, tmk, tmv, tmdo;
+  int err = tensor_map(&tmq, a->q, DH, a->lq, a->hq, a->b, a->qsl, a->qsh,
+                       a->qsb);
+  if (!err) err = tensor_map(&tmk, a->k, DH, a->lk, a->hkv, a->b, a->ksl,
+                             a->ksh, a->ksb);
+  if (!err) err = tensor_map(&tmv, a->v, DH, a->lk, a->hkv, a->b, a->vsl,
+                             a->vsh, a->vsb);
+  if (!err) err = tensor_map(&tmdo, a->dout, DH, a->lq, a->hq, a->b, a->dsl,
+                             a->dsh, a->dsb);
+  if (err) return err;
+  static bool allowed = false;
+  if (!allowed) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dq, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_DQ);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(flash_bwd_dkv,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_DKV);
+    if (e != cudaSuccess) return (int)e;
+    allowed = true;
+  }
+  const dim3 gq(a->lq_pad / CTA_ROWS, a->hq, a->b);
+  flash_bwd_dq<<<gq, THREADS, SMEM_DQ, st>>>(*a, tmq, tmk, tmv, tmdo);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const dim3 gk((a->lk + CTA_ROWS - 1) / CTA_ROWS, a->hkv, a->b);
+  flash_bwd_dkv<<<gk, THREADS, SMEM_DKV, st>>>(*a, tmq, tmk, tmv, tmdo);
   return (int)cudaGetLastError();
 }
 
-// What this build lays out: {SMEM_DQ, SMEM_DKV, NCOL, DQ_ROWS, DQ_BK,
-// KV_KEYS, KV_BQ, STAGES}.
+// What this build lays out: {SMEM_DQ, SMEM_DKV, CTA_ROWS, BLK, STAGES,
+// THREADS, SPLIT}.
 extern "C" int layout(int* out) {
-  const int v[8] = {SMEM_DQ, SMEM_DKV, NCOL, DQ_ROWS, DQ_BK, KV_KEYS, KV_BQ,
-                    STAGES};
-  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  const int v[7] = {SMEM_DQ, SMEM_DKV, CTA_ROWS, BLK, STAGES, THREADS,
+                    (int)SPLIT};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
   return 0;
 }

@@ -334,6 +334,7 @@ def apply_home(spec, acc, exists, xs, vid, vmask):
 
 # The Pallas flash kernel's finite mask value (-0.7 * f32 max).
 NEG_BIG = -0.7 * float(np.finfo(np.float32).max)
+LOG2E = 1.0 / math.log(2.0)     # the flash kernels' log-sum-exp is in log2
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -365,6 +366,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     out = out / torch.where(l == 0.0, 1.0, l)
     return out.reshape(b, hq, lq, dh).to(q.dtype)
+
+
+def flash_lse(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+              scale: float | None = None, kv_offset: int = 0) -> torch.Tensor:
+    """Each row's log-sum-exp of `flash_attention`'s logits, as the flash
+    kernel's forward writes it for the backward: f32 [B, Hq, Lq] in units
+    of log2 of S * scale (log2 of the sum of 2^(s log2(e)) over the keys the
+    row sees), +inf for a row that sees no key, so that
+    P = exp2(s scale log2(e) - lse) is the softmax and 0 on a dead row."""
+    b, hq, lq, dh = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = dh ** -0.5 if scale is None else scale
+    s = torch.einsum("bhgqd,bhkd->bhgqk",
+                     q.float().reshape(b, hkv, g, lq, dh) * scale, k.float())
+    mask = torch.ones((lq, lk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = (torch.arange(lq, device=q.device)[:, None] + kv_offset
+                >= torch.arange(lk, device=q.device)[None, :])
+    s = torch.where(mask, s * LOG2E, -torch.inf)
+    m = s.amax(-1, keepdim=True).clamp_min(NEG_BIG)
+    lse = m[..., 0] + torch.log2(torch.exp2(s - m).sum(-1))
+    lse = torch.where(mask.any(-1), lse, torch.inf)
+    return lse.reshape(b, hq, lq)
 
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,

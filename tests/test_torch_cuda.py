@@ -765,19 +765,53 @@ FLASH_SHAPES = [
     (1, 8, 2, 4, 700, 64, True, 500),         # decode, causal over splits
     (1, 2, 2, 64, 200, 128, True, 136),       # one full tensor-core tile
     (1, 2, 2, 130, 260, 128, True, 130),      # two tiles and 2 rows
-    (1, 4, 2, 40, 200, 192, True, 100),       # Dh 192: CUDA cores in bf16
+    (1, 4, 2, 40, 200, 192, True, 100),       # Dh 192: the wide body in bf16
     (1, 10, 1, 70, 150, 256, True, 80),       # Dh 256, MQA group 10, splits
     (1, 10, 1, 1, 300, 256, True, 299),       # Dh 256 decode, as the ring
+    (1, 10, 1, 200, 400, 256, True, 200),     # Dh 256, 4 row tiles, 1 split
+    (1, 4, 2, 70, 150, 144, True, 10),        # Dh 144: a padded column block
 ]
 
 
 def _flash_body(shape, dtype):
     """The body `plan` documents for a shape (group x Lq query rows; above
-    Dh 128 the CUDA-core body)."""
+    Dh 128 the wide tensor-core body, or the CUDA-core body at 16 rows or
+    fewer)."""
     b, hq, hkv, lq, lk, dh = shape[:6]
-    if dtype == "bfloat16" and dh % 16 == 0 and dh <= 128:
-        return "decode" if hq // hkv * lq <= 16 else "tensor_core"
-    return "cuda_core"
+    if dtype != "bfloat16" or dh % 16:
+        return "cuda_core"
+    if hq // hkv * lq <= 16:
+        return "decode" if dh <= 128 else "cuda_core"
+    return "tensor_core" if dh <= 128 else "tensor_core_wide"
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
+def test_flash_kernel_lse_matches_plain(shape, dtype, causal, cuda):
+    """Every body writes each row's log-sum-exp where asked: per row
+    within 1e-5 relative plus 1e-4 of `ref.flash_lse` (f32 sums of the
+    same terms in other orders, and in bf16 the tensor cores' truncated
+    sums of the exact products: the lse is O(10)), +inf on dead rows, and
+    the same output bits as the call without it."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    b, hq, hkv, lq, lk, dh, _, off = shape
+    rng = np.random.default_rng(lq + lk)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(cuda).to(dt) for s in ((b, hq, lq, dh), (b, hkv, lk, dh),
+                                          (b, hkv, lk, dh)))
+    kw = dict(causal=causal, kv_offset=off)
+    out, lse = flash_mod.flash_attention_lse(q, k, v, **kw)
+    want = ref.flash_lse(q, k, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, flash_mod.flash_attention(q, k, v, **kw))
+    assert lse.dtype == torch.float32 and lse.shape == (b, hq, lq)
+    dead = torch.isinf(want)
+    assert torch.equal(torch.isinf(lse), dead) and bool((lse[dead] > 0).all())
+    diff = (lse[~dead] - want[~dead]).abs()
+    assert bool((diff <= 1e-5 * want[~dead].abs() + 1e-4).all()), (
+        f"max |lse err| {float(diff.max())}")
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -870,9 +904,13 @@ FLASH_BWD_SHAPES = [
     (1, 4, 4, 77, 131, 16, True, 5),          # ragged tiles
     (1, 6, 2, 33, 65, 128, False, 0),
     (1, 2, 1, 70, 70, 64, True, -3),          # dead rows
-    (2, 8, 2, 200, 700, 192, True, 400),      # Dh 192: two column CTAs
+    (2, 8, 2, 200, 700, 192, True, 400),      # Dh 192: column halves
     (1, 4, 1, 1, 300, 64, True, 299),         # one query row
     (1, 2, 2, 40, 300, 32, True, 100),        # keys no query sees
+    (1, 4, 2, 90, 150, 144, True, 20),        # Dh 144: a padded column block
+    (1, 10, 1, 100, 100, 256, True, -5),      # dead rows at Dh 256
+    (1, 4, 2, 50, 90, 256, False, 0),         # column halves, non-causal
+    (2, 2, 1, 30, 20, 256, False, 0),         # Lq, Lk below one tile
 ]
 
 
@@ -891,10 +929,10 @@ def test_flash_backward_matches_plain(shape, cuda):
                          (b, hq, lq, dh), (b, hkv, lk, dh), (b, hkv, lk, dh),
                          (b, hq, lq, dh)))
     kw = dict(causal=causal, kv_offset=off)
-    out = flash_mod.flash_attention(q, k, v, **kw)
+    out, lse = flash_mod.flash_attention_lse(q, k, v, **kw)
     before = flash_mod.flash_attention_bwd.launches
-    got = flash_mod.flash_attention_bwd(q, k, v, out, dout, **kw)
-    again = flash_mod.flash_attention_bwd(q, k, v, out, dout, **kw)
+    got = flash_mod.flash_attention_bwd(q, k, v, out, dout, lse=lse, **kw)
+    again = flash_mod.flash_attention_bwd(q, k, v, out, dout, lse=lse, **kw)
     want = ref.flash_attention_backward(q, k, v, out, dout, **kw)
     torch.cuda.synchronize()
     assert flash_mod.flash_attention_bwd.launches == before + 2
@@ -939,13 +977,21 @@ def test_flash_autograd_runs_the_backward_kernel(cuda):
 
 
 def test_flash_backward_refuses_what_it_does_not_take(cuda):
+    """f32, a Dh that is not a multiple of 16 or above 256, and a missing
+    or misshapen log-sum-exp raise."""
     from repro_torch.kernels import flash_attention as flash_mod
-    for dh, dt in ((32, torch.float32), (40, torch.bfloat16),
-                   (144, torch.bfloat16)):
+    for dh, dt, lse_shape in ((32, torch.float32, (1, 2, 8)),
+                              (40, torch.bfloat16, (1, 2, 8)),
+                              (272, torch.bfloat16, (1, 2, 8)),
+                              (64, torch.bfloat16, None),
+                              (64, torch.bfloat16, (1, 2, 7))):
         q = torch.zeros((1, 2, 8, dh), dtype=dt, device=cuda)
         k = torch.zeros((1, 1, 8, dh), dtype=dt, device=cuda)
+        lse = None if lse_shape is None else torch.zeros(
+            lse_shape, device=cuda)
         with pytest.raises(ValueError, match="flash_attention_bwd"):
-            flash_mod.flash_attention_bwd(q, k, k, q, q, causal=True)
+            flash_mod.flash_attention_bwd(q, k, k, q, q, lse=lse,
+                                          causal=True)
 
 
 def test_serve_smoke_on_card_goes_through_the_kernel(cuda):

@@ -1,6 +1,6 @@
 """The flash attention backward on the CPU: the plain backward against the
-reference's gradient, the backward kernel's plan, and the forward's plan
-at head dimensions to 256.
+reference's gradient, the plain log-sum-exp the backward kernel reads, the
+backward kernel's plan, and the forward's plan at head dimensions to 256.
 
 The reference has no backward kernel: off the TPU it differentiates
 `repro.kernels.ref.flash_attention`, so `kernels.ref.
@@ -10,6 +10,13 @@ relative norm per gradient, about 100 f32 roundings), and to autograd of
 the port's plain forward (1e-5).  A row whose keys are all masked has no
 reference gradient (the reference's softmax over -inf gives NaN there); the
 port gives it zero, and autograd of its own plain forward agrees.
+
+`ref.flash_lse` (the forward kernel's log-sum-exp, which the backward
+kernel reads in place of a pass of its own) is held to the reference: P =
+exp2(s scale log2(e) - lse) from it, times V, is the reference's output
+(f32, 2e-5 relative norm, on the rows that see a key: the reference's
+softmax gives NaN on the others), each live row of P sums to 1 (1e-5),
+and rows that see no key are +inf.
 
 `bwd_plan` is the model of csrc/flash_attention_bwd.cu's walks: hypothesis
 checks that the dQ walk and the dK/dV walk each visit every visible
@@ -102,6 +109,39 @@ def test_plain_backward_matches_autograd_of_the_plain_forward(case):
         assert not bool(got[0][:, :, :dead].any())
 
 
+@pytest.mark.parametrize("case", CASES + [(1, 2, 1, 10, 10, 16, True, -3),
+                                          (1, 10, 1, 16, 32, 256, True, -5)])
+def test_plain_lse_matches_the_reference(case):
+    """P from the plain log-sum-exp reproduces the reference's attention;
+    its live rows sum to 1, its dead rows (kv_offset < 0) are +inf."""
+    b, hq, hkv, lq, lk, dh, causal, off = case
+    q, k, v, _ = _inputs(b, hq, hkv, lq, lk, dh, seed=3)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    lse = ref.flash_lse(tq, tk, causal=causal, kv_offset=off)
+    assert lse.dtype == F32 and lse.shape == (b, hq, lq)
+    g = hq // hkv
+    s = torch.einsum("bhgqd,bhkd->bhgqk",
+                     tq.double().reshape(b, hkv, g, lq, dh), tk.double())
+    s2 = s * dh ** -0.5 / np.log(2.0)
+    vis = torch.from_numpy(_visible(lq, lk, causal, off))
+    p = torch.where(vis, torch.exp2(
+        s2 - lse.double().reshape(b, hkv, g, lq)[..., None]), 0.0)
+    dead = ~vis.any(-1)
+    assert bool(torch.isinf(lse).reshape(b, hkv, g, lq)[..., dead].all())
+    assert bool((lse.reshape(b, hkv, g, lq)[..., dead] > 0).all())
+    assert not bool(torch.isinf(lse).reshape(b, hkv, g, lq)[..., ~dead].any())
+    rows = p.sum(-1)[..., ~dead]
+    np.testing.assert_allclose(rows.numpy(), 1.0, rtol=0, atol=1e-5)
+    got = torch.einsum("bhgqk,bhkd->bhgqd", p, tv.double()).reshape(
+        b, hq, lq, dh)
+    want = np.asarray(jref.flash_attention(
+        *map(jnp.asarray, (q, k, v)), causal=causal, kv_offset=off))
+    # the reference's softmax gives NaN on a dead row; P there is 0
+    live = ~dead.numpy()
+    assert not got[:, :, dead].any()
+    assert _rel(got[:, :, live].numpy(), want[:, :, live]) <= 2e-5
+
+
 def test_ops_flash_attention_is_differentiable_on_the_cpu():
     """kops.flash_attention on CPU tensors is the plain version; autograd
     differentiates it, and flash_attention_bwd on CPU tensors is the plain
@@ -128,27 +168,50 @@ def _defines():
             re.findall(r"^#define (\w+) (\d+)", src, re.M)}
 
 
+# a float atomic or reduction in CUDA C++ or inline PTX
+FLOAT_ATOMIC = re.compile(r"atomic\w*\(\s*(float|double|__nv_bfloat16|half)"
+                          r"|\b(atom|red)(\.\w+)*\.(f16|bf16|f32|f64)\b")
+
+
 def test_plan_constants_are_the_sources():
+    """bwd_plan's constants are the source's; neither flash source (nor
+    the header both inline) holds a float atomic, and the backward no
+    atomic at all."""
     d = _defines()
-    assert (d["STAGES"], d["DQ_ROWS"], d["DQ_BK"], d["KV_KEYS"],
-            d["KV_BQ"]) == (flash_mod.BWD_STAGES, flash_mod.DQ_ROWS,
-                            flash_mod.DQ_BK, flash_mod.KV_KEYS,
-                            flash_mod.KV_BQ)
-    assert d["THREADS"] == flash_mod.THREADS
+    assert (d["STAGES"], d["BLK"], d["THREADS"]) == (
+        flash_mod.BWD_STAGES, flash_mod.BWD_BLK, flash_mod.BWD_THREADS)
     src = (ROOT / "src/repro_torch/csrc/flash_attention_bwd.cu").read_text()
-    assert f"NCOL = DH > {flash_mod.BWD_SPLIT_DH} ? 2 : 1" in src
-    assert "atomic" not in src.lower().replace("no float atomics", "")
+    assert f"SPLIT = DHP > {flash_mod.BWD_SPLIT_DH};" in src
+    assert "XCHG = SPLIT ? 2 * 32 * 128 * 4 : 0" in src
+    assert flash_mod.XCHG == 2 * 32 * 128 * 4
+    code = re.sub(r"//[^\n]*", "", src)          # the comments say "no
+    assert "atom" not in code.lower()             # float atomics"
+    assert "no float atomics" in " ".join(src.lower().replace(
+        "//", " ").split())
+    for name in ("flash_attention_bwd.cu", "flash_attention.cu",
+                 "hopper.cuh"):
+        text = (ROOT / "src/repro_torch/csrc" / name).read_text()
+        assert not FLOAT_ATOMIC.search(text), name
+    fwd = (ROOT / "src/repro_torch/csrc/flash_attention.cu").read_text()
+    assert "atom.acq_rel.gpu.global.add.s32" in fwd    # the split counter
+    assert FLOAT_ATOMIC.search("atomicAdd(float* p") and \
+        FLOAT_ATOMIC.search("red.global.add.f32 [%0]")
 
 
 @pytest.mark.parametrize("dh", [16, 32, 48, 64, 96, 128, 192, 256])
 def test_bwd_plan_fits_shared_memory(dh):
+    """Both kernels fit 227 KB at every accepted Dh; above 128 a CTA's two
+    warpgroups share 64 rows on column halves, else each owns 64."""
     p = flash_mod.bwd_plan((2, 10, 2048, dh), (2, 1, 4096, dh), causal=True,
                            kv_offset=2048)
     assert max(p.smem_dq, p.smem_dkv) <= flash_mod.SMEM_LIMIT
-    assert p.ncol == (2 if dh > 128 else 1) and p.dc * p.ncol == dh
-    assert p.dc % 16 == 0
-    assert p.grid_dq == (2048 // flash_mod.DQ_ROWS, 10, 2)
-    assert p.grid_dkv == (4096 // flash_mod.KV_KEYS, p.ncol, 2)
+    assert p.split == (dh > 128)
+    assert p.rows == (64 if dh > 128 else 128)
+    assert p.grid_dq == (2048 // p.rows, 10, 2)
+    assert p.grid_dkv == (4096 // p.rows, 1, 2)
+    for d in range(16, 257, 16):      # every accepted head dimension
+        q = flash_mod.bwd_plan((1, 4, 100, d), (1, 2, 300, d), causal=False)
+        assert max(q.smem_dq, q.smem_dkv) <= flash_mod.SMEM_LIMIT
 
 
 def _visible(lq, lk, causal, off):
@@ -165,26 +228,27 @@ def test_bwd_walks_visit_every_visible_pair_once(lq, lk, off, causal, dh):
     p = flash_mod.bwd_plan((1, 2, lq, dh), (1, 1, lk, dh), causal=causal,
                            kv_offset=off)
     vis = _visible(lq, lk, causal, off)
+    blk = flash_mod.BWD_BLK
     dq_seen = np.zeros((lq, lk), int)
     for qt in range(p.grid_dq[0]):
         lo, hi = p.dq_keys(qt)
-        rows = slice(qt * flash_mod.DQ_ROWS, (qt + 1) * flash_mod.DQ_ROWS)
-        assert lo == 0 and hi % flash_mod.DQ_BK == 0
-        for k0 in range(lo, hi, flash_mod.DQ_BK):
-            keys = slice(k0, k0 + flash_mod.DQ_BK)
+        rows = slice(qt * p.rows, (qt + 1) * p.rows)
+        assert lo == 0 and hi % blk == 0
+        for k0 in range(lo, hi, blk):
+            keys = slice(k0, k0 + blk)
             assert vis[rows, keys].any()     # no tile wholly invisible
             dq_seen[rows, keys] += 1
     assert (dq_seen[vis] == 1).all()
     dkv_seen = np.zeros((lq, lk), int)
     for kt in range(p.grid_dkv[0]):
         lo, hi = p.dkv_queries(kt)
-        keys = slice(kt * flash_mod.KV_KEYS, (kt + 1) * flash_mod.KV_KEYS)
-        for q0 in range(lo, hi, flash_mod.KV_BQ):
-            rows = slice(q0, q0 + flash_mod.KV_BQ)
+        keys = slice(kt * p.rows, (kt + 1) * p.rows)
+        for q0 in range(lo, hi, blk):
+            rows = slice(q0, q0 + blk)
             assert vis[rows, keys].any()
             dkv_seen[rows, keys] += 1
     assert (dkv_seen[vis] == 1).all()
-    assert p.lq_pad % flash_mod.DQ_ROWS == 0 and p.lq_pad >= lq
+    assert p.lq_pad % p.rows == 0 and p.lq_pad >= lq
     assert max(p.smem_dq, p.smem_dkv) <= flash_mod.SMEM_LIMIT
 
 
@@ -211,19 +275,45 @@ def test_bwd_plan_copies_only_what_the_kernel_cannot_read():
 @pytest.mark.parametrize("dtype", [BF16, F32])
 @pytest.mark.parametrize("dh", range(136, 257, 8))
 def test_forward_plan_takes_head_dims_to_256(dh, dtype):
-    """Above Dh 128 the forward runs its CUDA-core body (the mma bodies
-    hold 2 x Dh / 2 f32 a thread), within 227 KB, at the windowed call's
-    shape and a decode shape."""
+    """Above Dh 128 the forward runs its wide tensor-core body in bf16 at a
+    multiple of 16 and more than 16 rows (the windowed call, a prefill),
+    and its CUDA-core body otherwise (f32, Dh not a multiple of 16, the
+    decode shape), within 227 KB."""
     for qs, ks, off in (((2, 10, 2048, dh), (2, 1, 4096, dh), 2048),
                         ((1, 10, 1, dh), (1, 1, 2048, dh), 2047),
                         ((1, 4, 300, dh), (1, 2, 300, dh), 0)):
         p = flash_mod.plan(qs, ks, dtype, causal=True, kv_offset=off)
-        assert p.body == "cuda_core" and p.smem <= flash_mod.SMEM_LIMIT
-        assert p.rows <= flash_mod.SIMT_ROWS
+        rows = qs[1] // ks[1] * qs[2]
+        wide = dtype == BF16 and dh % 16 == 0 and rows > flash_mod.DECODE_ROWS
+        assert p.body == ("tensor_core_wide" if wide else "cuda_core")
+        assert p.smem <= flash_mod.SMEM_LIMIT
+        assert p.rows <= (flash_mod.TC_ROWS if wide else flash_mod.SIMT_ROWS)
+        assert p.threads == (flash_mod.WIDE_THREADS if wide
+                             else flash_mod.THREADS)
         assert p.splits[-1][1] == p.kv_end
 
 
 def test_forward_source_builds_mma_bodies_only_to_128():
+    """flash_decode builds only to Dh 128 and flash_tc holds one warpgroup
+    there (each holds 2 x Dh / 2 f32 a thread); above it flash_tc builds
+    with two warpgroups on O's column halves, to 256, with the plan's
+    threads, stages and exchange."""
     src = (ROOT / "src/repro_torch/csrc/flash_attention.cu").read_text()
-    assert f"DH <= {flash_mod.TC_MAX_DH})" in src
-    assert src.count("#if MMA_BODIES") == 3
+    assert (f"DECODE_BODY (DH % 16 == 0 && DH <= {flash_mod.TC_MAX_DH})"
+            in src)
+    assert f"TC_BODY (DH % 16 == 0 && DH <= {flash_mod.MAX_DH})" in src
+    assert f"NWG = DH > {flash_mod.TC_MAX_DH} ? 2 : 1;" in src
+    tc = src[src.index("#if TC_BODY\n"):src.index("#endif  // TC_BODY\n")]
+    dec = src[src.index("#if DECODE_BODY\n"):
+              src.index("#endif  // DECODE_BODY\n")]
+    assert "flash_tc(const Args" in tc and "flash_decode(const Args" in dec
+    assert "TC_THREADS = NWG == 1 ? THREADS : WIDE_THREADS" in tc
+    assert "TC_STAGES = NWG == 1 ? STAGES : WIDE_STAGES" in tc
+    assert "xchg + (NWG == 2 ? 2 * 32 * 128 : 0)" in tc
+    d = {m[0]: int(m[1]) for m in re.findall(r"^#define (\w+) (\d+)", src,
+                                              re.M)}
+    assert (d["THREADS"], d["STAGES"], d["WIDE_THREADS"],
+            d["WIDE_STAGES"]) == (flash_mod.THREADS, flash_mod.STAGES,
+                                  flash_mod.WIDE_THREADS,
+                                  flash_mod.WIDE_STAGES)
+    assert flash_mod.XCHG == 2 * 32 * 128 * 4

@@ -4,10 +4,10 @@
 memory by shape alone.  Its properties: the splits cut the keys any row can
 see into disjoint ranges with nothing left out, the causal cut of each
 position tile never drops a key one of its rows sees (a hypothesis sweep
-over Lq, Lk, kv_offset including negative values, and the GQA group),
-shared memory fits the H100's 227 KB for every accepted dtype and Dh, the
-serve step gets at least 2 x 132 CTAs, and the body at the documented
-shapes is the documented one.
+over Lq, Lk, kv_offset including negative values, the GQA group, and Dh
+to 256), shared memory fits the H100's 227 KB for every accepted dtype and
+Dh (8 to 256), the serve step gets at least 2 x 132 CTAs, and the body at
+the documented shapes is the documented one.
 
 `ref.flash_split_merge` is the plain model of the CUDA-core body's split
 merge: one partial (m, l, acc) per split, merged in split order.  It is
@@ -70,7 +70,8 @@ def _check_plan(p, lq, lk, causal, off):
         pos = range(pt * p.positions, min(lq, (pt + 1) * p.positions))
         assert _covered(ranges) >= max(see[i] for i in pos)
     assert p.rows <= (16 if p.body == "cuda_core" else 64)
-    assert p.smem <= flash_mod.SMEM_LIMIT and p.threads == 128
+    assert p.smem <= flash_mod.SMEM_LIMIT
+    assert p.threads == (256 if p.body == "tensor_core_wide" else 128)
 
 
 def test_plan_at_the_documented_shapes():
@@ -88,10 +89,22 @@ def test_plan_at_the_documented_shapes():
     assert _plan(1, 4, 4, 1, 300, 32, off=299).body == "decode"
     assert _plan(1, 4, 4, 1, 300, 32, F32, off=299).body == "cuda_core"
     assert _plan(1, 2, 2, 64, 200, 128, causal=False).body == "tensor_core"
+    # recurrentgemma-2b's windowed and chunk-0 calls: the wide body, one
+    # split, 6 positions x 10 heads a CTA; its decode shape and f32 stay on
+    # the CUDA cores
+    win = _plan(2, 10, 1, 2048, 4096, 256, off=2048)
+    chunk0 = _plan(1, 10, 1, 2048, 2048, 256)
+    assert win.body == chunk0.body == "tensor_core_wide"
+    assert (win.heads, win.positions, len(win.splits)) == (10, 6, 1)
+    assert win.grid == (342, 1, 2) and win.threads == 256
+    assert _plan(1, 10, 1, 1, 2048, 256, off=2047).body == "cuda_core"
+    assert _plan(2, 10, 1, 2048, 4096, 256, F32, off=2048).body == \
+        "cuda_core"
+    assert _plan(1, 4, 2, 70, 150, 136).body == "cuda_core"
 
 
 @pytest.mark.parametrize("dtype", [BF16, F32])
-@pytest.mark.parametrize("dh", range(8, 129, 8))
+@pytest.mark.parametrize("dh", range(8, 257, 8))
 def test_plan_shared_memory_fits_every_accepted_head_dim(dh, dtype):
     for lq, group in ((1, 4), (1, 16), (20, 4), (4096, 4), (300, 1),
                       (100, 8), (1, 64), (2, 32)):
@@ -125,7 +138,8 @@ def test_plan_copies_only_what_the_kernel_cannot_read():
 @settings(max_examples=300, deadline=None)
 @given(lq=st.integers(1, 300), lk=st.integers(0, 700),
        off=st.integers(-350, 700), group=st.sampled_from([1, 2, 3, 4, 8, 32]),
-       dh=st.sampled_from([16, 40, 64, 128]), bf16=st.booleans(),
+       dh=st.sampled_from([16, 40, 64, 128, 144, 200, 256]),
+       bf16=st.booleans(),
        causal=st.booleans())
 def test_plan_never_drops_a_visible_key(lq, lk, off, group, dh, bf16, causal):
     """Every key that some row sees lies in exactly one split, and the
