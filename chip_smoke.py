@@ -216,7 +216,31 @@ Phases (any failure exits non-zero before the result line):
      cotangent, and
      through the plain versions, whose loss must agree; then 8 decode
      steps from those weights (RG-LRU states and ring caches on the card,
-     finite logits).
+     finite logits);
+ 10. MoE and encoder-decoder models, and training with context tokens,
+     at full width with random weights from a seed, each path's launches
+     counted alone and each model freed before the next: (a) serving
+     moonshot-v1-16b-a3b cut to 24 of 48 layers (f32 weights: 56.1 GB of
+     110) through `launch.serve`'s functions, batch 4, prompt 32, gen 16:
+     no kernel on this path (the decode step's self-attention is plain, as
+     in the reference), so the last step through the plain versions must
+     give its logits bit for bit; finite logits, each MoE layer's drop
+     count and capacity, peak memory, and layer 0's MoE block at the
+     decode step's shape (5 calls and the device time) beside the f32 ->
+     bf16 casts of its expert weights alone; (b) serving
+     seamless-m4t-medium whole (12 + 12 layers; as in the reference the
+     context goes straight in as the cross-attention context, no encoder
+     runs) with cross-attention over 1024 context tokens in all 12 layers
+     (564 flash launches), the last step's 12 flash calls held in place as
+     phase 6 holds them; (c) training three AdamW steps at batch 1 x seq
+     4096 through `launch.train.run`: moonshot at 4 layers, seamless whole
+     (1024 encoder frames; the encoder is not recomputed) and
+     llama-3.2-vision-11b at 10 layers (1664 context tokens): the flash
+     launches a step counted, finite losses, peak memory under 80 GB; then
+     step 1 again twice from the same weights and batch, the second time
+     with every flash forward and backward call held in place as phase 9
+     (b) holds them: bit-equal gradients; and through the plain versions,
+     whose loss must agree within `P10_LOSS_LIMIT`.
 Phase 2 also runs spmv (the PageRank send as one SpMV through the triplet
 kernel) against its plain version and a CSR `torch.sparse.mm`, and the
 triplet kernel on the PageRank send's rows encoded by `wire.encode_resident`
@@ -307,6 +331,34 @@ RG_ARCH, RG_BATCH, RG_SEQ, RG_STEPS, RG_DECODE = ("recurrentgemma-2b", 1,
 # 8's, it checks that the model runs the same function through the
 # kernels; every flash backward call held in place checks the kernel.
 RG_TRAIN_LOSS_LIMIT = 3e-4
+# phase 10: MoE and encoder-decoder models, and training with context
+# tokens, at full width.  Depth is cut where the f32 weights (to serve) or
+# the weights, gradients and two AdamW moments (to train: 16 B a
+# parameter) would not fit the card's 80 GB with room for activations:
+# (arch, layers or None for the whole config, why)
+P10_SERVE = [
+    ("moonshot-v1-16b-a3b", 24,
+     "a layer is 570.5 M parameters (553.6 M of them experts) beside a "
+     "335.5 M embedding: 48 layers are 110 GB in f32, 24 are 56.1 GB"),
+    ("seamless-m4t-medium", None, "716 M parameters, 2.9 GB in f32")]
+P10_TRAIN = [
+    ("moonshot-v1-16b-a3b", 4,
+     "4 layers are 2.62 B parameters, 41.9 GB trained, beside [1, 4096, "
+     "163840] f32 logits and their gradient"),
+    ("seamless-m4t-medium", None, "716 M parameters, 11.5 GB trained"),
+    ("llama-3.2-vision-11b", 10,
+     "two periods of 5 (two cross-attention layers, two recomputed "
+     "super-layers): 2.81 B parameters, 44.9 GB trained")]
+P10_BATCH, P10_SEQ, P10_STEPS = 1, 4096, 3
+P10_PEAK_LIMIT = 80e9          # bytes: the card's memory
+# step 1's loss through the kernels vs through the plain versions, relative
+# (scripts/lm_loss_spread.py --arch A --layers N on an NVIDIA H100 80GB
+# HBM3, 700 W): kernels vs plain 8.1e-6 / 1.0e-4 / 1.0e-5, the plain loss
+# moved by up to 4.2e-5 / 7.8e-5 / 7.9e-5 under weight noise of 1e-6 and
+# 1e-5 N(0, 1).  Each limit is ~4x the largest of those readings, as phase
+# 9's; seamless's encoder and cross-attention take the rounding further.
+P10_LOSS_LIMIT = {"moonshot-v1-16b-a3b": 2e-4, "seamless-m4t-medium": 4e-4,
+                  "llama-3.2-vision-11b": 4e-4}
 # phase 3b: the narrow-resident codecs, and the contracts of the reference's
 # tests (test_wire.py:test_pagerank_int8_wire_error_and_bytes_regression,
 # test_view.py:test_narrow_resident_f32_pagerank_norm_err)
@@ -2643,6 +2695,102 @@ def phase_9a_flash_backward(gen, dev, results) -> None:
         torch.cuda.empty_cache()
 
 
+def serve_step_in_place(cfg, last_step, n_cross: int):
+    """The last decode step again (`last_step("auto")`) with every flash
+    call held in place (phases 6 and 10): per output within one bf16
+    spacing of the plain version on the same inputs, which the plain
+    version with any one of the flash plan's key splits of the step's
+    cross-attention dropped must break.  Returns (each call's max |err|,
+    the splits)."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ops
+    tiles = flash_mod.plan(
+        (SERVE_BATCH, cfg.n_heads, 1, cfg.head_dim),
+        (SERVE_BATCH, cfg.n_kv_heads, cfg.n_context_tokens, cfg.head_dim),
+        torch.bfloat16, causal=False).splits
+    in_place = []
+    kernel_attention = ops.flash_attention
+
+    def held_in_place(q, k, v, **kw):
+        got = kernel_attention(q, k, v, **kw)
+        plain_kw = {**kw, "mode": "ref"}
+        want = kernel_attention(q, k, v, **plain_kw)
+        lim = flash_limit(want)
+        diff = (got.float() - want.float()).abs()
+        if bool((diff > lim).any()):
+            raise AssertionError(f"flash in place, layer {len(in_place)}: "
+                                 f"max |err| {float(diff.max())}")
+        for a, b in tiles:
+            drop = kernel_attention(
+                q, torch.cat([k[:, :, :a], k[:, :, b:]], 2),
+                torch.cat([v[:, :, :a], v[:, :, b:]], 2), **plain_kw)
+            if not bool(((drop.float() - want.float()).abs() > lim).any()):
+                raise AssertionError(f"flash in place, layer {len(in_place)}:"
+                                     f" dropping keys {a}:{b} passes the limit")
+        in_place.append(float(diff.max()))
+        return got
+
+    ops.flash_attention = held_in_place
+    try:
+        last_step("auto")
+    finally:
+        ops.flash_attention = kernel_attention
+    if len(in_place) != n_cross:
+        raise AssertionError(f"{len(in_place)} flash calls held in place, "
+                             f"expected {n_cross}")
+    return in_place, tiles
+
+
+def train_flash_in_place(kernel_attention, in_place: list):
+    """`ops.flash_attention` with every call of a training step held in
+    place (phases 9 (b) and 10 (c)): its forward per output against the
+    plain version on the same inputs (the recompute's calls too, as phase
+    6), and, for a call that is differentiated, its gradients against the
+    plain backward on the same inputs and cotangent; one record a call
+    appended to `in_place` ({"fwd": max |err|, "rel": the backward's
+    relative error})."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ref
+
+    def held_in_place(q, k, v, *, causal=True, scale=None, kv_offset=0,
+                      mode="auto"):
+        out = kernel_attention(q, k, v, causal=causal, scale=scale,
+                               kv_offset=kv_offset, mode=mode)
+        kw = dict(causal=causal, scale=scale, kv_offset=kv_offset)
+        # the forward, per output against the plain version on the same
+        # inputs (the recompute's calls too), as phase 6
+        with torch.no_grad():
+            want = kernel_attention(q, k, v, **kw, mode="ref")
+            diff = (out.float() - want.float()).abs()
+            if bool((diff > flash_limit(want)).any()):
+                raise AssertionError(f"flash forward in place, call "
+                                     f"{len(in_place)}: max |err| "
+                                     f"{float(diff.max())}")
+        rec = {"fwd": float(diff.max())}
+        in_place.append(rec)
+        del want, diff
+        if not out.requires_grad:
+            return out
+        ins = [t.detach() for t in (q, k, v, out)]
+
+        def check(dout):
+            _, lse = flash_mod.flash_attention_lse(*ins[:3], **kw)
+            kg = flash_mod.flash_attention_bwd(*ins, dout, lse=lse, **kw)
+            pg = ref.flash_attention_backward(*ins, dout, **kw)
+            rec["rel"] = max(rel_norm(a, b) for a, b in zip(kg, pg))
+            if rec["rel"] > FLASH_GRAD_REL_LIMIT:
+                raise AssertionError(f"flash backward in place, call "
+                                     f"{len(in_place) - 1}: relative error "
+                                     f"{rec['rel']}")
+
+        out.register_hook(check)
+        return out
+
+    return held_in_place
+
+
 def phase_9b_train(dev, launches) -> None:
     """recurrentgemma-2b's training through the launch entry point, step 1
     again held in place, and decode (see the docstring)."""
@@ -2652,7 +2800,7 @@ def phase_9b_train(dev, launches) -> None:
     from repro_torch.core.tree import tree_leaves
     from repro_torch.data.tokens import SyntheticLM
     from repro_torch.kernels import flash_attention as flash_mod
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.launch import train as train_launch
     from repro_torch.models import transformer as T
     from repro_torch.train import train_loop as tl
@@ -2714,42 +2862,7 @@ def phase_9b_train(dev, launches) -> None:
         cfg.vocab, RG_SEQ, RG_BATCH, seed=0).batch(0).items()}
     in_place = []
     kernel_attention = ops.flash_attention
-
-    def held_in_place(q, k, v, *, causal=True, scale=None, kv_offset=0,
-                      mode="auto"):
-        out = kernel_attention(q, k, v, causal=causal, scale=scale,
-                               kv_offset=kv_offset, mode=mode)
-        kw = dict(causal=causal, scale=scale, kv_offset=kv_offset)
-        # the forward, per output against the plain version on the same
-        # inputs (the recompute's calls too), as phase 6
-        with torch.no_grad():
-            want = kernel_attention(q, k, v, **kw, mode="ref")
-            diff = (out.float() - want.float()).abs()
-            if bool((diff > flash_limit(want)).any()):
-                raise AssertionError(f"flash forward in place, call "
-                                     f"{len(in_place)}: max |err| "
-                                     f"{float(diff.max())}")
-        rec = {"fwd": float(diff.max())}
-        in_place.append(rec)
-        del want, diff
-        if not out.requires_grad:
-            return out
-        ins = [t.detach() for t in (q, k, v, out)]
-
-        def check(dout):
-            _, lse = flash_mod.flash_attention_lse(*ins[:3], **kw)
-            kg = flash_mod.flash_attention_bwd(*ins, dout, lse=lse, **kw)
-            pg = ref.flash_attention_backward(*ins, dout, **kw)
-            rec["rel"] = max(rel_norm(a, b) for a, b in zip(kg, pg))
-            if rec["rel"] > FLASH_GRAD_REL_LIMIT:
-                raise AssertionError(f"flash backward in place, call "
-                                     f"{len(in_place) - 1}: relative error "
-                                     f"{rec['rel']}")
-
-        out.register_hook(check)
-        return out
-
-    ops.flash_attention = held_in_place
+    ops.flash_attention = train_flash_in_place(kernel_attention, in_place)
     try:
         loss = T.loss_fn(params, batch, cfg, mode="auto")
         loss.backward()
@@ -2804,6 +2917,238 @@ def phase_9b_train(dev, launches) -> None:
         f"forward on the same {RG_DECODE} tokens max |diff| "
         f"{float(d.max()):.4g}, mean {float(d.mean()):.4g}")
     del params, batch, state, dec, full
+
+
+def p10_config(arch: str, layers):
+    """arch's config at full width, cut to `layers` layers (None: whole)."""
+    import dataclasses
+    from repro_torch import configs as C
+    cfg = C.get(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def p10_depth(cfg, layers, why) -> str:
+    from repro_torch import configs as C
+    full = C.get(cfg.name).n_layers
+    cut = f"{cfg.n_layers} of {full} layers" if layers else \
+        f"all {cfg.n_layers} layers"
+    enc = f" + {cfg.enc_layers} encoder layers" if cfg.is_encdec else ""
+    return f"{cut}{enc} ({why})"
+
+
+def phase_10_serve(dev, arch, layers, why, launches) -> dict:
+    """Serve one MoE or encoder-decoder config through `launch.serve`'s
+    functions (see the docstring): flash launches counted alone, the last
+    step's flash calls held in place, finite logits, each MoE layer's drop
+    count and capacity, peak memory, the MoE block's time."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    cfg = p10_config(arch, layers)
+    log(f"  {cfg.name}: {p10_depth(cfg, layers, why)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    moe_calls = []                  # (dropped, capacity) of each MoE call
+    moe_block = M.moe_block
+
+    def counted_moe(*a, **kw):
+        out, st = moe_block(*a, **kw)
+        moe_calls.append((st["dropped"], st["capacity"]))
+        return out, st
+
+    M.moe_block = counted_moe
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        run = serve.run_config(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                               gen=SERVE_GEN, device=str(dev))
+        torch.cuda.synchronize()
+    finally:
+        M.moe_block = moe_block
+    t_serve = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = SERVE_PROMPT + SERVE_GEN - 1
+    n_cross = sum(T._layer_has_cross(cfg, i) for i in range(cfg.n_layers))
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = n_cross * steps
+    if counts != want:
+        raise AssertionError(f"serve {cfg.name}: launches {counts}, "
+                             f"expected {want}")
+    launches["flash_attention"] += counts["flash_attention"]
+    gen_toks = run.generated
+    if gen_toks.shape != (SERVE_BATCH, SERVE_GEN) or gen_toks.min() < 0 \
+            or gen_toks.max() >= cfg.vocab or \
+            not bool(torch.isfinite(run.last_logits).all()):
+        raise AssertionError(f"serve {cfg.name}: tokens {gen_toks.shape}, "
+                             "or logits not finite")
+    if peak >= P10_PEAK_LIMIT:
+        raise AssertionError(f"serve {cfg.name}: peak {peak / 1e9:.1f} GB")
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "params_b": T.param_count(run.params) / 1e9,
+           "prefill_ms_per_step": run.prefill_s / SERVE_PROMPT * 1e3,
+           "decode_ms_per_step": run.decode_s / (SERVE_GEN - 1) * 1e3,
+           "tokens_per_s": run.tokens_per_s, "whole_run_s": t_serve,
+           "peak_gib": peak / 2**30, "flash_launches": counts[
+               "flash_attention"]}
+    if moe_calls:
+        # per layer, over every step of the run
+        if len(moe_calls) != steps * cfg.n_layers:
+            raise AssertionError(f"{len(moe_calls)} MoE calls")
+        dropped = torch.stack([d for d, _ in moe_calls]).view(
+            steps, cfg.n_layers).sum(0).tolist()
+        caps = sorted({c for _, c in moe_calls})
+        out["moe_dropped_per_layer"] = dropped
+        out["moe_capacity"] = caps
+    del moe_calls
+
+    def last_step(mode):
+        return T.decode_step(run.params, run.last_state, run.last_tokens,
+                             run.last_pos, cfg, cross_ctx=run.ctx,
+                             mode=mode)[0]
+
+    if n_cross:
+        in_place, tiles = serve_step_in_place(cfg, last_step, n_cross)
+        out["flash_in_place_max_err"] = max(in_place)
+        out["flash_key_splits_dropped"] = len(tiles)
+    else:
+        # no kernel on this path (the decode step's self-attention is plain
+        # torch, as in the reference): the plain path gives its logits
+        if not torch.equal(last_step("ref"), run.last_logits):
+            raise AssertionError(f"serve {cfg.name}: last step auto != ref")
+    if cfg.family == "moe":
+        # layer 0's MoE block at the decode step's shape, and the f32 ->
+        # bf16 casts of its expert weights alone
+        p0 = T._index(run.params["blocks"]["slot0"], 0)["moe"]
+        h = torch.randn((SERVE_BATCH, 1, cfg.d_model), device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
+        with torch.no_grad():
+            block = lambda: M.moe_block(p0, h, cfg)  # noqa: E731
+            casts = lambda: [p0[n].to(torch.bfloat16)  # noqa: E731
+                             for n in ("wi", "wg", "wo")]
+            out["moe_block_ms"] = cuda_ms(block)
+            out["moe_block_device_ms"], how = device_ms(block)
+            out["moe_casts_ms"] = cuda_ms(casts)
+        n_exp = sum(p0[n].numel() for n in ("wi", "wg", "wo"))
+        out["moe_bound_ms"] = n_exp * 4 / HBM_BYTES_PER_S * 1e3
+        out["moe_device_ms_by"] = how
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"    {json.dumps(out)}")
+    return out
+
+
+def phase_10_train(dev, arch, layers, why, launches) -> dict:
+    """Train one config three AdamW steps through `launch.train.run`, then
+    step 1 again twice from the same weights and batch (the second time
+    with every flash call held in place): bit-equal gradients, and the
+    loss through the plain versions (see the docstring)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import transformer as T
+    from repro_torch.train import train_loop as tl
+    cfg = p10_config(arch, layers)
+    log(f"  {cfg.name}: {p10_depth(cfg, layers, why)}; batch {P10_BATCH} "
+        f"x seq {P10_SEQ}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    tr = train_launch.run(cfg, steps=P10_STEPS, batch=P10_BATCH,
+                          seq=P10_SEQ, device=dev)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # a step: each decoder attention call twice (the per-super-layer
+    # recompute), each encoder call once (no recompute); one backward each
+    n_cross = sum(T._layer_has_cross(cfg, i) for i in range(cfg.n_layers))
+    n_dec = cfg.n_layers + n_cross
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = (2 * n_dec + cfg.enc_layers) * P10_STEPS
+    want["flash_attention_bwd"] = (n_dec + cfg.enc_layers) * P10_STEPS
+    if counts != want:
+        raise AssertionError(f"train {cfg.name}: launches {counts}, "
+                             f"expected {want}")
+    for k in ("flash_attention", "flash_attention_bwd"):
+        launches[k] += counts[k]
+    losses = tr["losses"]
+    if len(losses) != P10_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"train {cfg.name}: losses {losses}")
+    if peak >= P10_PEAK_LIMIT:
+        raise AssertionError(f"train {cfg.name}: peak {peak / 1e9:.1f} GB")
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "params_b": T.param_count(tr["params"]) / 1e9, "losses": losses,
+           "step_s": tr["step_seconds"],
+           "tokens_per_s": P10_BATCH * P10_SEQ / tr["step_seconds"][-1],
+           "peak_gib": peak / 2**30,
+           "flash_launches_per_step": [want["flash_attention"] // P10_STEPS,
+                                       want["flash_attention_bwd"]
+                                       // P10_STEPS]}
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # step 1 again, twice, from the same weights and batch
+    params = tl.init_params(cfg, 0, dev)
+    batch = {k: torch.from_numpy(a).to(dev) for k, a in
+             train_launch.data_for(cfg, P10_SEQ, P10_BATCH).batch(0).items()}
+    leaves = tree_leaves(params)
+
+    def step1():
+        for t in leaves:
+            t.grad = None
+        loss = T.loss_fn(params, batch, cfg)
+        loss.backward()
+        return float(loss.detach())
+
+    loss_a = step1()
+    grads_a = [t.grad for t in leaves]
+    in_place = []
+    kernel_attention = ops.flash_attention
+    ops.flash_attention = train_flash_in_place(kernel_attention, in_place)
+    try:
+        loss_b = step1()
+    finally:
+        ops.flash_attention = kernel_attention
+    same = loss_a == loss_b and all(torch.equal(t.grad, g)
+                                    for t, g in zip(leaves, grads_a))
+    if not same:
+        raise AssertionError(f"train {cfg.name}: two runs of step 1 differ")
+    checked = [r["rel"] for r in in_place if "rel" in r]
+    if len(in_place) != want["flash_attention"] // P10_STEPS or \
+            len(checked) != want["flash_attention_bwd"] // P10_STEPS:
+        raise AssertionError(f"{len(in_place)} flash calls, {len(checked)} "
+                             "backward calls held in place")
+    del grads_a
+    for t in leaves:
+        t.grad = None
+    with torch.no_grad():
+        loss_r = float(T.loss_fn(params, batch, cfg, mode="ref"))
+    limit = P10_LOSS_LIMIT[arch]
+    rel = abs(loss_a - loss_r) / abs(loss_r)
+    if not rel <= limit:
+        raise AssertionError(f"train {cfg.name}: step 1 loss, kernels "
+                             f"{loss_a} vs plain {loss_r}")
+    out.update({"step1_loss": loss_a, "step1_plain_loss": loss_r,
+                "step1_rel": rel, "step1_limit": limit,
+                "grads_bit_equal_over_two_runs": True,
+                "flash_fwd_in_place": len(in_place),
+                "flash_fwd_max_err": max(r["fwd"] for r in in_place),
+                "flash_bwd_in_place": len(checked),
+                "flash_bwd_max_rel": max(checked)})
+    del params, batch, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"    {json.dumps(out)}")
+    return out
 
 
 def main() -> int:
@@ -3802,41 +4147,7 @@ def main() -> int:
     if float(d_log.mean()) > SERVE_LOGIT_MEAN_LIMIT:
         raise AssertionError(f"kernel step vs plain step logits: mean |diff| "
                              f"{float(d_log.mean())} > {SERVE_LOGIT_MEAN_LIMIT}")
-    n_ctx = cfg.n_context_tokens
-    tiles = flash_mod.plan(
-        (SERVE_BATCH, cfg.n_heads, 1, cfg.head_dim),
-        (SERVE_BATCH, cfg.n_kv_heads, n_ctx, cfg.head_dim), torch.bfloat16,
-        causal=False).splits
-    in_place = []
-    kernel_attention = ops.flash_attention
-
-    def held_in_place(q, k, v, **kw):
-        got = kernel_attention(q, k, v, **kw)
-        plain_kw = {**kw, "mode": "ref"}
-        want = kernel_attention(q, k, v, **plain_kw)
-        lim = flash_limit(want)
-        diff = (got.float() - want.float()).abs()
-        if bool((diff > lim).any()):
-            raise AssertionError(f"flash in place, layer {len(in_place)}: "
-                                 f"max |err| {float(diff.max())}")
-        for a, b in tiles:
-            drop = kernel_attention(
-                q, torch.cat([k[:, :, :a], k[:, :, b:]], 2),
-                torch.cat([v[:, :, :a], v[:, :, b:]], 2), **plain_kw)
-            if not bool(((drop.float() - want.float()).abs() > lim).any()):
-                raise AssertionError(f"flash in place, layer {len(in_place)}:"
-                                     f" dropping keys {a}:{b} passes the limit")
-        in_place.append(float(diff.max()))
-        return got
-
-    ops.flash_attention = held_in_place
-    try:
-        last_step("auto")
-    finally:
-        ops.flash_attention = kernel_attention
-    if len(in_place) != n_cross:
-        raise AssertionError(f"{len(in_place)} flash calls held in place, "
-                             f"expected {n_cross}")
+    in_place, tiles = serve_step_in_place(cfg, last_step, n_cross)
     log(f"  {cfg.name}: {n_params / 1e9:.3f} B params, {cfg.n_layers} layers, "
         f"{n_cross} cross-attention layers; prefill {run.prefill_s:.3f} s "
         f"({run.prefill_s / SERVE_PROMPT * 1e3:.2f} ms per step), decode "
@@ -4156,6 +4467,18 @@ def main() -> int:
     phase_9a_flash_backward(gen, dev, results)
     phase_9b_train(dev, launches)
     log(f"  phase 9: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---------------------------------------------------------- phase 10
+    t_phase = time.perf_counter()
+    log("phase 10: MoE and encoder-decoder models, and training with "
+        f"context tokens: serve batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
+        f"gen {SERVE_GEN}; train batch {P10_BATCH} x seq {P10_SEQ}, "
+        f"{P10_STEPS} AdamW steps")
+    for arch, layers, why in P10_SERVE:
+        phase_10_serve(dev, arch, layers, why, launches)
+    for arch, layers, why in P10_TRAIN:
+        phase_10_train(dev, arch, layers, why, launches)
+    log(f"  phase 10: {time.perf_counter() - t_phase:.1f} s")
 
     replaces = {"triplet": "src/repro/kernels/triplet.py:447",
                 "apply": "src/repro/kernels/superstep.py:179",

@@ -1,15 +1,17 @@
 """How far an LM config's step-1 loss moves between evaluations that
 differ only by rounding, on the card: the spread that sets chip_smoke.py's
-phase-9 loss limit.
+loss limits in phases 9 and 10.
 
     python3 scripts/lm_loss_spread.py [--arch recurrentgemma-2b]
-        [--batch 1] [--seq 4096]
+        [--batch 1] [--seq 4096] [--layers N]
 
-Draws the config in full (`train_loop.init_params`, seed 0) and takes
-`SyntheticLM` seed 0's first batch.  Computes the loss (no gradient) five
-times: through the kernels, the same again, through the plain versions
-(`mode="ref"`), and through the plain versions with every weight
-multiplied by (1 + eps N(0, 1)) for eps 1e-6 and 1e-5 (generator seed 5).
+Draws the config at full width (`train_loop.init_params`, seed 0), cut to
+`--layers` layers where given, and takes the first batch of the data
+`launch.train` builds for it (`SyntheticLM` seed 0, with its context).
+Computes the loss (no gradient) five times: through the kernels, the same
+again, through the plain versions (`mode="ref"`), and through the plain
+versions with every weight multiplied by (1 + eps N(0, 1)) for eps 1e-6
+and 1e-5 (generator seed 5).
 Prints the losses and each one's relative distance from the plain loss,
 with the card's name and power limit.
 
@@ -35,14 +37,17 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--seq", type=int, default=4096)
     ap.add_argument("--train-steps", type=int, default=3)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the config to this many layers (0: all)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("lm_loss_spread: no CUDA device", file=sys.stderr)
         return 2
+    import dataclasses
     from repro_torch import configs as C
     from repro_torch.core.tree import tree_map
-    from repro_torch.data.tokens import SyntheticLM
+    from repro_torch.launch.train import data_for
     from repro_torch.models import transformer as T
     from repro_torch.train import optimizer as opt
     from repro_torch.train import train_loop as tl
@@ -52,9 +57,12 @@ def main() -> int:
                           text=True, check=True).stdout.strip()
     dev = torch.device("cuda")
     cfg = C.get(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     params = tl.init_params(cfg, 0, dev)
-    batch = {k: torch.from_numpy(a).to(dev) for k, a in SyntheticLM(
-        cfg.vocab, args.seq, args.batch, seed=0).batch(0).items()}
+    data = data_for(cfg, args.seq, args.batch)
+    batch = {k: torch.from_numpy(a).to(dev)
+             for k, a in data.batch(0).items()}
 
     @torch.no_grad()
     def loss(mode, ps):
@@ -73,7 +81,8 @@ def main() -> int:
         runs[f"plain, weights x (1 + {eps:g} N)"] = loss("ref", pert)
         del pert
     plain = runs["plain"][0]
-    print(f"{cfg.name}, batch {args.batch}, seq {args.seq}; card {card}")
+    print(f"{cfg.name} ({cfg.n_layers} layers), batch {args.batch}, seq "
+          f"{args.seq}; card {card}")
     for name, (value, sec) in runs.items():
         print(f"  {name:34s} {value:.7f}  rel {abs(value - plain) / plain:.3e}"
               f"  ({sec:.2f} s)")
@@ -81,7 +90,6 @@ def main() -> int:
     # the training run through both paths, and its batches at the initial
     # weights
     n = args.train_steps
-    data = SyntheticLM(cfg.vocab, args.seq, args.batch, seed=0)
     batches = [{k: torch.from_numpy(a).to(dev) for k, a in
                 data.batch(i).items()} for i in range(n)]
     with torch.no_grad():

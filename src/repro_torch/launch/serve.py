@@ -5,11 +5,17 @@ decode steps) and greedy token-by-token decode, as `repro.launch.serve`.
       --arch llama-3.2-vision-11b --batch 4 --prompt-len 32 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch llama-3.2-vision-11b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch moonshot-v1-16b-a3b --smoke --device cpu     # MoE
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch seamless-m4t-medium --smoke --device cpu     # encoder-decoder
 
 `--device` defaults to the card and raises without one.  Weights are
 random, drawn on the device from a seeded generator; the context (image
-patch embeddings, passed straight in as the cross-attention context) and
-the prompt come from numpy seed 0, as in the reference.
+patch or audio frame embeddings) and the prompt come from numpy seed 0, as
+in the reference.  The context goes straight in as the cross-attention
+context, an encoder-decoder model's too: as in the reference, serving runs
+no encoder.
 """
 from __future__ import annotations
 
@@ -76,7 +82,14 @@ def run(arch: str, *, smoke: bool = False, batch: int = 4,
         prompt_len: int = 32, gen: int = 16, kernel_mode: str = "auto",
         device: str = "cuda") -> ServeRun:
     """Serve one batch of random prompts with random weights (seed 0)."""
-    cfg = C.get(arch, smoke=smoke)
+    return run_config(C.get(arch, smoke=smoke), batch=batch,
+                      prompt_len=prompt_len, gen=gen,
+                      kernel_mode=kernel_mode, device=device)
+
+
+def run_config(cfg, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
+               kernel_mode: str = "auto", device: str = "cuda") -> ServeRun:
+    """`run` for a config given whole (one cut in depth, say)."""
     dev = resolve_device(device)
     params, ctx, prompt = setup(cfg, batch, prompt_len, dev)
     kv_len = prompt_len + gen

@@ -2,7 +2,9 @@
 
 `params_from_reference(tree, cfg, device)` takes the reference model's
 value tree (`repro.models.layers.split_params(init_model(...))[0]`, its
-leaves as numpy arrays) and returns the port's parameter dict for `cfg`.
+leaves as numpy arrays) and returns the port's parameter dict for `cfg`:
+its blocks (attention with an MLP or an MoE, recurrent), an encoder-decoder
+model's encoder and the frontend of a model with context tokens.
 Leaves are matched by key path, never by leaf order; every path of the
 port's layout must be present with the same shape, and a path the port does
 not have is an error.

@@ -5,22 +5,27 @@ The port of `repro/models/transformer.py`, in the reference's stacked
 layout: layer i of a model with layer period P lives in `blocks/slot{i % P}`
 at index i // P of a leading n_super axis (period lcm(pattern,
 cross_attn_every), so every slot has one structure), and a Python loop over
-n_super takes the place of `lax.scan`.  Ported: attention blocks (global,
-and local through `_windowed_attention`) with dense MLPs and
-cross-attention sublayers, and mLSTM, sLSTM and RG-LRU blocks, for the
-full-sequence forward (training) and for decoding.  MoE blocks,
-encoder-decoder models and the training forward of configs with context
-tokens raise NotImplementedError (ROADMAP Queue 1 item 7).
+n_super takes the place of `lax.scan`.  Every block kind of the reference
+is ported, for the full-sequence forward (training) and for decoding:
+attention blocks (global, and local through `_windowed_attention`) with a
+dense MLP or an MoE (`models.moe`, beside a dense MLP where the config has
+a dense residual) and cross-attention sublayers; mLSTM, sLSTM and RG-LRU
+blocks; the encoder of encoder-decoder models (non-causal attention blocks
+and a final norm, over the frontend's projection of the context) and the
+frontend stub that projects the context tokens of the others.  As in the
+reference, a decode step takes its context as `cross_ctx` as given: no
+encoder runs while serving.
 
 `forward` and `loss_fn` take the reference's `remat` (default True): each
 super-layer runs under `torch.utils.checkpoint`, so its activations are
 recomputed in the backward, as the reference's `jax.checkpoint` around
-`super_layer` recomputes them; the remainder layers keep theirs, as in the
-reference.  sLSTM blocks keep theirs too: their forward is a loop over
-time that launches per step, so recomputing it would double the step's
-host-bound part for the little memory it holds.  The checkpointed regions
-are the runs of other blocks between them.  The values are the same
-either way.
+`super_layer` recomputes them; the remainder layers and the encoder keep
+theirs, as in the reference.  sLSTM blocks keep theirs too: their forward
+is a loop over time that launches per step, so recomputing it would double
+the step's host-bound part for the little memory it holds.  The
+checkpointed regions are the runs of other blocks between them.  The
+values are the same either way: routing, the only data-dependent step, is
+a deterministic function of the block's input.
 
 Attention reaches the flash kernels (forward, and on the card the backward
 kernel through its autograd Function); cross-attention's keys and values
@@ -41,9 +46,9 @@ from ..configs.base import ModelConfig
 from ..core.tree import tree_leaves
 from ..kernels import ops as kops
 from . import layers as L
+from . import moe as M
+from . import perf
 from . import recurrent as R
-
-_PENDING = "is not ported yet: ROADMAP Queue 1 item 7"
 
 
 def _pattern(cfg: ModelConfig) -> tuple[list[str], int, int]:
@@ -70,17 +75,9 @@ _ATTN = ("attn", "local_attn")
 _RECURRENT = ("mlstm", "slstm")
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.is_encdec:
-        raise NotImplementedError(f"encoder-decoder models {_PENDING}")
-    if cfg.family == "moe":
-        raise NotImplementedError(f"MoE blocks {_PENDING}")
-
-
 def _init_block(cfg: ModelConfig, kind: str, *, with_cross: bool,
                 lead: tuple, generator: torch.Generator, device) -> dict:
     """One block's parameters, stacked on `lead` leading axes."""
-    _check_supported(cfg)
     kw = dict(generator=generator, device=device)
     ones = lambda: L.init_rms(cfg.d_model, device=device).expand(  # noqa: E731
         lead + (cfg.d_model,)).clone()
@@ -94,7 +91,11 @@ def _init_block(cfg: ModelConfig, kind: str, *, with_cross: bool,
         p = {"ln1": ones(), "attn": L.init_attention(cfg, lead=lead, **kw)}
     else:
         raise ValueError(kind)
-    if cfg.d_ff:
+    moe = cfg.family == "moe" and kind in _ATTN
+    if moe:
+        p["ln2"] = ones()
+        p["moe"] = M.init_moe(cfg, lead=lead, **kw)
+    if cfg.d_ff and (cfg.dense_residual or not moe):
         p["ln2"] = ones()
         p["mlp"] = L.init_mlp(cfg, lead=lead, **kw)
     if with_cross:
@@ -126,6 +127,11 @@ def init_model(cfg: ModelConfig, *, generator: torch.Generator,
                 with_cross=_layer_has_cross(cfg, n_super * period + i),
                 lead=(), **kw)
             for i in range(rem)}
+    if cfg.is_encdec:
+        params["enc"] = {
+            "blocks": _init_block(cfg, "attn", with_cross=False,
+                                  lead=(cfg.enc_layers,), **kw),
+            "final_norm": L.init_rms(cfg.d_model, device=device)}
     if cfg.n_context_tokens:
         # modality frontend stub: one projection of precomputed embeddings
         params["frontend"] = {"proj": L.normal(
@@ -140,74 +146,118 @@ def param_count(params: dict) -> int:
 # ---------------------------------------------------------------------------
 # Forward (training)
 # ---------------------------------------------------------------------------
+def _moe_sublayer(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x + the MoE of rms_norm(x), plus the dense MLP of the same input
+    where the config has a dense residual."""
+    h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    mo, _ = M.moe_block(p["moe"], h2, cfg)
+    if "mlp" in p:
+        mo = mo + L.mlp(p["mlp"], h2)
+    return x + mo
+
+
 def _apply_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
-                 cfg: ModelConfig, kind: str, *,
+                 cfg: ModelConfig, kind: str, *, causal: bool = True,
                  cross_ctx: torch.Tensor | None = None,
                  mode: str = "auto") -> torch.Tensor:
     """Full-sequence block application, x [B, L, D] -> x'."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "mlstm":
-        return x + R.mlstm_block(p["mix"], h, chunk=cfg.mlstm_chunk,
-                                 mode=mode)
+        return x + R.mlstm_block(
+            p["mix"], h, chunk=perf.get("mlstm_chunk", cfg.mlstm_chunk),
+            mode=mode)
     if kind == "slstm":
         return x + R.slstm_block(p["mix"], h)
     if kind == "rglru":
         x = x + R.rglru_block(p["mix"], h)
     else:
         window = cfg.window if kind == "local_attn" else None
-        a, _ = L.attention(p["attn"], h, positions, cfg=cfg, window=window,
-                           mode=mode)
+        a, _ = L.attention(p["attn"], h, positions, cfg=cfg, causal=causal,
+                           window=window, mode=mode)
         x = x + a
         if "xattn" in p and cross_ctx is not None:
             hx = L.rms_norm(x, p["lnx"], cfg.norm_eps)
             x = x + _cross_attention(p["xattn"], hx, cross_ctx, cfg, mode)
+        if "moe" in p:
+            return _moe_sublayer(p, x, cfg)
     if "mlp" in p:
         x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps))
     return x
 
 
 def _run_stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
-               cfg: ModelConfig, *, mode: str = "auto",
-               remat: bool = True) -> torch.Tensor:
+               cfg: ModelConfig, *, cross_ctx: torch.Tensor | None = None,
+               mode: str = "auto", remat: bool = True) -> torch.Tensor:
     types, n_super, rem = _pattern(cfg)
 
-    def run(x, s, slots):
+    def run(x, s, slots, cross_ctx):
         for j in slots:
             x = _apply_block(_index(params["blocks"][f"slot{j}"], s), x,
-                             positions, cfg, types[j], mode=mode)
+                             positions, cfg, types[j], cross_ctx=cross_ctx,
+                             mode=mode)
+            x = perf.constrain(x, "act_spec")
         return x
 
     # the super-layer's slots in runs, sLSTM or not: the sLSTM runs are
-    # not recomputed (see the module docstring)
+    # not recomputed (see the module docstring).  The reference's
+    # remat_policy changes what its checkpoint keeps, not a value: the port
+    # recomputes the whole run under every policy (`perf`).
     runs = [list(g) for _, g in itertools.groupby(
         range(len(types)), key=lambda j: types[j] == "slstm")]
     recompute = remat and torch.is_grad_enabled()
     for s in range(n_super):
         for slots in runs:
             if recompute and types[slots[0]] != "slstm":
-                x = torch.utils.checkpoint.checkpoint(run, x, s, slots,
-                                                      use_reentrant=False)
+                # cross_ctx (the encoder's output or the projected context)
+                # goes in as an input, so its gradient flows back through
+                # the recomputed cross-attention
+                x = torch.utils.checkpoint.checkpoint(
+                    run, x, s, slots, cross_ctx, use_reentrant=False)
             else:
-                x = run(x, s, slots)
+                x = run(x, s, slots, cross_ctx)
     for i in range(rem):
         x = _apply_block(params["rem"][f"layer{i}"], x, positions, cfg,
-                         types[i % len(types)], mode=mode)
+                         types[i % len(types)], cross_ctx=cross_ctx,
+                         mode=mode)
     return x
+
+
+def _frontend(params: dict, ctx: torch.Tensor) -> torch.Tensor:
+    """The frontend stub: a projection of precomputed patch or frame
+    embeddings [B, T, D]."""
+    return L.dense(ctx, params["frontend"]["proj"])
+
+
+def _encode(params: dict, ctx: torch.Tensor, cfg: ModelConfig,
+            mode: str) -> torch.Tensor:
+    """The encoder of an encoder-decoder model: the frontend, the encoder's
+    non-causal attention blocks (not recomputed, as the reference's encoder
+    scan has no checkpoint) and its final norm."""
+    e = _frontend(params, ctx)
+    b, t = e.shape[:2]
+    pos = torch.arange(t, dtype=torch.int32, device=e.device).expand(b, t)
+    for i in range(cfg.enc_layers):
+        e = _apply_block(_index(params["enc"]["blocks"], i), e, pos, cfg,
+                         "attn", causal=False, mode=mode)
+    return L.rms_norm(e, params["enc"]["final_norm"], cfg.norm_eps)
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig, *,
             mode: str = "auto", remat: bool = True) -> torch.Tensor:
-    """batch {"tokens" [B, S]} -> f32 logits [B, S, vocab]."""
-    _check_supported(cfg)
-    if cfg.n_context_tokens:
-        raise NotImplementedError(f"the training forward with context "
-                                  f"tokens ({cfg.name}) {_PENDING}")
+    """batch {"tokens" [B, S], and "context" [B, T, D] for a model with
+    context tokens or an encoder} -> f32 logits [B, S, vocab]."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = L.embed(params["embed"], tokens)
+    x = perf.constrain(L.embed(params["embed"], tokens), "act_spec")
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
-    x = _run_stack(params, x, positions, cfg, mode=mode, remat=remat)
+    cross_ctx = None
+    if cfg.is_encdec:
+        cross_ctx = _encode(params, batch["context"], cfg, mode)
+    elif cfg.n_context_tokens:
+        cross_ctx = _frontend(params, batch["context"])
+    x = _run_stack(params, x, positions, cfg, cross_ctx=cross_ctx, mode=mode,
+                   remat=remat)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return L.lm_logits(params["embed"], x)
 
@@ -224,7 +274,6 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 def _init_block_state(cfg: ModelConfig, kind: str, batch: int, kv_len: int,
                       *, lead: tuple, device) -> dict:
-    _check_supported(cfg)
     if kind == "mlstm":
         return R.mlstm_init_state(batch, cfg.n_heads, cfg.head_dim,
                                   lead=lead, device=device)
@@ -279,7 +328,6 @@ def _apply_block_decode(p: dict, x: torch.Tensor, pos: int, state: dict,
     """One token through one block: x [B, 1, D] -> x'.  Writes this
     position's keys and values into `state`'s caches, or the block's new
     recurrent state into `state`, in place."""
-    _check_supported(cfg)
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind in _RECURRENT + ("rglru",):
         step = {"mlstm": R.mlstm_step, "slstm": R.slstm_step,
@@ -305,6 +353,8 @@ def _apply_block_decode(p: dict, x: torch.Tensor, pos: int, state: dict,
     if "xattn" in p and cross_ctx is not None:
         hx = L.rms_norm(x, p["lnx"], cfg.norm_eps)
         x = x + _cross_attention(p["xattn"], hx, cross_ctx, cfg, mode)
+    if "moe" in p:
+        return _moe_sublayer(p, x, cfg)
     if "mlp" in p:
         x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps))
     return x

@@ -2,10 +2,12 @@
 fault-tolerance runtime around it.
 
 The port of `repro/train/train_loop.py` on one device.  The sync point is
-`float(loss)` at each step boundary, as in the reference.  Sharding and
-meshes are out of scope.  With `checkpoint_dir` the loop restores the
-latest checkpoint (`Checkpointer`), saves every `checkpoint_every` steps,
-at a preemption and at the end.
+`float(loss)` at each step boundary, as in the reference.  Every array of
+a batch (tokens, labels, and the context of a model that has one) goes to
+the device and on to `loss_fn`.  Sharding and meshes are out of scope.
+With `checkpoint_dir` the loop restores the latest checkpoint
+(`Checkpointer`), saves every `checkpoint_every` steps, at a preemption
+and at the end.
 """
 from __future__ import annotations
 

@@ -1165,6 +1165,114 @@ def test_train_smoke_on_card_goes_through_the_kernels(cuda):
     np.testing.assert_allclose(g, two_steps(cpu, "cpu"), rtol=2e-3)
 
 
+
+# ------------------------------------------------------------ MoE blocks
+def _grads_of_one_step(cfg, params, batch):
+    """The loss and every gradient of one training step's loss_fn."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models import transformer as T
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.grad = None
+    loss = T.loss_fn(params, batch, cfg)
+    loss.backward()
+    grads = [t.grad for t in leaves]
+    for t in leaves:
+        t.grad = None
+    return loss.detach(), grads
+
+
+def test_arctic_smoke_serves_and_trains_on_card(cuda):
+    """arctic-480b SMOKE (MoE with the dense residual's MLP beside it) on
+    the card: served through `launch.serve`, its teacher-forced decode
+    steps follow the CPU's within bf16 rounding (no kernel on this path:
+    the decode step's self-attention is plain, as in the reference); a
+    training step's loss follows the CPU's within 2e-3 relative, its flash
+    launches are one forward per layer, again in the recompute, and one
+    backward; two runs of the step give bit-equal gradients."""
+    from repro_torch import configs as C
+    from repro_torch.launch import serve
+    from repro_torch.launch.train import data_for
+    from repro_torch.models import transformer as T
+    from repro_torch.train import train_loop as tl
+    cfg = C.get("arctic-480b", smoke=True)
+    ops.reset_launch_counts()
+    serve.run("arctic-480b", smoke=True, batch=2, prompt_len=4, gen=4,
+              device="cuda")
+    assert ops.launch_counts()["flash_attention"] == 0
+    cpu = torch.device("cpu")
+    params, _, toks = serve.setup(cfg, 2, 4, cpu)
+    assert "mlp" in params["blocks"]["slot0"] and \
+        "moe" in params["blocks"]["slot0"]
+    gparams = tree_map(lambda t: t.to(cuda), params)
+    cst = T.init_decode_state(cfg, 2, 4, device=cpu)
+    gst = T.init_decode_state(cfg, 2, 4, device=cuda)
+    for pos in range(4):
+        tok = toks[:, pos:pos + 1]
+        cl, cst = T.decode_step(params, cst, tok, pos, cfg)
+        gl, gst = T.decode_step(gparams, gst, tok.to(cuda), pos, cfg)
+        torch.testing.assert_close(gl.cpu(), cl, rtol=3e-2, atol=3e-2)
+
+    cpu_p = tl.init_params(cfg, 0, "cpu")
+    gpu_p = tree_map(lambda t: t.detach().to(cuda).requires_grad_(True),
+                     cpu_p)
+    batch = data_for(cfg, 128, 2).batch(0)
+    ops.reset_launch_counts()
+    loss, grads = _grads_of_one_step(
+        cfg, gpu_p, {k: torch.from_numpy(a).to(cuda)
+                     for k, a in batch.items()})
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 2 * cfg.n_layers
+    assert counts["flash_attention_bwd"] == cfg.n_layers
+    loss2, grads2 = _grads_of_one_step(
+        cfg, gpu_p, {k: torch.from_numpy(a).to(cuda)
+                     for k, a in batch.items()})
+    assert torch.equal(loss, loss2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    closs, _ = _grads_of_one_step(cfg, cpu_p, tree_map(torch.from_numpy,
+                                                       batch))
+    np.testing.assert_allclose(float(loss), float(closs), rtol=2e-3)
+
+
+def test_moe_block_is_bit_equal_across_runs_on_card(cuda):
+    """moonshot-v1-16b-a3b SMOKE's MoE block on the card, [2, 64, 64] at
+    capacity factors 1.25 and 0.05 (drops): two runs give the output and
+    the gradients of x and of every leaf bit for bit, and so does a run
+    under `torch.use_deterministic_algorithms`, which warns of no
+    nondeterministic operation but cuBLAS's workspace setting."""
+    import warnings
+    from repro_torch import configs as C
+    from repro_torch.models import moe as M
+    cfg = C.get("moonshot-v1-16b-a3b", smoke=True)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = {k: t.requires_grad_(True) for k, t in M.init_moe(
+        cfg, generator=gen, device=cuda).items()}
+    x = torch.randn((2, 64, cfg.d_model), generator=gen, device=cuda,
+                    requires_grad=True)
+    ct = torch.randn((2, 64, cfg.d_model), generator=gen, device=cuda)
+
+    def run(cf):
+        out, st = M.moe_block(p, x, cfg, capacity_factor=cf)
+        grads = torch.autograd.grad(out, [x, *p.values()], ct)
+        return [out, st["dropped"], *grads]
+
+    for cf in (1.25, 0.05):
+        first = run(cf)
+        assert all(torch.equal(a, b) for a, b in zip(first, run(cf)))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                det = run(cf)
+            finally:
+                torch.use_deterministic_algorithms(False)
+        assert all(torch.equal(a, b) for a, b in zip(first, det))
+        other = [str(w.message) for w in caught
+                 if "CUBLAS_WORKSPACE_CONFIG" not in str(w.message)]
+        assert not other, other
+    assert int(run(0.05)[1]) > 0
+
+
 # --- the Pregel drivers: captured supersteps and the on-device loop ---------
 def _driver_run(name, device):
     """(graph, vprog, send, gather, kwargs) of one algorithm on the small

@@ -63,3 +63,32 @@ def test_torch_quickstart_lines():
         "top-5 by PageRank: [0, 1, 256, 128, 2]",
         "connected components: 1 (in 4 supersteps)",
         "triangles: 24411"]
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "moonshot-v1-16b-a3b"])
+def test_torch_train_lm_lines_and_resume(arch, tmp_path):
+    """examples/torch_train_lm.py on the CPU: 4 steps of the SMOKE config
+    that checkpoint, then a run to step 8 that resumes from that
+    checkpoint and takes the other 4; each prints the example's closing
+    line with a falling loss."""
+    import subprocess
+    root = EXAMPLES.parent
+    ck = str(tmp_path / "ck")
+
+    def run(steps):
+        out = subprocess.run(
+            [sys.executable, str(EXAMPLES / "torch_train_lm.py"), "--arch",
+             arch, "--steps", str(steps), "--batch", "4", "--seq", "64",
+             "--ckpt-dir", ck, "--device", "cpu"], capture_output=True,
+            text=True, timeout=300, cwd=root,
+            env={"PYTHONPATH": str(root / "src"), "PATH": "/usr/bin:/bin"})
+        assert out.returncode == 0, out.stderr
+        return out.stdout.splitlines()
+
+    line = (rf"arch={re.escape(arch)}\(smoke\) steps=4 loss "
+            r"(\d+\.\d{4}) -> (\d+\.\d{4}) in \d+\.\ds")
+    for steps, head in ((4, []), (8, ["resuming from step 4"])):
+        lines = run(steps)
+        assert lines[:-1] == head + [""], lines
+        m = re.fullmatch(line, lines[-1])
+        assert m and float(m[2]) < float(m[1]), lines[-1]

@@ -191,32 +191,51 @@ def test_serve_defaults_to_the_card(monkeypatch):
         serve.run(ARCH, smoke=True, batch=1, prompt_len=1, gen=1)
 
 
+def _paths(tree, pre=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _paths(v, pre + (k,))
+        else:
+            yield pre + (k,), v
+
+
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b",
                                   "seamless-m4t-medium"])
 def test_unported_blocks_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_model(C.get(arch, smoke=True), generator=None, device="meta")
+    """The MoE and encoder-decoder blocks, once refused, are ported: the
+    port's layout on the meta device has the reference's SMOKE tree, path
+    for path and shape for shape (moonshot's blocks carry `moe` and no
+    `mlp`; seamless has `enc` and `frontend`)."""
+    jcfg = JC.get(arch, smoke=True)
+    values, _ = JL.split_params(JT.init_model(jax.random.PRNGKey(0), jcfg))
+    layout = dict(_paths(T.init_model(C.get(arch, smoke=True),
+                                      generator=None, device="meta")))
+    want = {p: tuple(v.shape) for p, v in _paths(values)}
+    assert {p: tuple(t.shape) for p, t in layout.items()} == want
+    assert all(t.is_meta for t in layout.values())
+    if arch == "seamless-m4t-medium":
+        assert want[("enc", "blocks", "attn", "wq")][0] == jcfg.enc_layers
+    else:
+        assert ("blocks", "slot0", "moe", "wi") in want
+        assert ("blocks", "slot0", "mlp", "wi") not in want
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "stablelm-1.6b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "stablelm-1.6b",
+                                  "moonshot-v1-16b-a3b", "arctic-480b",
+                                  "seamless-m4t-medium",
+                                  "llama-3.2-vision-11b"])
 def test_params_from_reference_carries_smoke_trees(arch):
     """Every leaf of the reference's SMOKE init lands at its key path with
-    its values: the RG-LRU blocks (slot0/1, rem/layer0/1) and the local and
-    global attention blocks."""
+    its values: the RG-LRU blocks (slot0/1, rem/layer0/1), the local and
+    global attention blocks, the MoE blocks (arctic's with the dense
+    residual's MLP beside them), the encoder and the frontend."""
     jcfg = JC.get(arch, smoke=True)
     values, _ = JL.split_params(JT.init_model(jax.random.PRNGKey(1), jcfg))
     values = jax.tree.map(np.asarray, values)
     params = convert.params_from_reference(values, C.get(arch, smoke=True),
                                            "cpu")
 
-    def paths(tree, pre=()):
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                yield from paths(v, pre + (k,))
-            else:
-                yield pre + (k,), v
-
-    got, want = dict(paths(params)), dict(paths(values))
+    got, want = dict(_paths(params)), dict(_paths(values))
     assert set(got) == set(want)
     for path, v in want.items():
         np.testing.assert_array_equal(got[path].numpy(), v)
@@ -225,6 +244,12 @@ def test_params_from_reference_carries_smoke_trees(arch):
             (jcfg.d_recurrent,)
         assert got[("blocks", "slot2", "attn", "wk")].shape == \
             (1, jcfg.d_model, 1, jcfg.head_dim)
+    if arch == "arctic-480b":
+        assert got[("blocks", "slot0", "moe", "wo")].shape == \
+            (jcfg.n_layers, jcfg.n_experts, jcfg.d_ff_expert, jcfg.d_model)
+        assert ("blocks", "slot0", "mlp", "wi") in got
+    if arch in ("seamless-m4t-medium", "llama-3.2-vision-11b"):
+        assert got[("frontend", "proj")].shape == (jcfg.d_model, jcfg.d_model)
 
 
 def _window_inputs(b, hq, hkv, l, dh, seed):

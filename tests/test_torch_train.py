@@ -256,19 +256,29 @@ def test_decode_matches_forward_through_recurrent_state(ref_params, cfg):
 
 
 def test_training_refuses_what_is_not_ported(cfg, tmp_path):
-    """Checkpointing is ported (it trained and saved a snapshot); the
-    training forward with context tokens is still refused."""
+    """Checkpointing is ported (it trained and saved a snapshot), and so is
+    the training forward with context tokens, once refused: the vision
+    model's loss on a batch with its context equals the reference's."""
     d = str(tmp_path / "ck")
     out = tl.train(cfg, iter(SyntheticLM(cfg.vocab, 32, 1, seed=0)),
                    tl.TrainConfig(steps=1, checkpoint_dir=d,
                                   kernel_mode="ref"), device="cpu")
     assert out["steps"] == 1 and np.isfinite(out["final_loss"])
     assert Checkpointer(d).all_steps() == [1]
-    vlm = C.get("llama-3.2-vision-11b", smoke=True)
-    params = T.init_model(vlm, generator=None, device="cpu")
-    toks = torch.zeros((1, 8), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="context tokens"):
-        T.forward(params, {"tokens": toks}, vlm)
+    arch = "llama-3.2-vision-11b"
+    vlm, jvlm = C.get(arch, smoke=True), JC.get(arch, smoke=True)
+    values, _ = JL.split_params(JT.init_model(jax.random.PRNGKey(0), jvlm))
+    values = jax.tree.map(np.asarray, values)
+    batch = SyntheticLM(vlm.vocab, 32, 1, seed=0,
+                        context_tokens=vlm.n_context_tokens,
+                        d_model=vlm.d_model).batch(0)
+    assert batch["context"].shape == (1, vlm.n_context_tokens, vlm.d_model)
+    with torch.no_grad():
+        loss = T.loss_fn(convert.params_from_reference(values, vlm, "cpu"),
+                         tree_map(torch.from_numpy, batch), vlm)
+    jloss = JT.loss_fn(values, {k: jnp.asarray(v) for k, v in batch.items()},
+                       jvlm, mode="ref")
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=2e-3)
 
 
 def test_launch_train_cpu_smoke_output():
