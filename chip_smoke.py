@@ -240,7 +240,26 @@ Phases (any failure exits non-zero before the result line):
      step 1 again twice from the same weights and batch, the second time
      with every flash forward and backward call held in place as phase 9
      (b) holds them: bit-equal gradients; and through the plain versions,
-     whose loss must agree within `P10_LOSS_LIMIT`.
+     whose loss must agree within `P10_LOSS_LIMIT`;
+ 11. the multi-device executor (run between phases 4e and 4b, on their
+     graphs), each main-path run counted alone: (a) `SpmdExchange` at
+     world 1 over NCCL (a one-rank group in this process, P = 4 on it):
+     PageRank (10 supersteps) and CC on the graphs of phases 2 and 4,
+     delta PageRank under fig4's auto policy and PageRank over the int8
+     wire, each through `pregel` bit-equal to the `LocalExchange` run in
+     state, view, wire log, superstep count and psummed bytes, with ms a
+     superstep for both; the transpose without its local permute (a mutant
+     of core/exchange.py) must break PageRank; (b) 4 ranks on the card over
+     gloo (`utils.spmd.run_ranks`, spawned, each with its own CUDA context
+     and its rows of rmat(P11_SCALE, 16), one partition a rank): PageRank
+     and CC through `pregel`, gathered bit-equal to the `LocalExchange` run
+     on the same graph (CC also to scipy's labels), the per-superstep bytes
+     summed over the ranks equal, triplet and apply launched on every rank;
+     the checked PageRank clean (no wire fault) and with `home_rows`
+     returning arange(nl) (must fail: wire faults); (c) CC on
+     symmetrize(rmat(16, 16)) snapshotted after 2 supersteps on the 4
+     ranks and restored elastically onto 2 of them (`make_restore_mesh`),
+     reaching scipy's min-id labels.
 Phase 2 also runs spmv (the PageRank send as one SpMV through the triplet
 kernel) against its plain version and a CSR `torch.sparse.mm`, and the
 triplet kernel on the PageRank send's rows encoded by `wire.encode_resident`
@@ -3151,6 +3170,376 @@ def phase_10_train(dev, arch, layers, why, launches) -> dict:
     return out
 
 
+P11_SCALE = 18           # phase 11(b): the ranks' PageRank and CC graphs
+P11_RANKS = 4            # phase 11(b)-(c): gloo ranks on the one card
+P11_TIMEOUT = 400        # seconds phase 11's ranks may take, builds included
+P11_DIR = ROOT / "build" / "chip_smoke_p11"
+P11_REPS = 5             # phase 11's timed runs a side, after a warm-up
+# core/exchange.py without its transpose's local permute (phase 11(a)'s
+# mutant): at world 1 the exchange becomes the identity
+P11_PERMUTE = ("return recv.permute(perm).reshape((nl, self.p) + rest)",
+               "return recv.reshape((nl, self.p) + rest)")
+
+
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def p11_times(fn, dev, before=None) -> list:
+    """Seconds of P11_REPS calls of `fn` (phase 11), each less the host
+    seconds its CUDA-graph captures and their release took
+    (`core.capture.stats`): a `LocalExchange` pregel captures its
+    superstep anew every call, an `SpmdExchange` one runs eagerly.
+    `before` runs ahead of each call, untimed (the ranks' barrier)."""
+    from repro_torch.core import capture
+    out = []
+    for _ in range(P11_REPS):
+        if before is not None:
+            before()
+        c0 = capture.stats["capture_s"] + capture.stats["release_s"]
+        _sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        _sync(dev)
+        t = time.perf_counter() - t0
+        out.append(t - (capture.stats["capture_s"]
+                        + capture.stats["release_s"] - c0))
+    return out
+
+
+def p11_ms(times: list, supersteps: int) -> dict:
+    """The median and the spread of `p11_times`, in ms a superstep."""
+    import statistics
+    ms = sorted(1e3 * t / supersteps for t in times)
+    return {"median": statistics.median(ms), "min": ms[0], "max": ms[-1]}
+
+
+def p11_pagerank(gg, max_supersteps: int = PR_ITERS, **kw):
+    """PageRank, PR_ITERS supersteps, through pregel (phase 11)."""
+    import torch
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import pregel
+    return pregel(gg, alg.pagerank_vprog(0.15), alg.pagerank_send, "sum",
+                  default_msg={"m": torch.tensor(0.0)},
+                  max_supersteps=max_supersteps, skip_stale=None, **kw)
+
+
+def p11_cc(gg, max_supersteps: int = 100, **kw):
+    """Connected components to convergence through pregel (phase 11)."""
+    import torch
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import pregel
+    return pregel(gg, alg.cc_vprog, alg.cc_send, "min",
+                  default_msg={"m": torch.tensor(alg.IMAX,
+                                                 dtype=torch.int32)},
+                  max_supersteps=max_supersteps, skip_stale="out", **kw)
+
+
+def phase_11_rank(rank, world, device, path, snap_dir):
+    """One rank of phase 11(b)-(c), spawned by `utils.spmd.run_ranks` (a
+    gloo group, every rank on the one card): its rows of the graphs saved
+    at `path`, PageRank and CC through pregel over `SpmdExchange`, the
+    checked PageRank clean and under the home_rows mutant, and CC's
+    snapshot after 2 supersteps restored elastically onto ranks 0-1.
+    Returns this rank's launches by run and, on rank 0, the gathered
+    results."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import snapshot as snap_mod
+    from repro_torch.core import transport as T
+    from repro_torch.core.exchange import SpmdExchange
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import in_group, make_restore_mesh
+    from repro_torch.utils.spmd import shard
+    graphs = torch.load(path, weights_only=False)
+    ex = SpmdExchange(P)
+
+    def place(gg):
+        return shard(gg, rank, world, device=device).replace(ex=ex)
+
+    def gather(t, e=ex):
+        return e.all_gather_rows(t.contiguous())[0].cpu().numpy()
+
+    tally, out = {}, {}
+
+    def counted(label, fn):
+        ops.reset_launch_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        r = fn()
+        _sync(device)
+        tally[label] = {k: n for k, n in ops.launch_counts().items() if n}
+        return r, time.perf_counter() - t0
+
+    g_pr, sg = place(graphs["pagerank"]), place(graphs["cc"])
+    # warm-up, not counted: the group's first collectives connect its
+    # ranks, and each rank loads its kernels (timed once, cold)
+    _, out["cold 2 supersteps s"] = counted(
+        "warm-up", lambda: p11_pagerank(g_pr, max_supersteps=2))
+    del tally["warm-up"]
+    for name, gg, run in (("pagerank", g_pr, p11_pagerank),
+                          ("cc", sg, p11_cc)):
+        r, _ = counted(name, lambda gg=gg, run=run: run(
+            gg, track_metrics=True))
+        leaf = "pr" if name == "pagerank" else "cc"
+        # each superstep's bytes (exact integers) added in float64
+        mine = torch.tensor(sum(float(m["bytes_shipped"])
+                                for m in r.metrics), dtype=torch.float64)
+        out[name] = {"values": gather(r.graph.vdata[leaf]),
+                     "supersteps": r.supersteps,
+                     "bytes_shipped": float(ex.psum(mine))}
+        # the counted run was this run's warm-up; each timed one starts
+        # with the ranks together (rank 0's times are kept)
+        out[name]["s"] = p11_times(lambda gg=gg, run=run: run(gg), device,
+                                   before=dist.barrier)
+    # the integrity words salt with home_rows: a clean checked run sees no
+    # fault, and with every rank naming its row 0 (the mutant) the other
+    # ranks' words cannot verify
+    chk = T.TransportPolicy("dense", integrity=True)
+
+    def checked():
+        rr = p11_pagerank(g_pr, transport=chk, track_metrics=True)
+        return (sum(m["wire_faults"] for m in rr.metrics),
+                gather(rr.graph.vdata["pr"]))
+    out["checked"] = checked()
+    keep = SpmdExchange.home_rows
+    SpmdExchange.home_rows = lambda self, nl, device=None: torch.arange(
+        nl, dtype=torch.int32, device=device)
+    try:
+        out["home_rows mutant"] = checked()
+    finally:
+        SpmdExchange.home_rows = keep
+    # (c) CC snapshotted after 2 supersteps on 4 ranks, restored onto 2
+    r2, _ = counted("cc, 2 supersteps before the snapshot",
+                    lambda: p11_cc(place(graphs["elastic"]),
+                                   max_supersteps=2))
+    store = snap_mod.SnapshotStore(snap_dir)
+    snap_mod.save_pregel(store, 2, r2.graph, T.DENSE)
+    group = make_restore_mesh(2)
+    if in_group(group):
+        ex2 = SpmdExchange(2, group)
+        e2, start, _, _ = snap_mod.restore_pregel_elastic(
+            store, num_partitions=2, ex=ex2, device=device)
+        done, t = counted("cc, elastic restore onto 2 ranks",
+                          lambda: p11_cc(e2))
+        out["elastic"] = {"start": start, "p": e2.s.p,
+                          "supersteps": done.supersteps, "s": t,
+                          "cc": gather(done.graph.vdata["cc"], ex2),
+                          "vid": gather(e2.s.home_vid, ex2),
+                          "vmask": gather(done.graph.vmask, ex2)}
+    return {"tally": tally, "out": out if rank == 0 else None}
+
+
+def phase_11_executor(g, sg, tally):
+    """The multi-device executor (phase 11; see the docstring), each
+    main-path run counted alone into `tally`.  Returns the table it
+    logs."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import pregel, with_wire
+    from repro_torch.core import transport as T
+    from repro_torch.core.exchange import SpmdExchange
+    from repro_torch.core.graph import Graph
+    from repro_torch.data import rmat, symmetrize
+    from repro_torch.utils.spmd import run_ranks, shard
+    dev = g.device
+    kernels = ("triplet", "apply")
+    table = {}
+
+    # (a) world 1 over NCCL: every partition on this process's card
+    dvp, dch = alg.delta_pagerank_fns(0.15, DELTA_TOL)
+    g_pr = alg.attach_out_degree(g).mapV(alg._pr_init)
+    g_dl = alg.attach_out_degree(
+        g.replace(ex=with_wire(g.ex, "f32", delta=True))).mapV(
+            lambda vid, v: {**v, "pr": torch.tensor(0.15),
+                            "delta": torch.tensor(0.15)})
+    auto = T.TransportPolicy("auto", **FIG4_AUTO)
+    runs = {
+        "pagerank": (g_pr, p11_pagerank),
+        "cc": (sg.mapV(alg._cc_init), p11_cc),
+        "delta pagerank, auto (fig4)": (g_dl, lambda gg: pregel(
+            gg, dvp, alg.delta_pagerank_send, "sum",
+            default_msg={"m": torch.tensor(0.0)}, max_supersteps=DELTA_MAX,
+            skip_stale="out", changed_fn=dch, transport=auto)),
+        "pagerank, int8 wire": (g_pr.replace(ex=with_wire(g_pr.ex, "int8")),
+                                p11_pagerank)}
+    world1 = {}
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            ex1 = SpmdExchange(P)
+            if (ex1.world, ex1.nl, dist.get_backend()) != (1, P, backend):
+                raise AssertionError(f"phase 11(a): world {ex1.world}, nl "
+                                     f"{ex1.nl}, {dist.get_backend()}")
+            # warm-up, not timed: NCCL makes its communicator at the
+            # group's first collectives
+            warm = torch.zeros((P, P, 8), device=dev)
+            ex1.psum(ex1.transpose(warm).sum())
+            _sync(dev)
+            for name, (gl, run) in runs.items():
+                gs = gl.replace(ex=dataclasses.replace(ex1,
+                                                       wire=gl.ex.codec))
+                # the checked runs are each side's warm-up
+                local = run(gl)
+                spmd = main_path_run(
+                    tally, f"phase 11(a) {name}, world 1 {backend}",
+                    lambda: run(gs), launched=kernels)
+                same_run(f"phase 11(a) {name}", spmd, local)
+                psummed = float(ex1.psum(spmd.graph.wire_log.bytes_shipped
+                                         .sum()))
+                want = float(local.graph.wire_log.bytes_shipped.sum())
+                if spmd.supersteps != local.supersteps or psummed != want:
+                    raise AssertionError(
+                        f"phase 11(a) {name}: {spmd.supersteps} supersteps, "
+                        f"{psummed} bytes; LocalExchange {local.supersteps}, "
+                        f"{want}")
+                steps = spmd.supersteps
+                world1[name] = {
+                    "supersteps": steps, "bytes_shipped": psummed,
+                    "ms_per_superstep_spmd": p11_ms(
+                        p11_times(lambda: run(gs), dev), steps),
+                    "ms_per_superstep_local": p11_ms(
+                        p11_times(lambda: run(gl), dev), steps)}
+                if name == "pagerank":
+                    want_pr = local.graph.vdata["pr"]
+                del local, spmd
+            # the mutant: the transpose without its local permute
+            mut = edited_module("repro_torch.core.exchange", *P11_PERMUTE)
+            bad, _ = eager_pregel(
+                g_pr.replace(ex=mut.SpmdExchange(P)),
+                alg.pagerank_vprog(0.15), alg.pagerank_send, "sum",
+                default_msg={"m": torch.tensor(0.0)},
+                max_supersteps=PR_ITERS, skip_stale=None)
+            if torch.equal(bad.vdata["pr"], want_pr):
+                raise AssertionError("phase 11(a): the transpose without its "
+                                     "local permute passed the check")
+            world1["mutant (no local permute)"] = "fails: ranks differ"
+            del bad, want_pr
+        finally:
+            dist.destroy_process_group()
+    world1["note"] = (f"median of {P11_REPS} runs a side after a warm-up "
+                      "run; pregel over SpmdExchange runs its supersteps "
+                      "eagerly; over LocalExchange it replays a captured "
+                      "CUDA graph after superstep 1, and its times leave "
+                      "the capture out")
+    table["(a) world 1"] = world1
+
+    # (b)-(c) four gloo ranks on the one card
+    t0 = time.perf_counter()
+    gd = rmat(P11_SCALE, 16, seed=0)
+    sgd = symmetrize(rmat(P11_SCALE, 16, seed=1))
+    egd = symmetrize(rmat(ELASTIC_SCALE, 16, seed=1))
+
+    def host(d):
+        return Graph.from_edges(d.src, d.dst, num_partitions=P, device="cpu")
+    cpu = {"pagerank": alg.attach_out_degree(
+               host(gd), kernel_mode="ref").mapV(alg._pr_init),
+           "cc": host(sgd).mapV(alg._cc_init),
+           "elastic": host(egd).mapV(alg._cc_init)}
+    shutil.rmtree(P11_DIR, ignore_errors=True)
+    P11_DIR.mkdir(parents=True)
+    path = P11_DIR / "graphs.pt"
+    torch.save({k: v.replace(host=None) for k, v in cpu.items()}, path)
+    t_build = time.perf_counter() - t0
+    # the same graphs over LocalExchange on this card
+    want = {}
+    for name, run, leaf in (("pagerank", p11_pagerank, "pr"),
+                            ("cc", p11_cc, "cc")):
+        gl = shard(cpu[name], 0, 1, device=dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        r = run(gl, track_metrics=True)          # also the warm-up
+        _sync(dev)
+        t_first = time.perf_counter() - t0
+        want[name] = (r.graph.vdata[leaf].cpu().numpy(), r.supersteps,
+                      p11_times(lambda: run(gl), dev),
+                      sum(float(m["bytes_shipped"]) for m in r.metrics),
+                      t_first)
+        del r, gl
+    t0 = time.perf_counter()
+    res = run_ranks(phase_11_rank, P11_RANKS,
+                    args=(str(path), str(P11_DIR / "snap")),
+                    backend="gloo", device=dev.type, timeout=P11_TIMEOUT)
+    t_ranks = time.perf_counter() - t0
+    out = res[0]["out"]
+    ranks = {}
+    for name in ("pagerank", "cc"):
+        vals, steps, t_local, bytes_local, t_first = want[name]
+        got = out[name]
+        if not (np.array_equal(got["values"], vals)
+                and got["values"].dtype == vals.dtype
+                and got["supersteps"] == steps
+                and got["bytes_shipped"] == bytes_local):
+            raise AssertionError(f"phase 11(b) {name}: the {P11_RANKS} "
+                                 "ranks' gathered run differs from "
+                                 "LocalExchange's")
+        for r, rr in enumerate(res):
+            if any(rr["tally"][name].get(k, 0) <= 0 for k in kernels):
+                raise AssertionError(f"phase 11(b) {name}: rank {r} "
+                                     f"launched {rr['tally'][name]}")
+        ranks[name] = {"supersteps": steps,
+                       "bytes_shipped": got["bytes_shipped"],
+                       "ms_per_superstep_ranks": p11_ms(got["s"], steps),
+                       "ms_per_superstep_local": p11_ms(t_local, steps),
+                       "ms_per_superstep_local_first_run_capture_in":
+                           1e3 * t_first / steps}
+    cc_ids = cpu["cc"].s.home_vid.numpy()[cpu["cc"].vmask.numpy()]
+    cc_got = out["cc"]["values"][cpu["cc"].vmask.numpy()]
+    if not np.array_equal(cc_got, min_id_labels(sgd.num_vertices, sgd.src,
+                                                sgd.dst, cc_ids)):
+        raise AssertionError("phase 11(b) cc: labels differ from scipy's")
+    faults, pr_chk = out["checked"]
+    if faults or not np.array_equal(pr_chk, want["pagerank"][0]):
+        raise AssertionError(f"phase 11(b): a clean checked run saw "
+                             f"{faults} faults")
+    faults_mut, pr_mut = out["home_rows mutant"]
+    if faults_mut <= 0:
+        raise AssertionError("phase 11(b): home_rows returning arange(nl) "
+                             "passed the integrity check")
+    ranks["checked pagerank"] = {
+        "wire_faults clean": faults, "home_rows mutant": f"fails: "
+        f"{faults_mut} wire faults a rank, values still exact "
+        f"{bool(np.array_equal(pr_mut, want['pagerank'][0]))}"}
+    el = out["elastic"]
+    ids = el["vid"][el["vmask"]]
+    if (el["start"], el["p"]) != (2, 2) or not np.array_equal(
+            el["cc"][el["vmask"]],
+            min_id_labels(egd.num_vertices, egd.src, egd.dst, ids)):
+        raise AssertionError("phase 11(c): the elastic restore's labels "
+                             "differ from scipy's")
+    ranks["(c) elastic cc"] = {
+        "graph": f"symmetrize(rmat({ELASTIC_SCALE},16))",
+        "snapshot after": 2, "supersteps after": el["supersteps"],
+        "s": el["s"]}
+    ranks["rank 0's cold warm-up, ms a superstep (2 supersteps)"] = \
+        1e3 * out["cold 2 supersteps s"] / 2
+    ranks["note"] = (f"median of {P11_REPS} runs a side after a warm-up "
+                     "run, rank 0's clock, each run started at a barrier; "
+                     "the LocalExchange times leave the capture out")
+    ranks["host build s"] = t_build
+    ranks["ranks s (spawn, load, runs)"] = t_ranks
+    for label in res[0]["tally"]:
+        summed = {}
+        for rr in res:
+            for k, n in rr["tally"].get(label, {}).items():
+                summed[k] = summed.get(k, 0) + n
+        tally[f"phase 11(b) {label}, {P11_RANKS} gloo ranks"] = summed
+    table[f"(b)-(c) {P11_RANKS} gloo ranks on one card"] = ranks
+    shutil.rmtree(P11_DIR, ignore_errors=True)
+    return table
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3965,6 +4354,25 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  phase 4e: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---------------------------------------------------------- phase 11
+    t_phase = time.perf_counter()
+    log("phase 11: the multi-device executor (SpmdExchange at world 1 over "
+        f"NCCL on the graphs of phases 2 and 4; {P11_RANKS} gloo ranks on "
+        f"the card on rmat({P11_SCALE},16); an elastic restore onto 2 "
+        "ranks); " + card)
+    tally_11 = {}
+    log("  phase 11: " + json.dumps(phase_11_executor(g, sg, tally_11)))
+    log("  phase 11 launches, each main-path run counted alone (ranks "
+        "summed):")
+    for label, counts in tally_11.items():
+        log(f"    {label}: " + ", ".join(
+            f"{k} {counts.get(k, 0)}" for k in ("triplet", "apply")))
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 11: {time.perf_counter() - t_phase:.1f} s")
 
     # ---------------------------------------------------------- phase 4b
     t_phase = time.perf_counter()

@@ -91,7 +91,9 @@ def shuffle_by_key(keys: torch.Tensor, values: Any, mask: torch.Tensor,
     """Route each live (k, v) to partition hash(k) % P.  Returns (keys',
     values', mask', overflow): [nl, P * capacity] buffers, source-major, in
     each source's stable key-hash order; dead slots hold KEY_PAD and zeros;
-    overflow (int32, on the device) counts the entries past `capacity`."""
+    overflow (int32, on the device) counts the entries past `capacity`, over
+    the whole group under a multi-process executor (`ex.psum`), so every
+    rank that checks it decides alike."""
     p = ex.p
     nl, n = keys.shape
     dest = torch.where(mask, hash_mod_t(keys, p, salt), p)   # padding -> p
@@ -99,7 +101,7 @@ def shuffle_by_key(keys: torch.Tensor, values: Any, mask: torch.Tensor,
     first = torch.searchsorted(dest_sorted, dest_sorted, right=False)
     pos = torch.arange(n, device=keys.device) - first
     real = dest_sorted < p
-    overflow = ((pos >= capacity) & real).sum(dtype=torch.int32)
+    overflow = ex.psum(((pos >= capacity) & real).sum(dtype=torch.int32))
     fits = pos < capacity
     # entries past capacity and padding land in row p, which is cut off
     row = torch.where(real & fits, dest_sorted, p).long()

@@ -27,9 +27,14 @@ decisions without advancing the counter.  Calls outside a bracket decide
 each time, as the reference's eager calls do.  `new_scope()` forgets the
 programs: each driver call is a new jit in the reference.
 
-`psum` is never corrupted: plan decisions (overflow, verdicts) must stay
-uniform across the mesh.  `all_gather_rows` is not wrapped, as in the
-reference, so the base method raises under the injector.
+`psum` and `pmax` are never corrupted: plan decisions (overflow,
+verdicts) must stay uniform across the mesh.  Around an `SpmdExchange`
+each rank wraps its own executor; the ranks run the same collectives in
+the same order, so their counters agree and a plan hits the same calls on
+every rank, and a `route` names global partitions (`home_rows`), so only
+the rank that holds the receiver corrupts its block.  `all_gather_rows`
+is not wrapped, as in the reference, so the base method raises under the
+injector.
 """
 from __future__ import annotations
 
@@ -146,6 +151,9 @@ class FaultyExchange(Exchange):
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         return self.inner.psum(x)
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        return self.inner.pmax(x)
 
     def home_rows(self, nl: int, device=None) -> torch.Tensor:
         return self.inner.home_rows(nl, device=device)

@@ -306,13 +306,19 @@ def run_chain(g, steps, *, optimize: bool = True, transport: Any = None
         else:
             raise TypeError(f"unknown chain step {st!r}")
 
+        # each figure over the whole group (a multi-process executor's
+        # ranks must plan alike): occupancies by maximum, counts by sum
+        ex = g.ex
         if tp_spec.kind == "auto" and m is not None:
             fwd, back = m["fwd"], m["back"]
             rows = view_mod.dirty_rows(g.view)
+            dev = g.vmask.device
             occ, back_occ, af, nvis, bs = _host_floats(
-                fwd.route_active_max, back.route_active_max,
-                0 if rows is None else rows.sum(), g.vmask.sum(),
-                g.bytes_shipped)
+                ex.pmax(torch.as_tensor(fwd.route_active_max, device=dev)),
+                ex.pmax(torch.as_tensor(back.route_active_max, device=dev)),
+                ex.psum(torch.as_tensor(0 if rows is None else rows.sum(),
+                                        device=dev)),
+                ex.psum(g.vmask.sum()), ex.psum(g.bytes_shipped))
             cur_tp = transport_mod.adapt_policy(
                 tp_spec, was_ragged=cur_tp.kind == "ragged",
                 active_frac=af / max(nvis, 1.0),
@@ -320,7 +326,7 @@ def run_chain(g, steps, *, optimize: bool = True, transport: Any = None
                 back_frac=back_occ / max(back.route_width, 1))
             rec["transport_next"] = cur_tp.kind
         else:
-            bs = float(g.bytes_shipped)
+            bs = float(ex.psum(g.bytes_shipped))
         rec["bytes_shipped_total"] = bs
         recs.append(rec)
     return ChainResult(graph=g, outputs=outputs, step_metrics=recs)

@@ -38,6 +38,13 @@ snapshots (`checkpoint`, `checkpoint_every`, `guard`, `resume`,
 drivers bracket each superstep with the key of the program the
 reference's jit would run, for a fault injector (`core/fault.py`) that
 counts collectives as the reference traces them.
+
+A graph sharded over an `SpmdExchange` (`core/shard.py`: one process a
+rank) runs through `pregel` on every rank: its supersteps run eagerly (a
+collective through the host is no CUDA graph), and the host's read of a
+superstep is taken over the group, the live counts summed and the
+occupancies maximised, so every rank halts and re-plans alike.
+`pregel_fused` halts on each rank's device and refuses such a graph.
 """
 from __future__ import annotations
 
@@ -55,6 +62,7 @@ from . import snapshot as snapshot_mod
 from . import spill as spill_mod
 from . import transport as transport_mod
 from . import view as view_mod
+from .exchange import spmd_of
 from .graph import Graph
 from .mrtriplets import (_derive_need, _plan_apply, apply_plan_of,
                          fused_apply_home, mr_triplets, plan_of)
@@ -210,6 +218,15 @@ def _occupancy(vals: list, metrics: dict):
     return occ
 
 
+def _over_group(ex, prog: torch.Tensor, watch: bool) -> torch.Tensor:
+    """`_progress`'s read over every rank of a multi-process executor: the
+    live counts add; the overflow flags (uniform already) and the
+    occupancies take the maximum."""
+    if not watch:
+        return ex.psum(prog)
+    return torch.cat([ex.psum(prog[:1]), ex.pmax(prog[1:])])
+
+
 def _bracket(ex, key):
     """A fault injector's program bracket (`core.fault`); a real executor
     has none."""
@@ -322,17 +339,20 @@ def pregel(g: Graph, vprog: Callable, send_msg: Callable,
             g, working_set_frac))
         g = ring.own(g)
     ex = g.ex
+    spmd = spmd_of(ex)
     if hasattr(ex, "new_scope"):
         ex.new_scope()           # a new driver call: a new jit
     watch = tp.kind != "dense"
     plans_seen = {cur_tp}
-    n_visible = max(int(g.vmask.sum()), 1) if auto else 1
+    n_visible = max(int(ex.psum(g.vmask.sum())), 1) if auto else 1
     caps0 = dict(capture_mod.stats)
     all_metrics: list[dict] = []
 
     def record(gs: Graph, prog, metrics) -> tuple[int, list]:
         """Read `prog` once; the live count, the values; the metrics too if
-        tracked."""
+        tracked (a rank's own under a multi-process executor)."""
+        if spmd is not None:
+            prog = _over_group(ex, prog, watch)
         vals = prog.tolist() if watch else [int(prog)]
         n_live = int(vals[0])
         over = vals[1] if watch else 0.0
@@ -384,6 +404,10 @@ def pregel(g: Graph, vprog: Callable, send_msg: Callable,
         if store is None:
             return False
         preempt = guard is not None and getattr(guard, "requested", False)
+        if spmd is not None:
+            # one rank's preemption snapshots and stops every rank
+            preempt = bool(ex.psum(torch.tensor(int(preempt),
+                                                device=gs.device)))
         due = (checkpoint_every is not None
                and (it + 1 - start) % checkpoint_every == 0)
         if due or preempt:
@@ -415,7 +439,7 @@ def pregel(g: Graph, vprog: Callable, send_msg: Callable,
         return finish(g, steps)
 
     g1 = g
-    capture = _captures(g.device, kernel_mode)
+    capture = _captures(g.device, kernel_mode) and spmd is None
     replays: dict = {}
     rep = None
 
@@ -492,6 +516,9 @@ def pregel_fused(g: Graph, vprog: Callable, send_msg: Callable,
     transport: one policy for the whole run (no host re-plan): an "auto"
     policy keeps its static capacity and switches dense / ragged each
     superstep on the device, its previous decision riding the carry."""
+    if spmd_of(g.ex) is not None:
+        raise ValueError("pregel_fused halts on each rank's device; run a "
+                         "graph over an SpmdExchange through pregel")
     tp = transport_mod.resolve_transport(transport)
     auto = tp.kind == "auto"
     step = _step_fn(g, vprog, send_msg, gather, default_msg=default_msg,

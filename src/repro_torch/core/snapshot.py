@@ -22,6 +22,13 @@ goes in the manifest, the live count and the concrete transport policy of
 the next superstep), and `restore_pregel_elastic` rebuilds the graph on
 another partition count from the edge list and per-id vertex facts (the
 view comes back cold).
+
+A graph sharded over an `SpmdExchange` (`core/shard.py`) snapshots whole:
+`save_pregel` gathers it to rank 0 (a collective every rank joins; no
+other rank holds the global graph), which writes the files a
+`LocalExchange` run of the same graph would write; the restores read those
+files on every rank and keep the rank's rows, so a snapshot taken on one
+world restores on another.
 """
 from __future__ import annotations
 
@@ -35,10 +42,12 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 from . import partition as part_mod
 from . import wire as wire_mod
+from .exchange import spmd_of
 from .transport import TransportPolicy
 from .tree import tree_flatten, tree_flatten_with_path, tree_leaves
 from .view import GraphView, WireLog
@@ -228,16 +237,22 @@ def _named_leaves(prefix: str, tree) -> dict:
 
 
 class _Reader:
-    """Tensors of one read snapshot on one device."""
+    """Tensors of one read snapshot on one device; with `rows`, only those
+    rows of each [P, ...] array (a rank's share of a sharded graph)."""
 
-    def __init__(self, arrays: dict, manifest: dict, device):
+    def __init__(self, arrays: dict, manifest: dict, device,
+                 rows: slice | None = None):
         self.arrays = arrays
         self.dtypes = {k: v["dtype"]
                        for k, v in manifest.get("leaves", {}).items()}
         self.device = device
+        self.rows = rows
 
     def __call__(self, key: str) -> torch.Tensor:
-        return to_tensor(self.arrays[key], self.dtypes.get(key), self.device)
+        arr = self.arrays[key]
+        if self.rows is not None:
+            arr = arr[self.rows]
+        return to_tensor(arr, self.dtypes.get(key), self.device)
 
     def like(self, like, prefix: str):
         """A pytree in `like`'s structure from prefixed shard names."""
@@ -310,14 +325,24 @@ def save_pregel(store: SnapshotStore, step: int, g, policy=None, *,
                 elastic: bool = True) -> None:
     """Snapshot the Pregel carry at a superstep boundary: `step` is the next
     superstep to run, `policy` the concrete transport it would run with
-    (adapt_policy's output)."""
-    arrays, manifest = graph_arrays(g, elastic=elastic)
-    manifest["kind"] = "pregel"
-    manifest["superstep"] = int(step)
-    manifest["live"] = None if live is None else int(live)
-    manifest["policy"] = (None if policy is None
-                          else dataclasses.asdict(policy))
-    store.write(step, arrays, manifest, blocking=blocking)
+    (adapt_policy's output).  A sharded graph is gathered to rank 0 and
+    written there, blocking; every rank returns once the files are
+    committed."""
+    spmd = spmd_of(g.ex)
+    if spmd is not None:
+        from .shard import unshard      # shard.py imports graph.py
+        g = unshard(g, spmd.group, dst=0)
+        blocking = True
+    if g is not None:
+        arrays, manifest = graph_arrays(g, elastic=elastic)
+        manifest["kind"] = "pregel"
+        manifest["superstep"] = int(step)
+        manifest["live"] = None if live is None else int(live)
+        manifest["policy"] = (None if policy is None
+                              else dataclasses.asdict(policy))
+        store.write(step, arrays, manifest, blocking=blocking)
+    if spmd is not None:
+        dist.barrier(group=spmd.group)
 
 
 def _manifest_policy(manifest: dict) -> TransportPolicy | None:
@@ -344,14 +369,18 @@ def restore_pregel(store: SnapshotStore, like, step: int | None = None):
     """Warm restore onto the same partition count: the Graph in `like`'s
     structure (its structure, host build and executor shared: a resumed
     process rebuilds the same structure deterministically), the view
-    included, on `like`'s device.  Returns (graph, next_superstep, policy,
-    live)."""
+    included, on `like`'s device.  A sharded `like` takes its rank's rows.
+    Returns (graph, next_superstep, policy, live)."""
     step, arrays, manifest = _read_latest(store, step)
     if int(manifest["p"]) != int(like.s.p):
         raise ValueError(
             f"snapshot has p={manifest['p']}, this graph has p={like.s.p}; "
             "use restore_pregel_elastic to re-shard")
-    rd = _Reader(arrays, manifest, like.device)
+    spmd, rows = spmd_of(like.ex), None
+    if spmd is not None:
+        nl = like.vmask.shape[0]
+        rows = slice(spmd.rank * nl, (spmd.rank + 1) * nl)
+    rd = _Reader(arrays, manifest, like.device, rows)
     vdata = rd.like(like.vdata, "vdata")
     edata = rd.like(like.edata, "edata")
     view = None
@@ -398,9 +427,11 @@ def restore_pregel_elastic(store: SnapshotStore, *, num_partitions: int,
     `Graph.from_edges` from the snapshot's edge list and per-id vertex
     facts, then place vmask / active by vertex id.  The view comes back
     cold (mirror slots are facts of one layout).  `device`: the card
-    unless the caller asks for the CPU.  Returns (graph, next_superstep,
-    policy, live)."""
-    from .graph import Graph       # graph.py imports this module's users
+    unless the caller asks for the CPU.  Under an `SpmdExchange` `ex` each
+    rank rebuilds the graph on the host and moves only its own rows to
+    `device`.  Returns (graph, next_superstep, policy, live)."""
+    from .graph import Graph, resolve_device   # graph.py imports this
+    from .shard import shard                   # module's users
 
     step, arrays, manifest = _read_latest(store, step)
     if "elastic/src" not in arrays:
@@ -412,21 +443,24 @@ def restore_pregel_elastic(store: SnapshotStore, *, num_partitions: int,
              for n in el["vdata"]}
     default = {n: np.zeros(v.shape[1:], v.dtype) for n, v in vvals.items()}
     edata = {n: arrays[f"elastic/edata/{n}"] for n in el["edata"]}
+    spmd = spmd_of(ex)
+    dev = resolve_device(device)
     g = Graph.from_edges(
         arrays["elastic/src"], arrays["elastic/dst"], edge_values=edata,
         vertex_keys=vk, vertex_values=vvals, default_vertex=default,
         num_partitions=num_partitions, partitioner=partitioner,
-        device=device)
+        device="cpu" if spmd is not None else dev)
     if ex is not None:
         g = g.replace(ex=ex)
     vmask = part_mod.place_vertex_rows(
         g.host, vk, arrays["vmask"][home_mask], fill=False)
     active = part_mod.place_vertex_rows(
         g.host, vk, arrays["active"][home_mask], fill=False)
-    dev = g.device
     g = g.replace(
-        vmask=torch.from_numpy(vmask).to(dev) & g.s.home_mask,
-        active=torch.from_numpy(active).to(dev), view=None,
+        vmask=torch.from_numpy(vmask).to(g.device) & g.s.home_mask,
+        active=torch.from_numpy(active).to(g.device), view=None,
         vmask_full=bool(manifest["vmask_full"]))
+    if spmd is not None:
+        g = shard(g, spmd.rank, spmd.world, device=dev)
     return g, int(manifest.get("superstep", step)), \
         _manifest_policy(manifest), manifest.get("live")

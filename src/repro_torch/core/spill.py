@@ -14,6 +14,12 @@ vote-to-halt loop keeps, and keeps the hottest `f` of them resident:
     and scatter into the same rows in place.  Values round-trip bit for
     bit, so the superstep is unchanged.
 
+On a graph sharded over an `SpmdExchange` (`core/shard.py`) each rank
+keeps a ring over its own rows: the plan is the global graph's, restricted
+to the rank's rows, and the coldest cells are chosen from the gathered
+active mask, so the cells spilled, and the resident and streamed bytes
+summed over the ranks, are those of the unsharded graph.
+
 In place, because the drivers' replays read the carry from their own
 buffers: a spill that returned new tensors would leave a replay reading
 stale rows.  The ring never writes a tensor the caller handed in
@@ -34,6 +40,7 @@ import time
 import numpy as np
 import torch
 
+from .exchange import spmd_of
 from .tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 # NVIDIA H100 80GB HBM3 (SXM, 700 W power limit): the device memory rate
@@ -76,6 +83,8 @@ class SpillPlan:
     block: int              # rows per cell
     n_cells: int            # cells per partition row
     n_cold: int             # cells spilled per rotation (global)
+    row0: int = 0           # the first of the rows this executor holds
+    rows: int | None = None  # how many it holds (None: all nl)
 
     @property
     def n_total(self) -> int:
@@ -88,6 +97,11 @@ def plan_spill(g, working_set_frac: float,
         raise ValueError(
             f"working_set_frac must be in (0, 1], got {working_set_frac}")
     nl, v_blk = g.active.shape
+    spmd = spmd_of(getattr(g, "ex", None))
+    row0, rows = 0, None
+    if spmd is not None:
+        # a rank's share of a sharded graph: the global plan, its rows
+        row0, rows, nl = spmd.rank * nl, nl, spmd.p
     # granularity guard: halve the cell until each partition row has at
     # least 4 cells (floor 64 rows), so "the coldest half" is not a stub
     while block > 64 and -(-v_blk // block) < 4:
@@ -96,7 +110,8 @@ def plan_spill(g, working_set_frac: float,
     total = nl * n_cells
     n_cold = total - max(int(np.ceil(working_set_frac * total)), 1)
     return SpillPlan(nl=nl, v_blk=v_blk, block=block,
-                     n_cells=n_cells, n_cold=max(n_cold, 0))
+                     n_cells=n_cells, n_cold=max(n_cold, 0), row0=row0,
+                     rows=rows)
 
 
 def choose_cold(plan: SpillPlan, active: np.ndarray) -> list[tuple[int, int]]:
@@ -122,11 +137,13 @@ def choose_cold(plan: SpillPlan, active: np.ndarray) -> list[tuple[int, int]]:
 
 
 def _cold_rows(plan: SpillPlan, cold) -> np.ndarray:
-    """Flat row indices (partition * v_blk + row) of the cold cells, in
-    the order they are stored."""
-    out = [l * plan.v_blk + np.arange(c * plan.block,
-                                      min((c + 1) * plan.block, plan.v_blk))
-           for l, c in sorted(cold)]
+    """Flat row indices (local partition * v_blk + row) of the cold cells
+    this executor holds, in the order they are stored."""
+    lo = plan.row0
+    hi = lo + (plan.nl if plan.rows is None else plan.rows)
+    out = [(l - lo) * plan.v_blk
+           + np.arange(c * plan.block, min((c + 1) * plan.block, plan.v_blk))
+           for l, c in sorted(cold) if lo <= l < hi]
     return (np.concatenate(out) if out else np.empty(0, np.int64)).astype(
         np.int64)
 
@@ -236,7 +253,9 @@ class SpillRing:
         leaves, _ = tree_flatten(g.vdata)
         dev = leaves[0].device
         t0 = self._tick(dev)
-        cold = choose_cold(self.plan, g.active.cpu().numpy())
+        active = (g.active if self.plan.rows is None
+                  else g.ex.all_gather_rows(g.active)[0])
+        cold = choose_cold(self.plan, active.cpu().numpy())
         rows = torch.from_numpy(_cold_rows(self.plan, cold)).to(dev)
         store = []
         for leaf in leaves:

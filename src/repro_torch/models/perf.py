@@ -18,8 +18,10 @@ Knobs that change something here:
 "nothing", dot products otherwise.  The port recomputes whole super-layers
 under either (`transformer._run_stack`), so both give the same values and
 the port reads nothing from it.  The sharding knobs (`act_spec`,
-`moe_dispatch_spec`, `moe_expert_axis`) need a mesh, which the port does
-not have yet: `options(mesh=...)` raises, and `constrain` is the identity.
+`moe_dispatch_spec`, `moe_expert_axis`) need the LM's mesh, which the port
+does not have yet (the graph engine's process groups are
+`launch/mesh.py`'s): `options(mesh=...)` raises, and `constrain` is the
+identity.
 """
 from __future__ import annotations
 
@@ -37,8 +39,9 @@ def get(name: str, default=None):
 @contextlib.contextmanager
 def options(**kw):
     if kw.get("mesh") is not None:
-        raise NotImplementedError("a device mesh is not ported yet: ROADMAP "
-                                  "Queue 1 item 3 (multi-device)")
+        raise NotImplementedError("the LM's device mesh is not ported yet: "
+                                  "ROADMAP Queue 1 item 4 (the LM mesh and "
+                                  "sharding rules, with the XLA tooling)")
     tok = _OPTS.set({**_OPTS.get(), **kw})
     try:
         yield

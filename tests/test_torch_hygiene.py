@@ -31,7 +31,9 @@ def test_port_imports_neither_jax_nor_reference():
               "repro_torch.kernels.spmv", "repro_torch.models.recurrent",
               "repro_torch.train.optimizer", "repro_torch.train.fault",
               "repro_torch.train.train_loop", "repro_torch.data.tokens",
-              "repro_torch.launch.train"):
+              "repro_torch.launch.train", "repro_torch.core.exchange",
+              "repro_torch.utils.spmd", "repro_torch.launch.mesh",
+              "repro_torch.core.shard"):
         assert m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -217,6 +217,6 @@ def test_perf_options_scope_and_refuse_a_mesh():
     assert perf.get("moe_capacity_factor", 1.25) == 1.25
     x = torch.ones(3)
     assert perf.constrain(x, "act_spec") is x
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         with perf.options(mesh=object()):
             pass
